@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the label-wise-clustering FL system (``repro``).
+
+The package mirrors ``repro`` module for module and imports neither ``jax``
+nor ``repro``.  Entry points take ``device=None``, which means ``"cuda"``;
+without a card they raise unless the caller passes ``device="cpu"``.  The two
+kernels of the FL round (label histograms and the weighted client sum) are
+hand-written CUDA for Hopper under ``kernels/``.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,68 @@
+"""Class-conditional synthetic images (offline stand-ins for MNIST/FMNIST).
+
+Class k is a fixed random smooth template T_k plus Gaussian noise.  The
+templates come from NumPy (seed 1234) and are bit-equal to the reference's;
+the noise is drawn from a ``torch.Generator`` on the dataset's device, so its
+numbers differ from the reference's JAX draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+def image_templates(num_classes: int, image_size: int, channels: int,
+                    seed: int) -> np.ndarray:
+    """(C, H, W, channels) float32 class templates: normal noise smoothed by a
+    wrapped 5×5 box filter, then standardized."""
+    rng = np.random.default_rng(seed)
+    raw = rng.normal(size=(num_classes, image_size, image_size, channels))
+    k = 5
+    pad = k // 2
+    padded = np.pad(raw, ((0, 0), (pad, pad), (pad, pad), (0, 0)), mode="wrap")
+    smooth = np.zeros_like(raw)
+    for dy in range(k):
+        for dx in range(k):
+            smooth += padded[:, dy:dy + image_size, dx:dx + image_size]
+    smooth /= k * k
+    smooth = (smooth - smooth.mean()) / (smooth.std() + 1e-9)
+    return smooth.astype(np.float32)
+
+
+@dataclasses.dataclass
+class ImageDataset:
+    """Class-conditional image sampler; images are NHWC, as in the reference."""
+    num_classes: int = 10
+    image_size: int = 28
+    channels: int = 1
+    noise: float = 0.35
+    seed: int = 1234
+    device: "str | torch.device | None" = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.templates = torch.from_numpy(image_templates(
+            self.num_classes, self.image_size, self.channels,
+            self.seed)).to(self.device)
+
+    def sample(self, generator: Optional[torch.Generator],
+               labels: torch.Tensor) -> torch.Tensor:
+        """labels (...,) int -> images (..., H, W, C); label −1 -> zeros."""
+        labels = torch.as_tensor(labels, dtype=torch.int32, device=self.device)
+        base = self.templates[torch.clamp(labels, min=0)]
+        noise = torch.randn(base.shape, generator=generator,
+                            device=self.device) * self.noise
+        return (base + noise) * (labels >= 0)[..., None, None, None]
+
+    def test_set(self, n_per_class: int = 50,
+                 seed: int = 999) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A fixed held-out set, drawn from its own generator."""
+        labels = torch.arange(self.num_classes, dtype=torch.int32,
+                              device=self.device).repeat(n_per_class)
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        return self.sample(g, labels), labels

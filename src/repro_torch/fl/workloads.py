@@ -1,0 +1,110 @@
+"""Client workloads: what each FL client trains.
+
+A :class:`Workload` bundles what the round loop needs to run one model family
+over one label-conditioned synthetic data source.  This slice of the port
+registers the paper's ``cnn`` workload; the ``lm`` workload comes with the LM
+slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..data import ImageDataset, materialize_round
+from ..models import cnn_init, cnn_loss
+
+Params = Dict[str, torch.Tensor]
+Batch = Dict[str, torch.Tensor]
+LossFn = Callable[[Params, Batch], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """One client workload.
+
+    * ``make_dataset(device)`` — the default dataset on ``device``;
+    * ``init(generator, ds)`` — parameter init on the dataset's device;
+    * ``make_loss(ds)`` — ``loss(params, batch) -> (scalar, aux)`` over one
+      client minibatch;
+    * ``materialize(ds, plan_t, generator)`` — (N, n_max) label plan row ->
+      round batch with ``labels``, ``valid``, ``hists`` and the payload leaves
+      named in ``batch_keys``;
+    * ``eval_set(ds, n_per_class)`` / ``make_eval(ds)`` — held-out batch and
+      ``eval(params, batch) -> (loss, {"accuracy": ...})``;
+    * ``num_classes(ds)`` — histogram width."""
+    name: str
+    make_dataset: Callable[[Any], Any]
+    init: Callable[[Optional[torch.Generator], Any], Params]
+    make_loss: Callable[[Any], LossFn]
+    materialize: Callable[[Any, Any, Optional[torch.Generator]], Batch]
+    eval_set: Callable[[Any, int], Batch]
+    make_eval: Callable[[Any], LossFn]
+    batch_keys: Tuple[str, ...]
+    num_classes: Callable[[Any], int]
+
+
+_WORKLOADS: Dict[str, Workload] = {}
+
+
+def register_workload(name: str, workload: Workload, *,
+                      overwrite: bool = False) -> Workload:
+    if name in _WORKLOADS and not overwrite:
+        raise ValueError(f"workload {name!r} is already registered; pass "
+                         "overwrite=True to replace it")
+    if workload.name != name:
+        workload = dataclasses.replace(workload, name=name)
+    _WORKLOADS[name] = workload
+    return workload
+
+
+def registered_workloads() -> Tuple[str, ...]:
+    return tuple(_WORKLOADS)
+
+
+def get_workload(workload: "str | Workload") -> Workload:
+    if isinstance(workload, Workload):
+        return workload
+    try:
+        return _WORKLOADS[workload]
+    except KeyError:
+        raise KeyError(f"unknown workload {workload!r}; have "
+                       f"{registered_workloads()}") from None
+
+
+def _cnn_init(generator, ds: ImageDataset) -> Params:
+    return cnn_init(generator, num_classes=ds.num_classes,
+                    image_size=ds.image_size, channels=ds.channels,
+                    device=ds.device)
+
+
+def _cnn_make_loss(ds: ImageDataset) -> LossFn:
+    def loss(params: Params, batch: Batch):
+        return cnn_loss(params, batch["images"], batch["labels"],
+                        batch["valid"])
+    return loss
+
+
+def _cnn_eval_set(ds: ImageDataset, n_per_class: int) -> Batch:
+    x, y = ds.test_set(n_per_class)
+    return {"images": x, "labels": y}
+
+
+def _cnn_make_eval(ds: ImageDataset) -> LossFn:
+    def ev(params: Params, batch: Batch):
+        return cnn_loss(params, batch["images"], batch["labels"])
+    return ev
+
+
+CNN_WORKLOAD = register_workload("cnn", Workload(
+    name="cnn",
+    make_dataset=lambda device: ImageDataset(device=device),
+    init=_cnn_init,
+    make_loss=_cnn_make_loss,
+    materialize=materialize_round,
+    eval_set=_cnn_eval_set,
+    make_eval=_cnn_make_eval,
+    batch_keys=("images", "labels", "valid"),
+    num_classes=lambda ds: ds.num_classes,
+))

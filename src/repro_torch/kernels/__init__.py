@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels for Hopper and the compute dispatch in front of
+them.
+
+Each kernel sits in its own package beside its plain PyTorch version
+(``ref.py``); its wrapper launches the CUDA kernel for a CUDA tensor and takes
+the plain version for a CPU tensor.  ``dispatch`` is what the FL round calls.
+Nothing here imports a compiler or builds a kernel until a CUDA tensor arrives
+(``build.library``).
+"""
+from __future__ import annotations
+
+from .label_hist import label_hist as _label_hist
+from .weighted_agg import weighted_agg as _weighted_agg
+
+_MODULES = {"label_hist": _label_hist, "weighted_agg": _weighted_agg}
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA launches of each kernel since the last :func:`reset_launch_counts`."""
+    return {name: mod.launches for name, mod in _MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,99 @@
+"""The FL round's two heavy non-training ops, in front of their kernels.
+
+Per-client label histograms (what every selection strategy ranks on) and the
+masked weighted mean of client models (FedAvg Eq. 1) go through the
+hand-written CUDA kernels when their tensors lie on a CUDA device, and
+through the kernels' plain versions when they lie on the CPU: the device of
+the tensors decides, nothing else does.  ``backend="reference"`` instead
+computes the reference's own formulas (``core.label_stats.histogram``,
+``core.aggregation.masked_mean``) on any device, which is what the kernels
+are compared with.
+
+Numerics:
+
+* ``client_histograms``: kernel, plain version and reference are bit-equal
+  (sums of 0/1 weights, exact in float32).
+* ``masked_weighted_mean`` / ``weighted_sum_tree``: float32 ulp level; the
+  kernel accumulates in float32 in its own order.  ``weighted_sum_tree`` keeps
+  each leaf's dtype on both paths.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..core.aggregation import masked_mean
+from ..core.label_stats import histogram, label_variance_normed
+from .label_hist.label_hist import label_hist_kernel
+from .weighted_agg.weighted_agg import weighted_agg_kernel
+
+Params = Dict[str, torch.Tensor]
+BACKENDS = ("auto", "reference")
+
+
+def _check(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"compute backend must be one of {BACKENDS}; "
+                         f"got {backend!r}")
+    return backend
+
+
+def client_histograms(labels: torch.Tensor, num_classes: int,
+                      valid: Optional[torch.Tensor] = None, *,
+                      backend: str = "auto") -> torch.Tensor:
+    """(…, n) integer labels -> (…, C) float32 counts.  Out-of-range labels
+    (-1 padding) count toward no bin; ``valid`` masks entries on top."""
+    if _check(backend) == "reference":
+        return histogram(labels, num_classes, valid)
+    labels = labels.to(torch.int32)
+    n = labels.shape[-1]
+    v = (labels >= 0) if valid is None else valid.to(torch.bool)
+    v = torch.broadcast_to(v, labels.shape)
+    out = label_hist_kernel(labels.reshape(-1, n).contiguous(),
+                            v.reshape(-1, n).contiguous(), num_classes)
+    return out.reshape(labels.shape[:-1] + (num_classes,))
+
+
+def client_statistics(labels: torch.Tensor, num_classes: int,
+                      valid: Optional[torch.Tensor] = None, *,
+                      backend: str = "auto"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Histogram and the Algorithm-1 score: -> (hists (…, C), σ²/n (…,))."""
+    hists = client_histograms(labels, num_classes, valid, backend=backend)
+    return hists, label_variance_normed(hists)
+
+
+def _leaf_sum(leaf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σ_k w_k · leaf_k over the leading client axis, one kernel launch."""
+    flat = leaf.reshape(leaf.shape[0], -1).contiguous()
+    return weighted_agg_kernel(flat, w).reshape(leaf.shape[1:])
+
+
+def masked_weighted_mean(stacked: Params, mask: torch.Tensor,
+                         weights: Optional[torch.Tensor] = None, *,
+                         backend: str = "auto") -> Params:
+    """Weighted mean over the leading (client) axis restricted to ``mask``:
+    the FedAvg/FedSGD server reduction, with ``masked_mean``'s signature and
+    its ε-denominator for an empty mask.  The kernel path sums each leaf in
+    float32 and divides by Σw, as the reference's kernel path does."""
+    if _check(backend) == "reference":
+        return masked_mean(stacked, mask, weights)
+    w = mask.to(torch.float32)
+    if weights is not None:
+        w = w * weights.to(torch.float32)
+    denom = torch.clamp(w.sum(), min=1e-12)
+    return {k: (_leaf_sum(p.to(torch.float32), w) / denom).to(p.dtype)
+            for k, p in stacked.items()}
+
+
+def weighted_sum_tree(tree: Params, weights: torch.Tensor, *,
+                      backend: str = "auto") -> Params:
+    """Σ_k w_k · x_k over every leaf's leading axis, without normalizing.
+    Every leaf keeps its dtype: the reference reduces in the leaf's dtype,
+    the kernel accumulates in float32 and rounds once."""
+    w = weights.to(torch.float32)
+    if _check(backend) == "reference":
+        return {k: (w.reshape(w.shape + (1,) * (x.dim() - 1)).to(x.dtype)
+                    * x).sum(0) for k, x in tree.items()}
+    return {k: _leaf_sum(x, w) for k, x in tree.items()}
