@@ -21,7 +21,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    a round);
 7. time each kernel at the main path's shapes with CUDA events (device
    time per call), beside its bound, its plain version and one PyTorch call
-   computing the same function.
+   computing the same function;
+8. hold ``flash_attention`` against its plain version on the card at
+   qwen3-14b's prefill shape (BH=160, S=1024, D=128, bf16), causal and with
+   window=256, at an unaligned float32 shape (8, 77, 64), and through the GQA
+   wrapper at (4, 1024, 40, 128) x (4, 1024, 8, 128);
+9. hold ``ssd_scan`` (``ssd_apply``) against its plain version on the card at
+   mamba2-1.3b's prefill shape (b=4, S=1024, H=64, P=64, G=1, N=128) and at
+   reduced shapes;
+10. serve both archs at ``reduced(dtype="float32")`` on the card and on the
+    CPU from the same weights and tokens, TF32 off: prefill logits, every
+    cache and every decode step's logits within ``SERVE_TOL``;
+11. the serving main path: ``run_serve(arch, batch=4, prompt_len=1024,
+    gen=16, reduced=False)`` for qwen3-14b, then for mamba2-1.3b, with the
+    launch counts set to 0 just before and read just after (40
+    flash_attention and 48 ssd_scan launches, one per layer of the prefill;
+    decode launches neither); then, on fresh full-width weights in bf16 and
+    in float32, prefill ≡ forward at the last prompt position and one decode
+    step ≡ forward at the next, held to ``SELF_TOL_BF16`` and
+    ``SELF_TOL_F32``;
+12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -66,6 +85,43 @@ SPIN_HZ = 1.98e9
 ROUND_EPOCHS = 1
 SGD_ATOL = 1e-5
 ADAM_REL = 1e-2
+# bf16 peak of the tensor cores (NVIDIA's data sheet, dense): the rate that
+# bounds attention's products in bf16.
+BF16_OPS_PER_S = 989e12
+# Phase 8: float32 attention against its plain version, the reference's own
+# pin (tests/test_kernels.py); softmax sums of up to S terms in another
+# order differ by ~1e-6.  bfloat16: both sides round a float32 result once,
+# so they may land one bfloat16 ulp apart, 2^-7 of the value at most.
+FLASH_F32_TOL = 2e-5
+# Phase 9: the reference's pin for the SSD scan (tests/test_kernels.py).
+SSD_TOL = 1e-4
+# Phase 10: card against CPU at reduced size in float32, TF32 off: the pin
+# that holds the port to the reference on the CPU (tests/test_torch_lm.py);
+# cuBLAS, the kernels and the CPU's BLAS sum in other orders (~1e-6).
+SERVE_TOL = 2e-4
+# Phase 11: prefill/decode against forward at full width, as
+# max |diff| / (1 + |forward|) of the logits (the reference's pin is 2e-2,
+# tests/test_arch_smoke.py, set on 2-layer configs in bf16).  Limits from
+# readings on H100 80GB HBM3 at 700 W (PERF.md):
+# * float32 (this phase's own prints): sound runs differ by at most 1.7e-5,
+#   bf16 rounding by ~3e-2, so 1e-3 holds the kernels to float32 agreement
+#   at full depth.
+# * bf16 (scripts/torch_serve_drift.py, which puts in the faults below):
+#   prefill is bit-equal to forward in sound runs (the same kernels on
+#   the same rows); attention that sees one key past the causal frontier
+#   gives 0.042, plain attention's other summation order 0.038.  In
+#   decode, at 40-48 layers decode and forward round the residual
+#   stream at other points (decode's GEMMs have 2 rows, forward's hundreds);
+#   sound runs drift 0.028-0.030 (qwen3-14b) and 0.077-0.086 (mamba2-1.3b),
+#   the same with the kernels swapped for their plain versions.  Known
+#   faults give 0.053 (qwen3-14b, decode RoPE one position off), 0.29
+#   (un-rotated keys in the cache), 0.27 (mamba2-1.3b, scan decay doubled)
+#   and 3.7 (conv tail one token early).
+SELF_TOL_F32 = {"prefill": 1e-3, "decode": 1e-3}
+SELF_TOL_BF16 = {"qwen3-14b": {"prefill": 1e-2, "decode": 0.04},
+                 "mamba2-1.3b": {"prefill": 1e-2, "decode": 0.13}}
+# Phase 11: the serving main path at full width, cut in depth to 16 tokens.
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
 
 
 def say(msg: str) -> None:
@@ -111,11 +167,11 @@ def time_ms(fn, reps: int = 20, trials: int = 15) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
+    operations over ``ops_per_s`` (float32 on CUDA cores by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -130,6 +186,345 @@ def paper_round_inputs(np, cfg, seed: int):
     noise = rng.standard_normal(labels.shape + (28, 28, 1), dtype=np.float32)
     images = templates[labels] + np.float32(0.35) * noise
     return images, labels, labels >= 0
+
+
+def _tree_to(tree, device):
+    """A copy of a nested dict/list of tensors (params or caches) on
+    ``device``: caches are updated in place, so snapshots must copy."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device, copy=True) if torch.is_tensor(tree) else tree
+
+
+def _assert_close(what: str, got, want, tol: float) -> float:
+    """max |got - want|; raises unless |got - want| <= tol·(1 + |want|)."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs()
+    if bool((err > tol * (1 + want.abs())).any()):
+        raise AssertionError(f"{what}: max |diff| {err.max().item():.3e} over "
+                             f"the tolerance {tol} (1 + |want|)")
+    return err.max().item()
+
+
+def phase8_flash(dev) -> float:
+    """flash_attention against its plain version; returns the max abs error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     gqa_attention_ref,
+                                                     gqa_flash_attention)
+    say("== 8. flash_attention against its plain version")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
+    g = torch.Generator(device=dev).manual_seed(8)
+    worst = 0.0
+    cases = [((160, 1024, 128), torch.bfloat16, 0),
+             ((160, 1024, 128), torch.bfloat16, 256),
+             ((8, 77, 64), torch.float32, 0)]
+    for shape, dtype, window in cases:
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        got = flash_attention(q, k, v, causal=True, window=window).float()
+        want = attention_ref(q, k, v, True, window).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        tol = (FLASH_F32_TOL * (1 + want.abs()) if dtype == torch.float32
+               else 2.0 ** -7 * want.abs() + 1e-5)
+        if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {shape} {dtype} window="
+                                 f"{window}: max |diff| {err.max().item()}")
+        worst = max(worst, err.max().item())
+        say(f"flash_attention {shape} {dtype} window={window}: max abs err "
+            f"{err.max().item():.3e}")
+    b, s, h, kvh, d = 4, 1024, 40, 8, 128
+    q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    got = gqa_flash_attention(q, k, v).float()
+    want = gqa_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if bool((err > 2.0 ** -7 * want.abs() + 1e-5).any()):
+        raise AssertionError(f"gqa_flash_attention: max |diff| "
+                             f"{err.max().item()}")
+    worst = max(worst, err.max().item())
+    say(f"gqa_flash_attention {(b, s, h, d)} x {(b, s, kvh, d)} bf16: max abs "
+        f"err {err.max().item():.3e}")
+    return worst
+
+
+def _ssd_inputs(dev, b, s, h, p, g_, n, seed):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    return (rn(b, s, h, p), torch.nn.functional.softplus(rn(b, s, h)),
+            -torch.exp(0.3 * rn(h)), 0.5 * rn(b, s, g_, n),
+            0.5 * rn(b, s, g_, n))
+
+
+def phase9_ssd(dev) -> float:
+    """ssd_apply against its plain version; returns the max abs error."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref
+    say("== 9. ssd_scan against its plain version")
+    worst = 0.0
+    for b, s, h, p, g_, n, chunk in [(4, 1024, 64, 64, 1, 128, 128),
+                                     (2, 96, 16, 32, 1, 32, 32),
+                                     (2, 64, 4, 8, 2, 64, 16)]:
+        args = _ssd_inputs(dev, b, s, h, p, g_, n, seed=s + h)
+        y, fin = ssd_apply(*args, chunk=chunk)
+        y_ref, fin_ref = ssd_apply_ref(*args)
+        torch.cuda.synchronize()
+        what = f"ssd_apply (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n})"
+        err = max(_assert_close(what + " y", y, y_ref, SSD_TOL),
+                  _assert_close(what + " state", fin, fin_ref, SSD_TOL))
+        worst = max(worst, err)
+        say(f"{what}: max abs err {err:.3e} (|y| up to "
+            f"{y_ref.abs().max().item():.1f})")
+    return worst
+
+
+def phase10_serve_card_vs_cpu(dev) -> None:
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import decode_step, init_model, prefill
+    say("== 10. serving at reduced size, card against CPU (float32, TF32 off)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prompt, gen = 40, 5            # 40: no multiple of the SSD chunk (32)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced(dtype="float32")
+        params = init_model(torch.Generator().manual_seed(10), cfg,
+                            device="cpu")
+        toks = torch.from_numpy(np.random.default_rng(10).integers(
+            0, cfg.vocab_size, (2, prompt + gen)))
+        runs = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = _tree_to(params, d)
+            t = toks.to(d)
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                logits, caches = prefill(p, cfg, {"tokens": t[:, :prompt]},
+                                         prompt + gen)
+                steps = [logits]
+                snap = [_tree_to(caches, "cpu")]
+                for i in range(prompt, prompt + gen):
+                    logits, caches = decode_step(p, cfg, t[:, i], caches)
+                    steps.append(logits)
+                snap.append(_tree_to(caches, "cpu"))
+            counts = kernels.launch_counts()
+            runs[side] = ([x.cpu() for x in steps], snap, counts)
+        kernel = "flash_attention" if arch == "qwen3-14b" else "ssd_scan"
+        if runs["card"][2][kernel] != cfg.num_layers:
+            raise AssertionError(f"{arch}: {runs['card'][2]} launches on the "
+                                 f"card, expected {cfg.num_layers} {kernel}")
+        (s_gpu, c_gpu, _), (s_cpu, c_cpu, _) = runs["card"], runs["cpu"]
+        gaps = [_assert_close(f"{arch} logits step {i}", a, b, SERVE_TOL)
+                for i, (a, b) in enumerate(zip(s_gpu, s_cpu))]
+        cache_gap = 0.0
+        for when, (cg, cc) in enumerate(zip(c_gpu, c_cpu)):
+            for layer, (lg, lc) in enumerate(zip(cg, cc)):
+                for key in lc:
+                    if key == "idx":
+                        if lg[key] != lc[key]:
+                            raise AssertionError(f"{arch} cache idx differs")
+                        continue
+                    cache_gap = max(cache_gap, _assert_close(
+                        f"{arch} cache {key} layer {layer} ({when})",
+                        lg[key], lc[key], SERVE_TOL))
+        say(f"{arch} reduced: prefill logits max |card - cpu| {gaps[0]:.3e}, "
+            f"{gen} decode steps up to {max(gaps[1:]):.3e}, caches up to "
+            f"{cache_gap:.3e}; card launches {runs['card'][2]}")
+
+
+def serve_gaps(params, cfg, toks) -> dict:
+    """``forward`` on toks (B, n + 1), ``prefill`` on the first n tokens and
+    one ``decode_step`` on token n.  Returns each call's kernel launches,
+    whether its logits are finite, |forward|'s max (``scale``) and the
+    max |diff| of prefill against forward at position n - 1 and of the
+    decode step against forward at n: absolute (``prefill``, ``decode``) and
+    relative to 1 + |forward| (``prefill_rel``, ``decode_rel``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import decode_step, forward, prefill
+    n = toks.shape[1] - 1
+    calls, finite = {}, {}
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        full, _ = forward(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        calls["forward"] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        last, caches = prefill(params, cfg, {"tokens": toks[:, :n]}, n + 8)
+        torch.cuda.synchronize()
+        calls["prefill"] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        step, _ = decode_step(params, cfg, toks[:, n], caches)
+        torch.cuda.synchronize()
+        calls["decode_step"] = kernels.launch_counts()
+    for name, x in (("forward", full), ("prefill", last),
+                    ("decode_step", step)):
+        finite[name] = bool(torch.isfinite(x).all())
+    full = full.float()
+    out = {"launches": calls, "finite": finite,
+           "scale": full.abs().max().item()}
+    for name, got, want in (("prefill", last, full[:, n - 1]),
+                            ("decode", step, full[:, n])):
+        err = (got.float() - want).abs()
+        out[name] = err.max().item()
+        out[name + "_rel"] = (err / (1 + want.abs())).max().item()
+    return out
+
+
+def self_consistency_inputs(dev, cfg):
+    """Full-width weights of ``cfg`` (seed 11) and tokens (2, 201) (seed 11;
+    a prompt of 200, no multiple of the SSD chunk)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_model
+    params = init_model(torch.Generator(device=dev).manual_seed(11), cfg,
+                        device=dev)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, 201))).to(dev)
+    return params, toks
+
+
+def self_consistency(dev, cfg, kernel: str) -> dict:
+    """``serve_gaps`` on ``self_consistency_inputs``; asserts one ``kernel``
+    launch per layer in forward and prefill, no launch in decode, and finite
+    logits."""
+    import gc
+    import torch
+    params, toks = self_consistency_inputs(dev, cfg)
+    out = serve_gaps(params, cfg, toks)
+    calls = {"forward": out["launches"]["forward"][kernel],
+             "prefill": out["launches"]["prefill"][kernel],
+             "decode_step": sum(out["launches"]["decode_step"].values())}
+    if calls != {"forward": cfg.num_layers, "prefill": cfg.num_layers,
+                 "decode_step": 0}:
+        raise AssertionError(f"{cfg.name}: launches per call {calls}")
+    for name, ok in out["finite"].items():
+        if not ok:
+            raise AssertionError(f"{cfg.name}: non-finite {name} logits")
+    out["launches"] = calls
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase11_serve(dev) -> dict:
+    """The serving main path at full width; returns per-arch results."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+    say("== 11. main path: run_serve at full width on the card")
+    out = {}
+    for arch, kernel in (("qwen3-14b", "flash_attention"),
+                         ("mamba2-1.3b", "ssd_scan")):
+        cfg = get_config(arch)
+        want = {k: 0 for k in kernels.launch_counts()}
+        want[kernel] = cfg.num_layers
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        seqs, t_prefill, t_decode = run_serve(
+            arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+            reduced=False, device=dev)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        if launches != want:
+            raise AssertionError(f"{arch}: launches {launches}, expected "
+                                 f"{want} (one per layer of the prefill)")
+        if seqs.shape != (SERVE_BATCH, SERVE_GEN) or int(seqs.min()) < 0 \
+                or int(seqs.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{arch}: tokens {tuple(seqs.shape)} out of "
+                                 f"range")
+        say(f"{arch}: run_serve(batch={SERVE_BATCH}, prompt_len="
+            f"{SERVE_PROMPT}, gen={SERVE_GEN}, reduced=False): prefill "
+            f"{t_prefill * 1e3:.1f} ms, decode {t_decode * 1e3:.2f} "
+            f"ms/token, launches {launches}, first tokens "
+            f"{seqs[0, :6].tolist()}")
+        del seqs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for dtype in ("bfloat16", "float32"):
+            gaps = self_consistency(dev, dataclasses.replace(cfg, dtype=dtype),
+                                    kernel)
+            tol = SELF_TOL_F32 if dtype == "float32" else SELF_TOL_BF16[arch]
+            say(f"{arch} {dtype}: {kernel} launches per call "
+                f"{gaps['launches']}; prefill ≡ forward max |diff| "
+                f"{gaps['prefill']:.3e} (relative {gaps['prefill_rel']:.3e},"
+                f" limit {tol['prefill']}), decode_step ≡ forward "
+                f"{gaps['decode']:.3e} (relative {gaps['decode_rel']:.3e}, "
+                f"limit {tol['decode']}); |logits| up to "
+                f"{gaps['scale']:.2f}")
+            for name in ("prefill", "decode"):
+                if not gaps[name + "_rel"] <= tol[name]:
+                    raise AssertionError(
+                        f"{arch} {dtype}: {name} vs forward differs by "
+                        f"{gaps[name]} (relative {gaps[name + '_rel']}) "
+                        f"over {tol[name]}")
+        out[arch] = {"launches": launches[kernel], "t_prefill": t_prefill,
+                     "t_decode": t_decode}
+    return out
+
+
+def phase12_times(dev) -> dict:
+    """flash_attention and ssd_scan at the serving path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (gqa_attention_ref,
+                                                     gqa_flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref
+    say("== 12. flash_attention and ssd_scan at the serving path's shapes")
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, s, h, kvh, d = SERVE_BATCH, SERVE_PROMPT, 40, 8, 128
+    q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fa = {"ms": time_ms(lambda: gqa_flash_attention(q, k, v)),
+          "plain": time_ms(lambda: gqa_attention_ref(q, k, v), reps=3,
+                           trials=5),
+          "lib": time_ms(lambda: F.scaled_dot_product_attention(
+              qt, kt, vt, is_causal=True, enable_gqa=True))}
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    ops = 4 * b * h * d * s * (s + 1) // 2     # live (q, k) pairs, QK and PV
+    fa["bound"], fa["by"] = bound(nbytes, ops, BF16_OPS_PER_S)
+    say(f"flash_attention (B={b}, S={s}, H={h}, KV={kvh}, D={d}, bf16, "
+        f"causal): kernel {fa['ms']:.4f} ms, bound {fa['bound']:.4f} ms "
+        f"({fa['by']}: {ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
+        f"{nbytes / 1e6:.1f} MB), plain {fa['plain']:.4f} ms, "
+        f"scaled_dot_product_attention {fa['lib']:.4f} ms")
+
+    b, s, h, p, g_, n = SERVE_BATCH, SERVE_PROMPT, 64, 64, 1, 128
+    args = _ssd_inputs(dev, b, s, h, p, g_, n, seed=12)
+    ssd = {"ms": time_ms(lambda: ssd_apply(*args, chunk=128)),
+           "plain": time_ms(lambda: ssd_apply_ref(*args), reps=1, trials=3),
+           "lib": None}
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g_ * n
+                  + b * h * p * n)
+    ops = 5 * b * s * h * p * n
+    ssd["bound"], ssd["by"] = bound(nbytes, ops)
+    say(f"ssd_scan (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n}, f32): kernel "
+        f"{ssd['ms']:.4f} ms, bound {ssd['bound']:.4f} ms ({ssd['by']}: "
+        f"{ops / 1e9:.2f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB), "
+        f"plain {ssd['plain']:.4f} ms; no single PyTorch call computes the "
+        f"SSD scan, so there is no library time")
+    return {"flash_attention": fa, "ssd_scan": ssd}
 
 
 def main() -> int:
@@ -290,7 +685,8 @@ def main() -> int:
         say(f"round {t + 1}: acc={hist.accuracy[t]:.4f} "
             f"loss={hist.loss[t]:.4f} nsel={hist.num_selected[t]:.0f}")
     say(f"wall_s={hist.wall_s:.3f} launches={launches}")
-    want = {"label_hist": rounds, "weighted_agg": rounds * len(leaf_sizes)}
+    want = {"label_hist": rounds, "weighted_agg": rounds * len(leaf_sizes),
+            "flash_attention": 0, "ssd_scan": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not all(math.isfinite(v) for v in hist.accuracy + hist.loss):
@@ -341,6 +737,13 @@ def main() -> int:
         f"{agg_bound:.5f} ms ({agg_by}, {agg['bytes'] / 1e6:.1f} MB), plain "
         f"{agg['plain']:.4f} ms, s @ stacked {agg['lib']:.4f} ms")
 
+    flash_err = phase8_flash(dev)
+    ssd_err = phase9_ssd(dev)
+    phase10_serve_card_vs_cpu(dev)
+    served = phase11_serve(dev)
+    times = phase12_times(dev)
+    fa, ssd = times["flash_attention"], times["ssd_scan"]
+
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "label_hist", "route": "cuda",
@@ -355,6 +758,20 @@ def main() -> int:
          "launches": launches["weighted_agg"], "max_abs_err": agg_err,
          "ms": agg["ms"], "plain_ms": agg["plain"], "bound_ms": agg_bound,
          "bound_by": agg_by, "library_ms": agg["lib"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",
+         "launches": served["qwen3-14b"]["launches"],
+         "max_abs_err": flash_err, "ms": fa["ms"], "plain_ms": fa["plain"],
+         "bound_ms": fa["bound"], "bound_by": fa["by"],
+         "library_ms": fa["lib"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
+         "launches": served["mamba2-1.3b"]["launches"],
+         "max_abs_err": ssd_err, "ms": ssd["ms"], "plain_ms": ssd["plain"],
+         "bound_ms": ssd["bound"], "bound_by": ssd["by"],
+         "library_ms": ssd["lib"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

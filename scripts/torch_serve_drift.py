@@ -1,0 +1,180 @@
+#!/usr/bin/env python3
+"""How far the port's bf16 serving paths drift apart at full width, and how
+far a known fault moves them: the readings behind ``chip_smoke.py``'s
+phase 11 limits (``SELF_TOL_BF16``).
+
+    python3 scripts/torch_serve_drift.py [--arch qwen3-14b mamba2-1.3b]
+                                         [--out build/serve_drift.json]
+
+For each arch at full width in bf16, ``chip_smoke.serve_gaps`` (prefill
+against forward at the last prompt position, one decode step against
+forward at the next; max |diff| and max |diff| / (1 + |forward|) of the
+logits, prompt 200) under:
+
+* ``sound``: the port as it is, on phase 11's weights (seed 11), and
+  ``sound_seed0`` on ``run_serve``'s (seed 0);
+* ``plain``: the arch's kernel swapped for its plain version in every path
+  (qwen3-14b: ``layers._sdpa``, probabilities rounded to bf16, as the
+  reference computes all three paths; mamba2-1.3b: ``ssd_apply_ref``), to
+  tell bf16 rounding from the kernel;
+* known faults, each put in by patching ``repro_torch.models.layers`` for
+  one reading and taken out after it:
+
+  - qwen3-14b ``decode_rope_off_by_one``: decode rotates q and k for
+    position idx + 1;
+  - qwen3-14b ``cache_without_rope``: prefill writes un-rotated keys into
+    the cache;
+  - qwen3-14b ``attention_sees_next_key``: train/prefill attention lets
+    each query see one key past the causal frontier;
+  - mamba2-1.3b ``scan_decay_doubled``: the scan decays by exp(2 dt A);
+  - mamba2-1.3b ``conv_tail_one_step_early``: prefill leaves the conv
+    tail one token early.
+
+Needs a CUDA device; prints one line a reading and writes them as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import gc
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def qwen3_patches() -> dict:
+    import torch
+    from repro_torch.models import layers
+
+    rope, attention_apply = layers.rope, layers.attention_apply
+
+    def attention(q_offset):
+        def fn(q, k, v, causal=True, window=0):
+            s = q.shape[1]
+            mask = layers.causal_mask(s, s, q_offset, window, device=q.device)
+            return layers._sdpa(q, k, v, mask, k.shape[2])
+        return fn
+
+    def rope_off_by_one(x, positions, theta):
+        if positions.shape[1] == 1:
+            positions = positions + 1
+        return rope(x, positions, theta)
+
+    def cache_without_rope(p, x, cfg, *, mode="train", cache=None, window=0):
+        out, new = attention_apply(p, x, cfg, mode=mode, cache=cache,
+                                   window=window)
+        if mode == "prefill":
+            b, s, _ = x.shape
+            pos = torch.arange(s, device=x.device)[None].expand(b, s)
+            with patched(layers, "rope", lambda x, positions, theta: x):
+                _, k, _ = layers._qkv(p, x, cfg, pos)
+            new["k"][:, :s] = k
+        return out, new
+
+    return {"plain": [("gqa_flash_attention", attention(0))],
+            "decode_rope_off_by_one": [("rope", rope_off_by_one)],
+            "cache_without_rope": [("attention_apply", cache_without_rope)],
+            "attention_sees_next_key": [("gqa_flash_attention",
+                                         attention(1))]}
+
+
+def mamba2_patches() -> dict:
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_apply_ref
+    from repro_torch.models import layers
+
+    ssd_apply, mamba_apply = layers.ssd_apply, layers.mamba_apply
+
+    def conv_tail_early(p, u, cfg, *, mode="train", cache=None):
+        out, new = mamba_apply(p, u, cfg, mode=mode, cache=cache)
+        if mode == "prefill":
+            b, s, _ = u.shape
+            cw = cfg.ssm_conv_width
+            _, xBC, _ = layers._mamba_split(cfg, u @ p["in_proj"])
+            xpad = torch.cat([xBC.new_zeros((b, cw, xBC.shape[-1])), xBC], 1)
+            new["conv"].copy_(xpad[:, s:s + cw - 1])   # inputs s-cw .. s-2
+        return out, new
+
+    return {"plain": [("ssd_apply", lambda x, dt, A, B, C, chunk=128:
+                       ssd_apply_ref(x, dt, A, B, C))],
+            "scan_decay_doubled": [("ssd_apply",
+                                    lambda x, dt, A, B, C, chunk=128:
+                                    ssd_apply(x, dt, 2 * A, B, C,
+                                              chunk=chunk))],
+            "conv_tail_one_step_early": [("mamba_apply", conv_tail_early)]}
+
+
+def drift_arch(arch: str) -> dict:
+    import torch
+    from chip_smoke import self_consistency_inputs, serve_gaps
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, layers
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    params, toks = self_consistency_inputs(dev, cfg)
+    readings = {"sound": serve_gaps(params, cfg, toks)}
+    patches = qwen3_patches() if arch == "qwen3-14b" else mamba2_patches()
+    for name, fns in patches.items():
+        with contextlib.ExitStack() as stack:
+            for attr, fn in fns:
+                stack.enter_context(patched(layers, attr, fn))
+            readings[name] = serve_gaps(params, cfg, toks)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    readings["sound_seed0"] = serve_gaps(params, cfg, toks)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "readings": readings}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", nargs="+", default=["qwen3-14b", "mamba2-1.3b"])
+    ap.add_argument("--out", default=str(ROOT / "build" / "serve_drift.json"))
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_serve_drift: no CUDA device is available",
+              file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    results = {"card": card, "archs": []}
+    for arch in args.arch:
+        r = drift_arch(arch)
+        results["archs"].append(r)
+        for name, g in r["readings"].items():
+            print(f"{arch} bf16 {name}: prefill vs forward {g['prefill']:.4f}"
+                  f" (rel {g['prefill_rel']:.4f}), decode vs forward "
+                  f"{g['decode']:.4f} (rel {g['decode_rel']:.4f}), |logits| "
+                  f"up to {g['scale']:.2f}, finite {g['finite']} on {card}",
+                  flush=True)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(results, indent=1))
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,44 +1,131 @@
 """Carry parameters between the reference's layout and the port's.
 
-The reference keeps a nested dict of arrays (``{"conv1": {"w", "b"}, …}``)
-with HWIO convolution kernels; the port keeps a flat ``dict[str, Tensor]``
-(``"conv1.w"``, …) with OIHW kernels.  Dense weights are (in, out) in both.
-Both functions take and give NumPy arrays on the reference's side, so neither
-needs JAX.
+Both directions take and give NumPy arrays on the reference's side, so
+neither needs JAX.  The layout rule belongs to the model:
+
+* The CNN (``params_from_jax``/``params_to_jax``): the reference keeps a
+  nested dict (``{"conv1": {"w", "b"}, …}``), the port a flat
+  ``dict[str, Tensor]`` keyed by the dotted path (``"conv1.w"``), and each
+  leaf named in ``models.cnn.REFERENCE_LAYOUT`` is transposed by the axis
+  order given there (HWIO -> OIHW convolution kernels).
+* The LM stack (``lm_params_from_jax``/``lm_params_to_jax``): leaves keep the
+  reference's layout; the reference's stacked blocks (``scan_layers``: each
+  leaf of block j carries a leading repeat axis, ``transformer.stack_plan``)
+  become the port's per-layer list, layer ``r * period + j`` = repeat r of
+  block j, and back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.cnn import REFERENCE_LAYOUT as CNN_LAYOUT
+from .models.config import ModelConfig
+from .models.transformer import stack_plan
 
 
-def params_from_jax(tree: Dict[str, Any],
-                    device: "str | torch.device | None" = None
-                    ) -> Dict[str, torch.Tensor]:
-    """Nested reference params (array-likes, HWIO convs) -> flat port params
-    on ``device`` (OIHW convs)."""
-    device = resolve_device(device)
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     out = {}
-    for layer, leaves in tree.items():
-        for name, value in leaves.items():
-            a = np.asarray(value)
-            if a.ndim == 4:  # HWIO -> OIHW
-                a = a.transpose(3, 2, 0, 1)
-            out[f"{layer}.{name}"] = torch.from_numpy(np.array(a)).to(device)
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, path + "."))
+        else:
+            out[path] = value
     return out
 
 
-def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
-    """Flat port params -> nested NumPy params in the reference's layout."""
-    out: Dict[str, Dict[str, np.ndarray]] = {}
-    for key, value in params.items():
-        layer, name = key.split(".", 1)
+def params_from_jax(tree: Mapping[str, Any],
+                    device: "str | torch.device | None" = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Nested reference CNN params (array-likes, any depth) -> flat port
+    params on ``device``, each leaf named in the CNN's layout transposed to
+    the port's axis order."""
+    device = resolve_device(device)
+    out = {}
+    for path, value in _flatten(tree).items():
+        a = np.asarray(value)
+        if path in CNN_LAYOUT:
+            a = a.transpose(CNN_LAYOUT[path])
+        out[path] = torch.from_numpy(np.array(a)).to(device)
+    return out
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Flat port CNN params -> nested NumPy params in the reference's
+    layout."""
+    out: Dict[str, Any] = {}
+    for path, value in params.items():
         a = value.detach().cpu().numpy()
-        if a.ndim == 4:  # OIHW -> HWIO
-            a = a.transpose(2, 3, 1, 0)
-        out.setdefault(layer, {})[name] = np.ascontiguousarray(a)
+        if path in CNN_LAYOUT:
+            a = a.transpose(np.argsort(CNN_LAYOUT[path]))
+        *parents, name = path.split(".")
+        node = out
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return out
+
+
+def _to_torch(node: Any, device: torch.device) -> Any:
+    if isinstance(node, Mapping):
+        return {k: _to_torch(v, device) for k, v in node.items()}
+    return torch.from_numpy(np.array(np.asarray(node))).to(device)
+
+
+def _to_numpy(node: Any) -> Any:
+    if isinstance(node, Mapping):
+        return {k: _to_numpy(v) for k, v in node.items()}
+    return np.ascontiguousarray(node.detach().cpu().numpy())
+
+
+def _take(node: Any, r: int) -> Any:
+    """Repeat r of a stacked block tree."""
+    if isinstance(node, Mapping):
+        return {k: _take(v, r) for k, v in node.items()}
+    return np.asarray(node)[r]
+
+
+def _stack(nodes: List[Any]) -> Any:
+    if isinstance(nodes[0], Mapping):
+        return {k: _stack([n[k] for n in nodes]) for k in nodes[0]}
+    return np.stack(nodes)
+
+
+def lm_params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
+                       device: "str | torch.device | None" = None
+                       ) -> Dict[str, Any]:
+    """Reference LM params (``repro.models.init_model``'s tree as array-likes)
+    -> the port's params on ``device``, with ``stack.blocks`` a per-layer
+    list."""
+    device = resolve_device(device)
+    _, period, reps = stack_plan(cfg)
+    blocks = tree["stack"]["blocks"]
+    if len(blocks) != period:
+        raise ValueError(f"expected {period} stacked block trees for "
+                         f"{cfg.name}; got {len(blocks)}")
+    layers = [blocks[j] if reps == 1 else _take(blocks[j], r)
+              for r in range(reps) for j in range(period)]
+    out = {k: _to_torch(v, device) for k, v in tree.items() if k != "stack"}
+    out["stack"] = {"blocks": [_to_torch(b, device) for b in layers]}
+    return out
+
+
+def lm_params_to_jax(params: Mapping[str, Any], cfg: ModelConfig
+                     ) -> Dict[str, Any]:
+    """The port's LM params -> NumPy params in the reference's layout, the
+    blocks restacked on their leading repeat axis as ``scan_layers`` asks."""
+    _, period, reps = stack_plan(cfg)
+    layers = [_to_numpy(b) for b in params["stack"]["blocks"]]
+    if len(layers) != period * reps:
+        raise ValueError(f"expected {period * reps} layers for {cfg.name}; "
+                         f"got {len(layers)}")
+    blocks = tuple(layers[j] if reps == 1 else
+                   _stack([layers[r * period + j] for r in range(reps)])
+                   for j in range(period))
+    out = {k: _to_numpy(v) for k, v in params.items() if k != "stack"}
+    out["stack"] = {"blocks": blocks}
     return out

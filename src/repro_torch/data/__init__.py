@@ -1,4 +1,5 @@
 from .fl_data import client_batches, materialize_round
-from .synthetic import ImageDataset
+from .synthetic import ImageDataset, TokenDataset
 
-__all__ = ["ImageDataset", "client_batches", "materialize_round"]
+__all__ = ["ImageDataset", "TokenDataset", "client_batches",
+           "materialize_round"]

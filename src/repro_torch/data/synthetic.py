@@ -1,9 +1,14 @@
-"""Class-conditional synthetic images (offline stand-ins for MNIST/FMNIST).
+"""Synthetic class-conditional data (offline stand-ins for MNIST/FMNIST and
+for LM token streams).
 
-Class k is a fixed random smooth template T_k plus Gaussian noise.  The
-templates come from NumPy (seed 1234) and are bit-equal to the reference's;
-the noise is drawn from a ``torch.Generator`` on the dataset's device, so its
-numbers differ from the reference's JAX draws.
+Images: class k is a fixed random smooth template T_k plus Gaussian noise.
+The templates come from NumPy (seed 1234) and are bit-equal to the
+reference's; the noise is drawn from a ``torch.Generator`` on the dataset's
+device, so its numbers differ from the reference's JAX draws.
+
+Tokens: domain k is a skewed unigram distribution over a vocab band.  Its
+log-probabilities come from NumPy (seed 77) and are bit-equal to the
+reference's; the draws come from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -66,3 +71,48 @@ class ImageDataset:
                               device=self.device).repeat(n_per_class)
         g = torch.Generator(device=self.device).manual_seed(seed)
         return self.sample(g, labels), labels
+
+
+def token_log_probs(num_domains: int, vocab_size: int, concentration: float,
+                    seed: int) -> np.ndarray:
+    """(domains, vocab) float32 log-probabilities: domain k puts
+    ``concentration`` of its mass on band k (Dirichlet weights) and spreads
+    the rest evenly over the other tokens."""
+    rng = np.random.default_rng(seed)
+    band = vocab_size // num_domains
+    probs = np.full((num_domains, vocab_size),
+                    (1 - concentration) / (vocab_size - band))
+    for k in range(num_domains):
+        w = rng.dirichlet(np.ones(band)) * concentration
+        probs[k, k * band:(k + 1) * band] = w
+    return np.log(probs).astype(np.float32)
+
+
+@dataclasses.dataclass
+class TokenDataset:
+    """Domain-conditional unigram token sampler for LM-style clients and
+    serving prompts.  Domain k concentrates 85% of its mass on a contiguous
+    vocab band."""
+    num_domains: int = 10
+    vocab_size: int = 512
+    seq_len: int = 64
+    concentration: float = 0.85
+    seed: int = 77
+    device: "str | torch.device | None" = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.log_probs = torch.from_numpy(token_log_probs(
+            self.num_domains, self.vocab_size, self.concentration,
+            self.seed)).to(self.device)
+
+    def sample(self, generator: Optional[torch.Generator],
+               domains: torch.Tensor) -> torch.Tensor:
+        """domains (...,) int -> token sequences (..., seq_len) int64;
+        domain -1 draws from domain 0, as in the reference."""
+        domains = torch.as_tensor(domains, device=self.device)
+        probs = torch.exp(self.log_probs[torch.clamp(domains, min=0)])
+        flat = probs.reshape(-1, self.vocab_size)
+        toks = torch.multinomial(flat, self.seq_len, replacement=True,
+                                 generator=generator)
+        return toks.reshape(domains.shape + (self.seq_len,))

@@ -3,16 +3,29 @@ them.
 
 Each kernel sits in its own package beside its plain PyTorch version
 (``ref.py``); its wrapper launches the CUDA kernel for a CUDA tensor and takes
-the plain version for a CPU tensor.  ``dispatch`` is what the FL round calls.
+the plain version for a CPU tensor.  ``dispatch`` is what the FL round calls;
+the LM layers call ``flash_attention.gqa_flash_attention`` and
+``ssd_scan.ssd_apply``.
 Nothing here imports a compiler or builds a kernel until a CUDA tensor arrives
 (``build.library``).
 """
 from __future__ import annotations
 
+import importlib
+
 from .label_hist import label_hist as _label_hist
 from .weighted_agg import weighted_agg as _weighted_agg
 
-_MODULES = {"label_hist": _label_hist, "weighted_agg": _weighted_agg}
+# The wrapper modules that count their kernel's launches (each package's
+# __init__ re-exports a function of the module's own name, so import the
+# module by path).
+_MODULES = {
+    "label_hist": _label_hist,
+    "weighted_agg": _weighted_agg,
+    "flash_attention": importlib.import_module(
+        f"{__name__}.flash_attention.flash_attention"),
+    "ssd_scan": importlib.import_module(f"{__name__}.ssd_scan.ssd_scan"),
+}
 
 
 def launch_counts() -> dict[str, int]:

@@ -29,6 +29,9 @@ SIGNATURES = {
     "repro_label_hist": [_P, _P, _P, _LL, _LL, _I, _P],
     "repro_weighted_agg_f32": [_P, _P, _P, _I, _LL, _P],
     "repro_weighted_agg_bf16": [_P, _P, _P, _I, _LL, _P],
+    "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "repro_ssd_scan": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 

@@ -1,0 +1,6 @@
+from .flash_attention import flash_attention
+from .ops import gqa_flash_attention
+from .ref import attention_ref, gqa_attention_ref
+
+__all__ = ["attention_ref", "flash_attention", "gqa_attention_ref",
+           "gqa_flash_attention"]

@@ -1,0 +1,76 @@
+"""Blockwise causal / sliding-window attention with online softmax: the
+wrapper of ``csrc/flash_attention.cu``.
+
+Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention
+(body ``_flash_kernel``).  The source note in the .cu file says what bounds
+the kernel on the card and how the TPU's sequential key-block grid axis
+became a loop inside one CUDA block.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..build import check_launch, library
+from .ref import attention_ref
+
+_ENTRY = {torch.float32: "repro_flash_attention_f32",
+          torch.bfloat16: "repro_flash_attention_bf16"}
+HEAD_DIMS = (64, 128)
+
+# Launches of the CUDA kernel since the last reset (repro_torch.kernels).
+launches = 0
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int) -> torch.Tensor:
+    """q (B, S, H, D), k/v (B, S, KV, D) on one CUDA device -> (B, S, H, D)
+    in q's dtype, by one kernel launch that reads kv-head ``h // (H // KV)``
+    for q-head h.  Raises on what the kernel does not take."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention runs on one CUDA device; got "
+                         f"{q.device}, {k.device} and {v.device}")
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"need float32 or bfloat16 q/k/v of one dtype; got "
+                        f"{q.dtype}, {k.dtype} and {v.dtype}")
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}; got {d}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention needs contiguous q/k/v starting "
+                         "on 16-byte boundaries (it loads 4 elements at once)")
+    if window < 0:
+        raise ValueError(f"window must be >= 0; got {window}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    check_launch("flash_attention", getattr(library(), _ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+        kvh, d, int(causal), window, stream))
+    global launches
+    launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q/k/v (BH, S, D) float32 or bfloat16 -> (BH, S, D) in q's dtype;
+    scale 1/sqrt(D), float32 softmax and accumulation; ``window=0`` is full
+    causal.  Any S: keys past S are masked in the kernel, not padded.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"need q/k/v of one (BH, S, D) shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if _on_cpu(q, k, v):
+        return attention_ref(q, k, v, causal, window)
+    return launch(q[:, :, None], k[:, :, None], v[:, :, None], causal=causal,
+                  window=window)[:, :, 0]

@@ -1,3 +1,9 @@
+from . import layers, transformer
 from .cnn import cnn_apply, cnn_init, cnn_loss
+from .config import ModelConfig
+from .transformer import (decode_step, forward, init_caches, init_model,
+                          prefill, token_ce)
 
-__all__ = ["cnn_apply", "cnn_init", "cnn_loss"]
+__all__ = ["ModelConfig", "cnn_apply", "cnn_init", "cnn_loss", "decode_step",
+           "forward", "init_caches", "init_model", "layers", "prefill",
+           "token_ce", "transformer"]

@@ -20,6 +20,11 @@ from ..device import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
+# Leaves whose layout differs from the reference's, with the axis order that
+# takes the reference's array to the port's (HWIO -> OIHW); every other leaf
+# has the same layout in both.  ``repro_torch.convert`` reads this.
+REFERENCE_LAYOUT = {"conv1.w": (3, 2, 0, 1), "conv2.w": (3, 2, 0, 1)}
+
 
 def cnn_init(generator: Optional[torch.Generator] = None,
              num_classes: int = 10, image_size: int = 28, channels: int = 1,

@@ -1,0 +1,251 @@
+"""The decoder stack of the serving path: text input -> N blocks (mixer in
+{attn, mamba} x ffn in {dense, none}) -> final norm -> unembed.
+
+Mirrors ``repro/models/transformer.py``.  The reference stacks the blocks of
+a homogeneous stack on a leading repeat axis and ``lax.scan``s over params
+and caches together (``scan_layers=True``); the port keeps a per-layer list
+of block params and a per-layer list of caches and runs a Python loop, so
+``stack_plan`` here only describes the reference's layout (for
+``repro_torch.convert``).  The reference's sharding constraints are
+single-device no-ops and are dropped.  MoE, cross-attention, the VLM and the
+audio pathways raise ``NotImplementedError``: they come with later slices.
+
+Entry points:
+    forward(params, cfg, batch)               — full-sequence logits
+    prefill(params, cfg, batch, max_len)      — last logits and the caches
+    decode_step(params, cfg, tokens, caches)  — one token, cache-resident
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+Kind = Tuple[str, str]
+
+
+def _unsupported(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: it comes with "
+                               f"{slice_name} (ROADMAP.md Queue 1)")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.is_encoder_decoder:
+        raise _unsupported("the audio (encoder-decoder) pathway",
+                           "the audio slice")
+    if cfg.arch_type == "vlm":
+        raise _unsupported("the VLM pathway", "the VLM slice")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def block_init(generator: torch.Generator, cfg: ModelConfig,
+               kind: Kind) -> Params:
+    mixer, ffn = kind
+    dt, dev = L._dtype(cfg), generator.device
+    params: Params = {"mixer_norm": L.rmsnorm_init(cfg.d_model, dt, dev)}
+    if mixer == "attn":
+        params["attn"] = L.attention_init(generator, cfg)
+    else:
+        params["mamba"] = L.mamba_init(generator, cfg)
+    if ffn in ("moe", "moe+dense"):
+        raise _unsupported("the MoE feed-forward", "the MoE slice")
+    if ffn != "none":
+        params["ffn_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
+        params["mlp"] = L.mlp_init(generator, cfg, cfg.d_ff)
+    return params
+
+
+def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Kind, *,
+                mode: str = "train", cache: Optional[Dict] = None,
+                window: int = 0
+                ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (x, new_cache, aux_loss); aux is 0 without MoE."""
+    mixer, ffn = kind
+    h = L.rmsnorm_apply(p["mixer_norm"], x, cfg.norm_eps)
+    if mixer == "attn":
+        mix, new_cache = L.attention_apply(
+            p["attn"], h, cfg, mode=mode, cache=cache, window=window)
+    else:
+        mix, new_cache = L.mamba_apply(p["mamba"], h, cfg, mode=mode,
+                                       cache=cache)
+    x = x + mix
+    if ffn in ("moe", "moe+dense"):
+        raise _unsupported("the MoE feed-forward", "the MoE slice")
+    if ffn != "none":
+        h2 = L.rmsnorm_apply(p["ffn_norm"], x, cfg.norm_eps)
+        x = x + L.mlp_apply(p["mlp"], h2, cfg)
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def block_cache_init(cfg: ModelConfig, kind: Kind, batch: int, max_len: int,
+                     device: torch.device) -> Dict:
+    if kind[0] == "attn":
+        length = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                  else max_len)
+        return L.init_kv_cache(cfg, batch, length, device)
+    return L.init_ssm_cache(cfg, batch, device)
+
+
+# ---------------------------------------------------------------------------
+# The stack
+# ---------------------------------------------------------------------------
+
+def _pattern_period(kinds: List[Kind]) -> int:
+    n = len(kinds)
+    for p in range(1, n + 1):
+        if n % p == 0 and kinds == kinds[:p] * (n // p):
+            return p
+    return n
+
+
+def stack_plan(cfg: ModelConfig) -> Tuple[List[Kind], int, int]:
+    """(period_kinds, period, num_repeats) of the reference's layout: with
+    ``scan_layers`` its params hold ``period`` block trees, each leaf stacked
+    on a leading axis of ``num_repeats``; layer ``r * period + j`` is
+    repeat r of block j."""
+    kinds = cfg.layer_kinds()
+    if not cfg.scan_layers:
+        return kinds, len(kinds), 1
+    p = _pattern_period(kinds)
+    return kinds[:p], p, len(kinds) // p
+
+
+def stack_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    """{"blocks": [block params of layer 0, 1, ...]}."""
+    return {"blocks": [block_init(generator, cfg, kind)
+                       for kind in cfg.layer_kinds()]}
+
+
+def stack_apply_train(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                      window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/scoring forward through all blocks -> (x, aux_total)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp, kind in zip(params["blocks"], cfg.layer_kinds()):
+        x, _, a = block_apply(bp, x, cfg, kind, mode="train", window=window)
+        aux = aux + a
+    return x, aux
+
+
+def stack_caches_init(cfg: ModelConfig, batch: int, max_len: int,
+                      device: torch.device) -> List[Dict]:
+    return [block_cache_init(cfg, kind, batch, max_len, device)
+            for kind in cfg.layer_kinds()]
+
+
+def stack_apply_cached(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                       caches: List[Dict], mode: str, window: int = 0
+                       ) -> Tuple[torch.Tensor, List[Dict]]:
+    new_caches = []
+    for bp, kind, cache in zip(params["blocks"], cfg.layer_kinds(), caches):
+        x, nc, _ = block_apply(bp, x, cfg, kind, mode=mode, cache=cache,
+                               window=window)
+        new_caches.append(nc)
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Whole models
+# ---------------------------------------------------------------------------
+
+def init_model(generator: Optional[torch.Generator], cfg: ModelConfig,
+               device: "str | torch.device | None" = None) -> Params:
+    """Random weights drawn from ``generator`` (seeded 0 on ``device`` when
+    None), which must live on ``device``.  Returns the params alone; the
+    reference also returns sharding specs."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    if generator.device.type != device.type:
+        raise ValueError(f"the generator lives on {generator.device}, the "
+                         f"model on {device}")
+    dt = L._dtype(cfg)
+    return {"embed": L.embed_init(generator, cfg),
+            "stack": stack_init(generator, cfg),
+            "final_norm": L.rmsnorm_init(cfg.d_model, dt, generator.device)}
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Text pathway -> (B, S, d) hidden sequence."""
+    _check_family(cfg)
+    return L.embed_apply(params["embed"], batch["tokens"])
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence logits (training/scoring) -> (logits, aux)."""
+    x = _embed_inputs(params, cfg, batch)
+    x, aux = stack_apply_train(params["stack"], x, cfg,
+                               window=cfg.sliding_window)
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed_apply(params["embed"], x), aux
+
+
+def token_ce(logits: torch.Tensor, targets: torch.Tensor, *,
+             with_accuracy: bool = False
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked next-token CE over full-sequence logits (-1 = ignore id) ->
+    (loss, {"ntok"[, "accuracy"]}), as the reference defines it."""
+    logits = logits.float()
+    valid = targets >= 0
+    tsafe = torch.where(valid, targets, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tsafe[..., None].long())[..., 0]
+    nll = (logz - gold) * valid
+    denom = torch.clamp(valid.sum(), min=1)
+    loss = nll.sum() / denom
+    m: Dict[str, torch.Tensor] = {"ntok": denom}
+    if with_accuracy:
+        m["accuracy"] = ((logits.argmax(-1) == tsafe) * valid).sum() / denom
+    return loss, m
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device: "str | torch.device | None" = None) -> List[Dict]:
+    """One cache per layer: K/V (B, max_len or window, KV, hd) for attention,
+    the conv tail and the (H, P, N) state for Mamba."""
+    _check_family(cfg)
+    return stack_caches_init(cfg, batch, max_len, resolve_device(device))
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            max_len: int) -> Tuple[torch.Tensor, List[Dict]]:
+    """Run the prompt -> (last-position logits (B, V), caches)."""
+    x = _embed_inputs(params, cfg, batch)
+    caches = init_caches(cfg, x.shape[0], max_len, x.device)
+    x, new_caches = stack_apply_cached(params["stack"], x, cfg, caches,
+                                       mode="prefill",
+                                       window=cfg.sliding_window)
+    x = L.rmsnorm_apply(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return L.unembed_apply(params["embed"], x)[:, 0], new_caches
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                caches: List[Dict]) -> Tuple[torch.Tensor, List[Dict]]:
+    """One decode step: tokens (B,) -> (logits (B, V), caches).  The caches'
+    tensors are updated in place."""
+    x = L.embed_apply(params["embed"], tokens[:, None])
+    x, new_caches = stack_apply_cached(params["stack"], x, cfg, caches,
+                                       mode="decode",
+                                       window=cfg.sliding_window)
+    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed_apply(params["embed"], x)[:, 0], new_caches
+
+
+__all__ = ["block_apply", "block_cache_init", "block_init", "decode_step",
+           "forward", "init_caches", "init_model", "prefill",
+           "stack_apply_cached", "stack_apply_train", "stack_init",
+           "stack_plan", "token_ce"]

@@ -18,5 +18,9 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute tests (arch smoke, FL integration, kernel sweeps);"
         " deselected by default — run with -m 'slow or not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand-written kernels); skips on"
+        " a host without one")
     if not config.option.markexpr:
         config.option.markexpr = "not slow"

@@ -1,0 +1,171 @@
+"""Parity of the port's flash_attention and ssd_scan modules with the JAX
+reference on the CPU.
+
+On the CPU the wrappers take their plain PyTorch versions.  The JAX side
+runs as its own tests run it on the CPU: the plain oracles, the model
+layer's XLA functions (``_sdpa``, ``_ssd_chunked``), and the Pallas kernels
+in interpret mode on tiny shapes.  Inputs are NumPy-made from a seed.
+
+Tolerances are the reference's own pins (tests/test_kernels.py): 2e-5 for
+the float32 attention oracle, 2e-4 for the GQA wrapper against ``_sdpa``,
+1e-4 for the SSD scan (a sequential recurrence against the chunked form sums
+in another order).  tests/test_torch_kernels_cuda.py holds the CUDA kernels
+to these plain versions on a card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as jflash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_ref as jssd_ref  # noqa: E402
+from repro.kernels.ssd_scan.ssd_scan import ssd_scan as jssd_scan  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+
+from repro_torch import kernels as tkernels  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention, gqa_flash_attention)
+from repro_torch.kernels.ssd_scan import ssd_apply, ssd_ref, ssd_scan  # noqa: E402
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _qkv(shape, seed, kv_shape=None):
+    rng = np.random.default_rng(seed)
+    kv_shape = kv_shape or shape
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(kv_shape).astype(np.float32),
+            rng.standard_normal(kv_shape).astype(np.float32))
+
+
+def _ssd_inputs(lead, s, h, p, g, n, seed):
+    """x lead+(S, H, P), dt lead+(S, H), A (H,), B/C lead+(S, G, N): the
+    distributions of tests/test_kernels.py."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(lead + (s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal(lead + (s, h)))).astype(np.float32)
+    A = -np.exp(0.3 * rng.standard_normal(h)).astype(np.float32)
+    B = (0.5 * rng.standard_normal(lead + (s, g, n))).astype(np.float32)
+    C = (0.5 * rng.standard_normal(lead + (s, g, n))).astype(np.float32)
+    return x, dt, A, B, C
+
+
+def _close(port, ref, tol):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(ref), rtol=tol,
+                               atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: plain version against the reference (CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bh,s,d,window", [(2, 64, 32, 0), (3, 64, 64, 16),
+                                           (2, 77, 64, 0), (1, 50, 16, 0),
+                                           (2, 96, 128, 40)])
+def test_attention_ref_matches_reference(bh, s, d, window):
+    q, k, v = _qkv((bh, s, d), seed=bh * s + d + window)
+    ref = jattention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=True, window=window)
+    _close(attention_ref(_t(q), _t(k), _t(v), True, window), ref, 2e-5)
+    _close(flash_attention(_t(q), _t(k), _t(v), window=window), ref, 2e-5)
+
+
+def test_flash_attention_matches_pallas_kernel_in_interpret_mode():
+    q, k, v = _qkv((1, 40, 16), seed=5)     # unaligned S, two blocks
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                 block_q=16, block_k=16, interpret=True)
+    _close(flash_attention(_t(q), _t(k), _t(v)), ref, 2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", [(2, 64, 4, 2, 32), (1, 33, 8, 8, 16),
+                                        (2, 20, 6, 1, 64)])
+def test_gqa_plain_version_matches_model_sdpa(b, s, h, kv, d):
+    q, k, v = _qkv((b, s, h, d), seed=s + h, kv_shape=(b, s, kv, d))
+    ref = JL._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   JL.causal_mask(s, s), kv)
+    _close(gqa_flash_attention(_t(q), _t(k), _t(v)), ref, 2e-4)
+
+
+def test_gqa_plain_version_with_window_matches_model_sdpa():
+    b, s, h, kv, d, window = 2, 48, 4, 2, 32, 12
+    q, k, v = _qkv((b, s, h, d), seed=9, kv_shape=(b, s, kv, d))
+    ref = JL._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   JL.causal_mask(s, s, 0, window), kv)
+    _close(gqa_flash_attention(_t(q), _t(k), _t(v), window=window), ref,
+           2e-4)
+
+
+def test_flash_wrappers_keep_dtype_and_check_shapes():
+    q, k, v = _qkv((2, 16, 32), seed=1)
+    out = flash_attention(*(_t(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 16, 32)
+    with pytest.raises(ValueError):
+        flash_attention(_t(q), _t(k)[:, :8], _t(v))
+    with pytest.raises(ValueError):      # KV must divide H
+        gqa_flash_attention(torch.zeros(1, 4, 6, 8), torch.zeros(1, 4, 4, 8),
+                            torch.zeros(1, 4, 4, 8))
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan: plain version against the reference (CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,p,n", [(64, 8, 16), (128, 16, 8), (32, 4, 4)])
+def test_ssd_ref_matches_reference(s, p, n):
+    x, dt, A, B, C = _ssd_inputs((3,), s, 1, p, 1, n, seed=s + p + n)
+    x, dt, B, C = x[:, :, 0], dt[:, :, 0], B[:, :, 0], C[:, :, 0]
+    A = np.resize(A, 3)
+    y_ref, fin_ref = jssd_ref(*(jnp.asarray(a) for a in (x, dt, A, B, C)))
+    y, fin = ssd_ref(*(_t(a) for a in (x, dt, A, B, C)))
+    _close(y, y_ref, 1e-4)
+    _close(fin, fin_ref, 1e-4)
+    y2, fin2 = ssd_scan(*(_t(a) for a in (x, dt, A, B, C)), chunk=16)
+    _close(y2, y_ref, 1e-4)
+    _close(fin2, fin_ref, 1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [(2, 64, 4, 2, 8, 16, 16),
+                                               (1, 96, 16, 1, 32, 32, 32),
+                                               (2, 32, 6, 3, 4, 8, 8)])
+def test_ssd_apply_matches_model_ssd_chunked(b, s, h, g, p, n, chunk):
+    x, dt, A, B, C = _ssd_inputs((b,), s, h, p, g, n, seed=s + h + n)
+    y_ref, fin_ref = JL._ssd_chunked(*(jnp.asarray(a)
+                                       for a in (x, dt, A, B, C)), chunk)
+    y, fin = ssd_apply(*(_t(a) for a in (x, dt, A, B, C)), chunk=chunk)
+    assert y.shape == (b, s, h, p) and fin.shape == (b, h, p, n)
+    _close(y, y_ref, 1e-4)
+    _close(fin, fin_ref, 1e-4)
+
+
+def test_ssd_scan_matches_pallas_kernel_in_interpret_mode():
+    x, dt, A, B, C = _ssd_inputs((2,), 32, 1, 4, 1, 4, seed=3)
+    args = (x[:, :, 0], dt[:, :, 0], np.resize(A, 2), B[:, :, 0], C[:, :, 0])
+    y_ref, fin_ref = jssd_scan(*(jnp.asarray(a) for a in args), chunk=16,
+                               interpret=True)
+    y, fin = ssd_scan(*(_t(a) for a in args), chunk=16)
+    _close(y, y_ref, 1e-4)
+    _close(fin, fin_ref, 1e-4)
+
+
+def test_ssd_wrappers_check_shapes():
+    x, dt, A, B, C = (_t(a) for a in _ssd_inputs((1,), 24, 2, 4, 1, 4, 0))
+    with pytest.raises(ValueError):      # S not a chunk multiple
+        ssd_apply(x, dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError):      # A must be (H,)
+        ssd_apply(x, dt, A[:1], B, C, chunk=8)
+
+
+def test_cpu_tensors_launch_neither_kernel():
+    tkernels.reset_launch_counts()
+    q, k, v = _qkv((1, 8, 2, 16), seed=0, kv_shape=(1, 8, 1, 16))
+    gqa_flash_attention(_t(q), _t(k), _t(v))
+    ssd_apply(*(_t(a) for a in _ssd_inputs((1,), 16, 2, 4, 1, 4, 0)),
+              chunk=16)
+    counts = tkernels.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["ssd_scan"] == 0

@@ -1,0 +1,112 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on a card.
+
+Every test here carries the ``cuda`` marker and skips on a host without a
+CUDA device (the kernels have no CPU mode).  The file imports neither JAX nor
+the reference, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: histograms bit-equal; the weighted sum within one float32
+rounding per client term; float32 attention 2e-5 and the SSD scan 1e-4 (the
+reference's own pins, tests/test_kernels.py); bfloat16 attention one bf16 ulp
+(both sides round a float32 result once, 2^-7 of the value at most).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention, gqa_attention_ref, gqa_flash_attention)
+from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref  # noqa: E402
+from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,  # noqa: E402
+                                              weighted_agg_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.reset_launch_counts()
+    return torch.device("cuda")
+
+
+def _randn(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+
+def test_label_hist_kernel_bit_equal(cuda):
+    rng = np.random.default_rng(0)
+    labels = torch.from_numpy(rng.integers(-3, 13, (50, 300)).astype(np.int32))
+    valid = torch.from_numpy(rng.random((50, 300)) > 0.1)
+    got = label_hist_kernel(labels.to(cuda), valid.to(cuda), 10)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["label_hist"] == 1
+    assert torch.equal(got.cpu(), label_hist_ref(labels, valid, 10))
+
+
+@pytest.mark.parametrize("n", [10, 4100])
+def test_weighted_agg_kernel_matches(cuda, n):
+    x = _randn((30, n), n, cuda)
+    w = _randn((30,), n + 1, cuda).abs()
+    got = weighted_agg_kernel(x, w)
+    want = weighted_agg_ref(x, w)
+    torch.cuda.synchronize()
+    tol = 2 * 30 * 2.0 ** -24 * (w @ x.abs())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("bh,s,d,dtype,window", [
+    (8, 77, 64, torch.float32, 0), (4, 200, 128, torch.float32, 50),
+    (16, 256, 128, torch.bfloat16, 0), (16, 256, 64, torch.bfloat16, 64)])
+def test_flash_kernel_matches_plain_version(cuda, bh, s, d, dtype, window):
+    q, k, v = (_randn((bh, s, d), s + i, cuda).to(dtype) for i in range(3))
+    got = flash_attention(q, k, v, window=window).float()
+    want = attention_ref(q, k, v, True, window).float()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    tol = (2e-5 * (1 + want.abs()) if dtype == torch.float32
+           else 2.0 ** -7 * want.abs() + 1e-5)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_gqa_kernel_matches_plain_version(cuda):
+    q = _randn((2, 100, 8, 64), 1, cuda)
+    k, v = _randn((2, 100, 2, 64), 2, cuda), _randn((2, 100, 2, 64), 3, cuda)
+    got = gqa_flash_attention(q, k, v)
+    want = gqa_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n", [(2, 64, 4, 2, 8, 64),
+                                         (1, 96, 16, 1, 32, 32),
+                                         (1, 256, 8, 1, 64, 128)])
+def test_ssd_kernel_matches_plain_version(cuda, b, s, h, g, p, n):
+    x = _randn((b, s, h, p), 1, cuda)
+    dt = torch.nn.functional.softplus(_randn((b, s, h), 2, cuda))
+    A = -torch.exp(0.3 * _randn((h,), 3, cuda))
+    B, C = 0.5 * _randn((b, s, g, n), 4, cuda), 0.5 * _randn((b, s, g, n), 5, cuda)
+    y, fin = ssd_apply(x, dt, A, B, C, chunk=32)
+    y_ref, fin_ref = ssd_apply_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_scan"] == 1
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fin, fin_ref, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_raise_on_what_they_do_not_take(cuda):
+    q = _randn((2, 16, 48), 0, cuda)          # head_dim 48: not 64 or 128
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    x = _randn((1, 32, 2, 4), 0, cuda)
+    B = _randn((1, 32, 1, 12), 1, cuda)       # N = 12: no lane layout
+    with pytest.raises(ValueError, match="N in"):
+        ssd_apply(x, x[..., 0].abs(), -x[0, 0, :, 0].abs(), B, B, chunk=32)
