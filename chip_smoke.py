@@ -8,24 +8,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time and the compiler's register report;
+   check from ``cuobjdump -sass`` that the bf16 flash kernel runs on the
+   tensor cores (``HGMMA``) and from the ``-Xptxas -v`` log that it spills
+   nothing;
 3. hold ``label_hist`` against its plain version on the card: bit-equal;
 4. hold ``weighted_agg`` against its plain version on the card at every leaf
-   shape of the paper CNN with K=30 clients, in float32 and bfloat16;
+   shape of the paper CNN with K=30 clients, in float32 and bfloat16, then
+   the whole round's tree in one call (one launch), plain and as the masked
+   mean;
 5. run one paper-width FL round (``make_fl_round``, 1 local epoch) on the
    card and on the CPU from the same NumPy-made inputs, with sgd and with
    Adam: selections bit-equal, params within ``SGD_ATOL`` (sgd) and
    updates within ``ADAM_REL`` of their norm (Adam);
 6. the main path: ``run_fl_host`` for 3 rounds at paper width (case1b,
    labelwise, fedavg) on the card, with every kernel's launch count set to 0
-   just before and read just after (1 label_hist and 8 weighted_agg launches
+   just before and read just after (1 label_hist and 1 weighted_agg launch
    a round);
 7. time each kernel at the main path's shapes with CUDA events (device
    time per call), beside its bound, its plain version and one PyTorch call
    computing the same function;
 8. hold ``flash_attention`` against its plain version on the card at
    qwen3-14b's prefill shape (BH=160, S=1024, D=128, bf16), causal and with
-   window=256, at an unaligned float32 shape (8, 77, 64), and through the GQA
-   wrapper at (4, 1024, 40, 128) x (4, 1024, 8, 128);
+   window=256, at an unaligned float32 shape (8, 77, 64), at the bf16
+   kernel's edges ((8, 77, 64); (8, 1000, 128) causal and with window=256;
+   both shapes without the causal mask),
+   and through the GQA wrapper at (4, 1024, 40, 128) x (4, 1024, 8, 128) and
+   (2, 333, 40, 128) x (2, 333, 8, 128);
 9. hold ``ssd_scan`` (``ssd_apply``) against its plain version on the card at
    mamba2-1.3b's prefill shape (b=4, S=1024, H=64, P=64, G=1, N=128) and at
    reduced shapes;
@@ -212,6 +220,53 @@ def _assert_close(what: str, got, want, tol: float) -> float:
     return err.max().item()
 
 
+def flash_sass_report(lib: Path) -> None:
+    """The bf16 flash kernel's instantiations: wgmma (``HGMMA``) instructions
+    in their SASS, registers and spills from the ``-Xptxas -v`` log.  Raises
+    unless every instantiation has HGMMA and spills nothing."""
+    import re
+    from repro_torch.kernels.build import cuda_tool
+    kernel = "flash_attention_wgmma"
+    ptxas, name = {}, None
+    for line in Path(str(lib) + ".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name and kernel in name:
+            entry = ptxas.setdefault(name, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and kernel in name:
+            hgmma[name] = hgmma.get(name, 0) + line.count("HGMMA")
+    if not hgmma or set(hgmma) != set(ptxas):
+        raise AssertionError(f"{kernel}: SASS functions {sorted(hgmma)} do "
+                             f"not match the ptxas log's {sorted(ptxas)}")
+    for name in sorted(hgmma):
+        info = ptxas[name]
+        d = re.search(r"ILi(\d+)E", name)
+        say(f"{kernel}<D={d.group(1) if d else '?'}>: {hgmma[name]} HGMMA "
+            f"instructions, {info.get('registers')} registers, "
+            f"{info.get('spill_bytes')} bytes of spill stores and loads")
+        if hgmma[name] == 0 or info.get("spill_bytes") != 0:
+            raise AssertionError(f"{name}: no HGMMA in its SASS or spills "
+                                 f"({info})")
+
+
 def phase8_flash(dev) -> float:
     """flash_attention against its plain version; returns the max abs error."""
     import torch
@@ -223,38 +278,45 @@ def phase8_flash(dev) -> float:
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
     g = torch.Generator(device=dev).manual_seed(8)
     worst = 0.0
-    cases = [((160, 1024, 128), torch.bfloat16, 0),
-             ((160, 1024, 128), torch.bfloat16, 256),
-             ((8, 77, 64), torch.float32, 0)]
-    for shape, dtype, window in cases:
+    cases = [((160, 1024, 128), torch.bfloat16, True, 0),
+             ((160, 1024, 128), torch.bfloat16, True, 256),
+             ((8, 77, 64), torch.float32, True, 0),
+             ((8, 77, 64), torch.bfloat16, True, 0),
+             ((8, 1000, 128), torch.bfloat16, True, 0),
+             ((8, 1000, 128), torch.bfloat16, True, 256),
+             ((8, 77, 64), torch.bfloat16, False, 0),
+             ((8, 1000, 128), torch.bfloat16, False, 0)]
+    for shape, dtype, causal, window in cases:
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                    for _ in range(3))
-        got = flash_attention(q, k, v, causal=True, window=window).float()
-        want = attention_ref(q, k, v, True, window).float()
+        got = flash_attention(q, k, v, causal=causal, window=window).float()
+        want = attention_ref(q, k, v, causal, window).float()
         torch.cuda.synchronize()
         err = (got - want).abs()
         tol = (FLASH_F32_TOL * (1 + want.abs()) if dtype == torch.float32
                else 2.0 ** -7 * want.abs() + 1e-5)
         if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"flash_attention {shape} {dtype} window="
-                                 f"{window}: max |diff| {err.max().item()}")
+            raise AssertionError(f"flash_attention {shape} {dtype} causal="
+                                 f"{causal} window={window}: max |diff| "
+                                 f"{err.max().item()}")
         worst = max(worst, err.max().item())
-        say(f"flash_attention {shape} {dtype} window={window}: max abs err "
-            f"{err.max().item():.3e}")
-    b, s, h, kvh, d = 4, 1024, 40, 8, 128
-    q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
-    k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
-            for _ in range(2))
-    got = gqa_flash_attention(q, k, v).float()
-    want = gqa_attention_ref(q, k, v).float()
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    if bool((err > 2.0 ** -7 * want.abs() + 1e-5).any()):
-        raise AssertionError(f"gqa_flash_attention: max |diff| "
-                             f"{err.max().item()}")
-    worst = max(worst, err.max().item())
-    say(f"gqa_flash_attention {(b, s, h, d)} x {(b, s, kvh, d)} bf16: max abs "
-        f"err {err.max().item():.3e}")
+        say(f"flash_attention {shape} {dtype} causal={causal} window={window}"
+            f": max abs err {err.max().item():.3e}")
+    for b, s, h, kvh, d in [(4, 1024, 40, 8, 128), (2, 333, 40, 8, 128)]:
+        q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, s, kvh, d), generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+        got = gqa_flash_attention(q, k, v).float()
+        want = gqa_attention_ref(q, k, v).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        if bool((err > 2.0 ** -7 * want.abs() + 1e-5).any()) \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"gqa_flash_attention {(b, s, h, d)}: max "
+                                 f"|diff| {err.max().item()}")
+        worst = max(worst, err.max().item())
+        say(f"gqa_flash_attention {(b, s, h, d)} x {(b, s, kvh, d)} bf16: "
+            f"max abs err {err.max().item():.3e}")
     return worst
 
 
@@ -482,6 +544,20 @@ def phase11_serve(dev) -> dict:
     return out
 
 
+def flash_mma_flops(b: int, s: int, h: int, d: int) -> int:
+    """Tensor-core operations the bf16 flash kernel runs for causal
+    attention: each 64-row warpgroup of a 128-row q-tile runs every 64-key
+    tile up to its frontier, Q.K^T once and P.V twice (P_hi and P_lo).  For
+    information only: the bound counts live (q, k) pairs and each product
+    once."""
+    tiles = 0
+    for q0 in range(0, s, 128):
+        t_hi = -(-min(s, q0 + 128) // 64)
+        for row_lo in (q0, q0 + 64):
+            tiles += min(t_hi, (row_lo + 63) // 64 + 1)
+    return b * h * tiles * 3 * 2 * 64 * 64 * d
+
+
 def phase12_times(dev) -> dict:
     """flash_attention and ssd_scan at the serving path's shapes."""
     import torch
@@ -509,6 +585,11 @@ def phase12_times(dev) -> dict:
         f"({fa['by']}: {ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
         f"{nbytes / 1e6:.1f} MB), plain {fa['plain']:.4f} ms, "
         f"scaled_dot_product_attention {fa['lib']:.4f} ms")
+    mma = flash_mma_flops(b, s, h, d)
+    say(f"flash_attention bf16 kernel's own tensor-core work: {mma / 1e9:.1f} "
+        f"GFLOP (Q.K^T once, P.V twice for the P_hi/P_lo split, whole "
+        f"diagonal tiles), {mma / (fa['ms'] * 1e-3) / 1e12:.0f} TFLOP/s "
+        f"achieved")
 
     b, s, h, p, g_, n = SERVE_BATCH, SERVE_PROMPT, 64, 64, 1, 128
     args = _ssd_inputs(dev, b, s, h, p, g_, n, seed=12)
@@ -546,7 +627,9 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.dispatch import client_histograms
     from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref
+    from repro_torch.kernels.dispatch import masked_weighted_mean
     from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,
+                                                  weighted_agg_leaves,
                                                   weighted_agg_ref)
     from repro_torch.models import cnn_init
 
@@ -563,6 +646,7 @@ def main() -> int:
     build.library()
     say(f"built {lib.name} in {time.time() - t0:.1f} s")
     say(Path(str(lib) + ".log").read_text().strip())
+    flash_sass_report(lib)
 
     say("== 3. label_hist against its plain version (bit-equal)")
     hist_err = 0.0
@@ -613,6 +697,49 @@ def main() -> int:
                 agg_err = max(agg_err, err.max().item())
             say(f"weighted_agg {name} (K={K_CLIENTS}, N={size}) {dtype}: "
                 f"max abs err {err.max().item():.3e}")
+    # The whole round's tree in one call: one launch, each leaf within the
+    # same float32 summation bound; as the masked mean, the sums divided by
+    # the same device scalar, within that bound over Σw and one rounding.
+    rng = np.random.default_rng(4)
+    tree = {name: torch.from_numpy(0.05 * rng.standard_normal(
+        (K_CLIENTS,) + tuple(shapes[name])).astype(np.float32)).to(dev)
+        for name in leaf_sizes}
+    scales = torch.from_numpy(
+        rng.uniform(30, 290, K_CLIENTS).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(
+        (rng.random(K_CLIENTS) > 0.3).astype(np.float32)).to(dev)
+    flats = [x.reshape(K_CLIENTS, -1) for x in tree.values()]
+    kernels.reset_launch_counts()
+    sums = weighted_agg_leaves(flats, scales)
+    torch.cuda.synchronize()
+    tree_launches = kernels.launch_counts()["weighted_agg"]
+    kernels.reset_launch_counts()
+    means = masked_weighted_mean(tree, mask, scales)
+    torch.cuda.synchronize()
+    mean_launches = kernels.launch_counts()["weighted_agg"]
+    if (tree_launches, mean_launches) != (1, 1):
+        raise AssertionError(f"weighted_agg: {tree_launches} and "
+                             f"{mean_launches} launches for the round's tree,"
+                             f" expected 1 each")
+    w = mask * scales
+    denom = torch.clamp(w.sum(), min=1e-12)
+    tree_err = 0.0
+    for (name, x), flat, got_sum in zip(tree.items(), flats, sums):
+        tol32 = 2 * K_CLIENTS * 2.0 ** -24 * (scales @ flat.abs())
+        err = (got_sum - weighted_agg_ref(flat, scales)).abs()
+        want = weighted_agg_ref(flat, w, denom)
+        err_mean = (means[name].reshape(-1) - want).abs()
+        tol_mean = (2 * K_CLIENTS * 2.0 ** -24 * (w @ flat.abs()) / denom
+                    + 2.0 ** -23 * want.abs())
+        if bool((err > tol32).any()) or bool((err_mean > tol_mean).any()):
+            raise AssertionError(f"weighted_agg round tree, leaf {name}: "
+                                 f"max |diff| {err.max().item()} (sum), "
+                                 f"{err_mean.max().item()} (mean)")
+        tree_err = max(tree_err, err.max().item())
+        agg_err = max(agg_err, err.max().item())
+    say(f"weighted_agg, the round's {len(flats)} leaves in one launch: max "
+        f"abs err {tree_err:.3e}; masked_weighted_mean of the tree in one "
+        f"launch, within its bound")
 
     say("== 5. one paper-width round on the card against the CPU")
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -685,7 +812,7 @@ def main() -> int:
         say(f"round {t + 1}: acc={hist.accuracy[t]:.4f} "
             f"loss={hist.loss[t]:.4f} nsel={hist.num_selected[t]:.0f}")
     say(f"wall_s={hist.wall_s:.3f} launches={launches}")
-    want = {"label_hist": rounds, "weighted_agg": rounds * len(leaf_sizes),
+    want = {"label_hist": rounds, "weighted_agg": rounds,
             "flash_attention": 0, "ssd_scan": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -712,29 +839,30 @@ def main() -> int:
         f"{hist_bound:.6f} ms ({hist_by}), plain {hist_plain:.4f} ms, "
         f"bincount {hist_lib:.4f} ms")
 
-    agg = dict.fromkeys(("ms", "plain", "lib", "bytes", "ops"), 0.0)
-    for name, size in leaf_sizes.items():
-        rng = np.random.default_rng(size)
-        x = torch.from_numpy(
-            rng.standard_normal((K_CLIENTS, size)).astype(np.float32)).to(dev)
-        w = torch.from_numpy(
-            rng.uniform(30, 290, K_CLIENTS).astype(np.float32)).to(dev)
+    agg = dict.fromkeys(("plain", "lib", "bytes", "ops"), 0.0)
+    xs = [torch.from_numpy(np.random.default_rng(size).standard_normal(
+        (K_CLIENTS, size)).astype(np.float32)).to(dev)
+        for size in leaf_sizes.values()]
+    w = torch.from_numpy(np.random.default_rng(K_CLIENTS).uniform(
+        30, 290, K_CLIENTS).astype(np.float32)).to(dev)
+    for name, x in zip(leaf_sizes, xs):
+        size = x.shape[1]
         k_ms = time_ms(lambda: weighted_agg_kernel(x, w))
         p_ms = time_ms(lambda: weighted_agg_ref(x, w))
         l_ms = time_ms(lambda: w @ x)
         nbytes = (K_CLIENTS * size + K_CLIENTS + size) * 4
         leaf_bound, _ = bound(nbytes, 2 * K_CLIENTS * size)
-        for key, v in (("ms", k_ms), ("plain", p_ms),
-                       ("lib", l_ms), ("bytes", nbytes),
+        for key, v in (("plain", p_ms), ("lib", l_ms), ("bytes", nbytes),
                        ("ops", 2 * K_CLIENTS * size)):
             agg[key] += v
-        say(f"weighted_agg {name} (K={K_CLIENTS}, N={size}): kernel "
-            f"{k_ms:.4f} ms, bound {leaf_bound:.5f} ms, "
+        say(f"weighted_agg {name} (K={K_CLIENTS}, N={size}), one leaf: "
+            f"kernel {k_ms:.4f} ms, bound {leaf_bound:.5f} ms, "
             f"plain {p_ms:.4f} ms, s @ stacked {l_ms:.4f} ms")
+    agg["ms"] = time_ms(lambda: weighted_agg_leaves(xs, w))
     agg_bound, agg_by = bound(agg["bytes"], agg["ops"])
-    say(f"weighted_agg, one round's {len(leaf_sizes)} launches: kernel "
-        f"{agg['ms']:.4f} ms, bound "
-        f"{agg_bound:.5f} ms ({agg_by}, {agg['bytes'] / 1e6:.1f} MB), plain "
+    say(f"weighted_agg, one round's {len(leaf_sizes)} leaves in one launch: "
+        f"kernel {agg['ms']:.4f} ms, bound {agg_bound:.5f} ms ({agg_by}, "
+        f"{agg['bytes'] / 1e6:.1f} MB); per leaf summed: plain "
         f"{agg['plain']:.4f} ms, s @ stacked {agg['lib']:.4f} ms")
 
     flash_err = phase8_flash(dev)

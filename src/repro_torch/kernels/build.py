@@ -24,11 +24,13 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry point -> argument types; each returns cudaGetLastError() as int.
+# C entry point -> argument types; each returns an int: cudaGetLastError()
+# after a launch, 0 from repro_weighted_agg_geometry.
 SIGNATURES = {
     "repro_label_hist": [_P, _P, _P, _LL, _LL, _I, _P],
-    "repro_weighted_agg_f32": [_P, _P, _P, _I, _LL, _P],
-    "repro_weighted_agg_bf16": [_P, _P, _P, _I, _LL, _P],
+    "repro_weighted_agg_f32": [_P, _I, _LL, _P, _I, _P, _P],
+    "repro_weighted_agg_bf16": [_P, _I, _LL, _P, _I, _P, _P],
+    "repro_weighted_agg_geometry": [_P, _P, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_ssd_scan": [_P] * 7 + [_I] * 7 + [_P],
@@ -47,15 +49,17 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): on PATH or in
+    /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
+    default = Path("/usr/local/cuda/bin") / name
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; the "
-                       "CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found on PATH or in /usr/local/cuda/bin; "
+                       f"the CUDA kernels cannot be built or inspected")
 
 
 def build() -> Path:
@@ -65,7 +69,7 @@ def build() -> Path:
     lib = BUILD_DIR / f"librepro_torch_kernels_{source_digest()}.so"
     if lib.exists():
         return lib
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []

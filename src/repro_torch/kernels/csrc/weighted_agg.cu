@@ -1,25 +1,57 @@
-// Weighted sum over stacked client parameters on Hopper:
-//   y[j] = sum_k s[k] * theta[k, j],  theta (K, N) float32 or bfloat16,
-//   s (K,) float32, y (N,) in theta's dtype, accumulated in float32.
+// Weighted sums over stacked client parameters on Hopper, every leaf of a
+// parameter tree in one launch:
+//   y_i[j] = sum_k s[k] * theta_i[k, j]  (/ denom, when given),
+//   theta_i (K, N_i) float32 or bfloat16, s (K,) float32, y_i (N_i,) in
+//   theta_i's dtype, accumulated in float32 and rounded once.
 //
 // Replaces src/repro/kernels/weighted_agg/weighted_agg.py:weighted_agg_kernel
-// (body _agg_kernel), the FedAvg/FedSGD server reduction.  The TPU kernel runs
-// a (1 x K) . (K x block) product on the matrix unit per tile.  A 1 x K matvec
-// is far below any tensor-core tile, and the work is two operations per
-// 4 bytes read, so on Hopper it is a column reduction on CUDA cores that is
-// bound by memory bandwidth: each thread owns VEC contiguous columns, reads
-// them with 16-byte loads for every client k, and keeps VEC float32
-// accumulators in registers.  theta is read exactly once and y written once.
+// (body _agg_kernel), the FedAvg/FedSGD server reduction, which the
+// reference calls once per leaf.  The TPU kernel runs a (1 x K) . (K x block)
+// product on the matrix unit per tile.  A 1 x K matvec is far below any
+// tensor-core tile, and the work is two operations per 4 bytes read, so on
+// Hopper it is a column reduction on CUDA cores that is bound by memory
+// bandwidth: each thread owns VEC contiguous columns, reads them with 16-byte
+// loads for every client k in order, and keeps VEC float32 accumulators in
+// registers.  theta is read exactly once and y written once.
 //
-// Bound on the card: bytes.  At the FL round's shapes (K=30, 421,642 params over
-// eight leaves) one round moves about 52 MB, about 16 us at 3.35 TB/s.
+// Bound on the card: bytes.  At the FL round's shapes (K=30, 421,642 params
+// over eight leaves) one round moves about 52 MB, about 16 us at 3.35 TB/s.
+// Launched once a leaf, the seven small leaves cost a launch each (3-5 us)
+// for a few KB, so the round was set by launches, not bytes.  Here one launch
+// takes a table of up to kMaxLeaves leaves, passed by value in the kernel's
+// parameter space: each block finds its leaf by a binary search over the
+// leaves' first blocks, then sums its columns as a per-leaf launch would, in
+// the same order, so each column's float32 sum is the same.  A leaf whose
+// size or pointers rule out 16-byte loads takes scalar loads.  The optional
+// divide by a device scalar is IEEE float32 division, as torch's `/`, so the
+// mean needs no read back to the host.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxLeaves = 64;
+
+// One leaf, as the Python wrapper packs it (repro_torch/kernels/weighted_agg),
+// which also numbers the blocks with kThreads threads a block; the wrapper
+// checks kThreads, kMaxLeaves and sizeof(LeafEntry) through
+// repro_weighted_agg_geometry before its first launch.
+struct LeafEntry {
+  const void* theta;       // (K, n) in the launch's dtype
+  void* out;               // (n,)
+  long long n;
+  long long first_block;   // the leaf's blocks are first_block, first_block + 1, ...
+  int vec;                 // 1: n and both pointers allow 16-byte loads
+  int pad;
+};
+
+struct LeafTable {
+  LeafEntry leaf[kMaxLeaves];
+  int count;
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -35,15 +67,16 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 // VEC * sizeof(T) is 16 bytes on the vector path and sizeof(T) on the scalar
-// path (VEC == 1), used when N or a base pointer is not 16-byte aligned.
+// path (VEC == 1).
 template <typename T, int VEC>
-__global__ void weighted_agg_kernel(const T* __restrict__ theta,
-                                    const float* __restrict__ scales,
-                                    T* __restrict__ out, int k_clients,
-                                    long long n) {
+__device__ __forceinline__ void column_sum(const T* __restrict__ theta,
+                                           T* __restrict__ out, long long n,
+                                           long long thread,
+                                           const float* __restrict__ scales,
+                                           int k_clients,
+                                           const float* __restrict__ denom) {
   static_assert(VEC == 1 || VEC * sizeof(T) == 16, "16-byte vectors only");
-  const long long col =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  const long long col = thread * VEC;
   if (col >= n) return;
 
   float acc[VEC];
@@ -63,6 +96,11 @@ __global__ void weighted_agg_kernel(const T* __restrict__ theta,
     for (int v = 0; v < VEC; ++v) acc[v] += s * to_float(x[v]);
   }
 
+  if (denom != nullptr) {
+    const float d = *denom;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = __fdiv_rn(acc[v], d);
+  }
   alignas(16) T y[VEC];
 #pragma unroll
   for (int v = 0; v < VEC; ++v) y[v] = from_float<T>(acc[v]);
@@ -74,41 +112,74 @@ __global__ void weighted_agg_kernel(const T* __restrict__ theta,
 }
 
 template <typename T>
-int launch(const void* theta, const void* scales, void* out, int k_clients,
-           long long n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  constexpr int kVec = 16 / sizeof(T);
-  const bool aligned =
-      n % kVec == 0 && reinterpret_cast<uintptr_t>(theta) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long threads = aligned ? n / kVec : n;
-  const unsigned int blocks =
-      static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* th = static_cast<const T*>(theta);
-  const float* sc = static_cast<const float*>(scales);
-  T* o = static_cast<T*>(out);
-  if (aligned) {
-    weighted_agg_kernel<T, kVec><<<blocks, kThreads, 0, s>>>(th, sc, o,
-                                                             k_clients, n);
-  } else {
-    weighted_agg_kernel<T, 1><<<blocks, kThreads, 0, s>>>(th, sc, o,
-                                                          k_clients, n);
+__global__ void __launch_bounds__(kThreads)
+weighted_agg_kernel(const __grid_constant__ LeafTable table,
+                    const float* __restrict__ scales, int k_clients,
+                    const float* __restrict__ denom) {
+  // The last leaf whose first block is at or before this one.
+  const long long block = blockIdx.x;
+  int lo = 0, hi = table.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (table.leaf[mid].first_block <= block) lo = mid; else hi = mid - 1;
   }
+  const LeafEntry& e = table.leaf[lo];
+  const long long thread = (block - e.first_block) * kThreads + threadIdx.x;
+  const T* theta = static_cast<const T*>(e.theta);
+  T* out = static_cast<T*>(e.out);
+  if (e.vec) {
+    column_sum<T, 16 / sizeof(T)>(theta, out, e.n, thread, scales, k_clients,
+                                  denom);
+  } else {
+    column_sum<T, 1>(theta, out, e.n, thread, scales, k_clients, denom);
+  }
+}
+
+template <typename T>
+int launch(const void* entries, int count, long long blocks,
+           const void* scales, int k_clients, const void* denom,
+           void* stream) {
+  if (count <= 0 || blocks <= 0) return static_cast<int>(cudaGetLastError());
+  if (count > kMaxLeaves || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LeafTable table;
+  memset(&table, 0, sizeof(table));
+  memcpy(table.leaf, entries, sizeof(LeafEntry) * count);
+  table.count = count;
+  weighted_agg_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      table, static_cast<const float*>(scales), k_clients,
+      static_cast<const float*>(denom));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// entries: `count` LeafEntry records in host memory, all of one dtype, with
+// first blocks numbered from 0 and `blocks` blocks in all; denom may be null.
 // Each returns cudaGetLastError() after the launch (0 on success).
-extern "C" int repro_weighted_agg_f32(const void* theta, const void* scales,
-                                      void* out, int k_clients, long long n,
+extern "C" int repro_weighted_agg_f32(const void* entries, int count,
+                                      long long blocks, const void* scales,
+                                      int k_clients, const void* denom,
                                       void* stream) {
-  return launch<float>(theta, scales, out, k_clients, n, stream);
+  return launch<float>(entries, count, blocks, scales, k_clients, denom,
+                       stream);
 }
 
-extern "C" int repro_weighted_agg_bf16(const void* theta, const void* scales,
-                                       void* out, int k_clients, long long n,
+extern "C" int repro_weighted_agg_bf16(const void* entries, int count,
+                                       long long blocks, const void* scales,
+                                       int k_clients, const void* denom,
                                        void* stream) {
-  return launch<__nv_bfloat16>(theta, scales, out, k_clients, n, stream);
+  return launch<__nv_bfloat16>(entries, count, blocks, scales, k_clients,
+                               denom, stream);
+}
+
+// The launch geometry the Python wrapper plans tables with: threads a block,
+// leaves a table and bytes a LeafEntry.
+extern "C" int repro_weighted_agg_geometry(int* threads, int* max_leaves,
+                                           int* entry_bytes) {
+  *threads = kThreads;
+  *max_leaves = kMaxLeaves;
+  *entry_bytes = static_cast<int>(sizeof(LeafEntry));
+  return 0;
 }

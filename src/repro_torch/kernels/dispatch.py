@@ -26,10 +26,11 @@ import torch
 from ..core.aggregation import masked_mean
 from ..core.label_stats import histogram, label_variance_normed
 from .label_hist.label_hist import label_hist_kernel
-from .weighted_agg.weighted_agg import weighted_agg_kernel
+from .weighted_agg.weighted_agg import weighted_agg_leaves
 
 Params = Dict[str, torch.Tensor]
 BACKENDS = ("auto", "reference")
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(backend: str) -> str:
@@ -64,10 +65,18 @@ def client_statistics(labels: torch.Tensor, num_classes: int,
     return hists, label_variance_normed(hists)
 
 
-def _leaf_sum(leaf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Σ_k w_k · leaf_k over the leading client axis, one kernel launch."""
-    flat = leaf.reshape(leaf.shape[0], -1).contiguous()
-    return weighted_agg_kernel(flat, w).reshape(leaf.shape[1:])
+def _leaf_sums(tree: Params, w: torch.Tensor,
+               denom: Optional[torch.Tensor] = None) -> Params:
+    """Σ_k w_k · leaf_k over every leaf's leading client axis (÷ denom when
+    given), one kernel launch for all leaves of one dtype.  The kernel reads
+    float32 and bfloat16; a leaf of another floating dtype (float16,
+    float64) is summed in float32 and its result cast back to its dtype."""
+    flats = [x.reshape(x.shape[0], -1).contiguous() for x in tree.values()]
+    flats = [x if x.dtype in _KERNEL_DTYPES else x.to(torch.float32)
+             for x in flats]
+    sums = weighted_agg_leaves(flats, w, denom)
+    return {k: y.reshape(x.shape[1:]).to(x.dtype)
+            for (k, x), y in zip(tree.items(), sums)}
 
 
 def masked_weighted_mean(stacked: Params, mask: torch.Tensor,
@@ -76,15 +85,14 @@ def masked_weighted_mean(stacked: Params, mask: torch.Tensor,
     """Weighted mean over the leading (client) axis restricted to ``mask``:
     the FedAvg/FedSGD server reduction, with ``masked_mean``'s signature and
     its ε-denominator for an empty mask.  The kernel path sums each leaf in
-    float32 and divides by Σw, as the reference's kernel path does."""
+    float32 and divides by Σw in float32 before rounding to the leaf's dtype,
+    as the reference's kernel path does, in one launch for the whole tree."""
     if _check(backend) == "reference":
         return masked_mean(stacked, mask, weights)
     w = mask.to(torch.float32)
     if weights is not None:
         w = w * weights.to(torch.float32)
-    denom = torch.clamp(w.sum(), min=1e-12)
-    return {k: (_leaf_sum(p.to(torch.float32), w) / denom).to(p.dtype)
-            for k, p in stacked.items()}
+    return _leaf_sums(stacked, w, torch.clamp(w.sum(), min=1e-12))
 
 
 def weighted_sum_tree(tree: Params, weights: torch.Tensor, *,
@@ -96,4 +104,4 @@ def weighted_sum_tree(tree: Params, weights: torch.Tensor, *,
     if _check(backend) == "reference":
         return {k: (w.reshape(w.shape + (1,) * (x.dim() - 1)).to(x.dtype)
                     * x).sum(0) for k, x in tree.items()}
-    return {k: _leaf_sum(x, w) for k, x in tree.items()}
+    return _leaf_sums(tree, w)

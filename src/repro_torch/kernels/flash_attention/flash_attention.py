@@ -2,9 +2,10 @@
 wrapper of ``csrc/flash_attention.cu``.
 
 Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention
-(body ``_flash_kernel``).  The source note in the .cu file says what bounds
-the kernel on the card and how the TPU's sequential key-block grid axis
-became a loop inside one CUDA block.
+(body ``_flash_kernel``).  bfloat16 runs on the tensor cores (wgmma, TMA),
+float32 on the CUDA cores.  The source note in the .cu file says what bounds
+the kernel on the card, how the TPU's sequential key-block grid axis became
+a loop inside one CUDA block, and why the bf16 kernel splits P in two.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention needs contiguous q/k/v starting "
-                         "on 16-byte boundaries (it loads 4 elements at once)")
+                         "on 16-byte boundaries (it loads 16 bytes at once)")
     if window < 0:
         raise ValueError(f"window must be >= 0; got {window}")
     out = torch.empty_like(q)

@@ -1,12 +1,17 @@
 """Plain PyTorch version of the weighted client-sum kernel."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
-def weighted_agg_ref(stacked: torch.Tensor,
-                     scales: torch.Tensor) -> torch.Tensor:
+def weighted_agg_ref(stacked: torch.Tensor, scales: torch.Tensor,
+                     denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """stacked (K, N), scales (K,) float32 -> (N,) sum_k s_k * stacked_k,
-    accumulated in float32 and returned in ``stacked``'s dtype."""
+    accumulated in float32, divided by ``denom`` in float32 when given, and
+    returned in ``stacked``'s dtype."""
     acc = (scales.float()[:, None] * stacked.float()).sum(0)
+    if denom is not None:
+        acc = acc / denom
     return acc.to(stacked.dtype)

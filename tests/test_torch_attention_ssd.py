@@ -83,6 +83,54 @@ def test_flash_attention_matches_pallas_kernel_in_interpret_mode():
     _close(flash_attention(_t(q), _t(k), _t(v)), ref, 2e-5)
 
 
+# The bf16 CUDA kernel's arithmetic (csrc/flash_attention.cu), emulated in
+# plain PyTorch: online softmax over 64-key tiles in float32, exact bf16
+# products summed in float32, and P.V with P rounded to bf16 once or split
+# into P_hi + P_lo.  Held to the tolerance that chip_smoke.py and
+# tests/test_torch_kernels_cuda.py set for bf16 attention (one bf16 ulp,
+# 2^-7 |want| + 1e-5) against the float32 plain version and the Pallas kernel.
+
+def _emulated_bf16_flash(q, k, v, *, split, tile=64):
+    """bf16 q/k/v (BH, S, D), causal -> bf16 (BH, S, D)."""
+    _, s, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:2] + (1,), -1e30)
+    l = torch.zeros(q.shape[:2] + (1,))
+    acc = torch.zeros(qf.shape)
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        kt, vt = kf[:, k0:k0 + tile], vf[:, k0:k0 + tile]
+        ok = torch.arange(k0, k0 + kt.shape[1])[None, :] <= qpos
+        sc = torch.where(ok, qf @ kt.transpose(1, 2) / np.sqrt(d), -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp(sc - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vt
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vt
+        acc = alpha * acc + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def test_bf16_flash_design_needs_the_p_split():
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv((4, 256, 128), seed=13))
+    plain = attention_ref(q, k, v, True, 0).float()
+    pallas = torch.from_numpy(np.asarray(jflash(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=128, block_k=128, interpret=True)
+    ).astype(np.float32))
+    for want in (plain, pallas):
+        tol = 2.0 ** -7 * want.abs() + 1e-5
+        split = _emulated_bf16_flash(q, k, v, split=True).float()
+        once = _emulated_bf16_flash(q, k, v, split=False).float()
+        assert bool(((split - want).abs() <= tol).all())
+        assert int(((once - want).abs() > tol).sum()) > 100
+
+
 @pytest.mark.parametrize("b,s,h,kv,d", [(2, 64, 4, 2, 32), (1, 33, 8, 8, 16),
                                         (2, 20, 6, 1, 64)])
 def test_gqa_plain_version_matches_model_sdpa(b, s, h, kv, d):

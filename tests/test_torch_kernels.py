@@ -26,7 +26,9 @@ from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.kernels import dispatch as tdispatch  # noqa: E402
 from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
 from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,  # noqa: E402
+                                              weighted_agg_leaves,
                                               weighted_agg_ref)
+from repro_torch.kernels.weighted_agg import weighted_agg as tagg  # noqa: E402
 
 JAX_BACKENDS = ("pallas_interpret", "reference")
 
@@ -120,6 +122,101 @@ def test_weighted_agg_keeps_bf16():
     torch.testing.assert_close(out, want.to(torch.bfloat16), rtol=0, atol=0)
 
 
+# The table of leaves that one weighted_agg launch takes (planned in Python,
+# so the CPU can check it; the kernel itself runs on the card).
+
+def test_leaf_table_groups_by_dtype_and_numbers_blocks():
+    leaves = [torch.zeros(3, 4100), torch.zeros(3, 64, dtype=torch.bfloat16),
+              torch.zeros(3, 10), torch.zeros(3, 0), torch.zeros(3, 1280),
+              torch.zeros(3, 8, dtype=torch.bfloat16)]
+    outs = [torch.zeros(x.shape[1], dtype=x.dtype) for x in leaves]
+    tables = tagg.launch_tables(leaves, outs)
+    assert [d for d, _ in tables] == [torch.float32, torch.bfloat16]
+    f32, bf16 = tables[0][1], tables[1][1]
+    # The empty leaf (index 3) takes no slot; slots keep the leaves' indices.
+    assert [s.index for s in f32] == [0, 2, 4]
+    assert [s.index for s in bf16] == [1, 5]
+    # float32: 4 columns a 16-byte load; 10 columns take scalar loads.
+    assert [(s.n, s.vec, s.blocks) for s in f32] == [
+        (4100, True, 5), (10, False, 1), (1280, True, 2)]
+    assert [s.first_block for s in f32] == [0, 5, 6]
+    # bfloat16: 8 columns a load, block starts from 0 again.
+    assert [(s.n, s.vec, s.first_block, s.blocks) for s in bf16] == [
+        (64, True, 0, 1), (8, True, 1, 1)]
+
+
+def test_leaf_table_alignment_flags():
+    base = torch.zeros(2, 33)
+    aligned = base[:, :32].contiguous()
+    shifted = torch.zeros(2 * 32 + 1)[1:].view(2, 32)   # 4 bytes off 16
+    out = torch.zeros(32)
+    assert tagg.vector_width(torch.float32) == 4
+    assert tagg.vector_width(torch.bfloat16) == 8
+    assert tagg.loads_16_bytes(32, 4, aligned.data_ptr(), out.data_ptr())
+    assert not tagg.loads_16_bytes(32, 4, shifted.data_ptr(), out.data_ptr())
+    assert not tagg.loads_16_bytes(32, 4, aligned.data_ptr(),
+                                   out.data_ptr() + 4)
+    assert not tagg.loads_16_bytes(30, 4, aligned.data_ptr(), out.data_ptr())
+    (_, table), = tagg.launch_tables([aligned, shifted], [out, out.clone()])
+    assert [s.vec for s in table] == [True, False]
+    assert [s.blocks for s in table] == [1, 1]
+
+
+@pytest.mark.parametrize("count", [64, 65, 130, 200])
+def test_leaf_table_splits_past_the_cap(count):
+    cap = tagg.MAX_LEAVES
+    sizes = [(i % 7) * 300 for i in range(count)]     # every 7th leaf empty
+    plans = tagg.plan_launches(sizes, [i % 2 == 0 for i in range(count)], 4)
+    live = [i for i, n in enumerate(sizes) if n]
+    assert [s.index for p in plans for s in p] == live
+    assert len(plans) == -(-len(live) // cap)
+    assert all(len(p) <= cap for p in plans)
+    assert all(len(p) == cap for p in plans[:-1])
+    for p in plans:
+        starts = [s.first_block for s in p]
+        assert starts[0] == 0
+        assert starts[1:] == [s.first_block + s.blocks for s in p[:-1]]
+        for s in p:
+            threads = s.n // 4 if s.vec else s.n
+            assert (s.blocks - 1) * tagg.THREADS < threads \
+                <= s.blocks * tagg.THREADS
+
+
+@pytest.mark.parametrize("with_denom", [False, True])
+def test_weighted_agg_leaves_equal_per_leaf_plain_and_pallas(with_denom):
+    k = 6
+    rng = np.random.default_rng(11)
+    sizes = [7, 2048, 10, 0, 300]
+    stacked = [rng.standard_normal((k, n)).astype(np.float32) for n in sizes]
+    scales = rng.random(k).astype(np.float32)
+    denom = _t(np.float32(2.5)) if with_denom else None
+    leaves = [_t(x) for x in stacked] + [_t(stacked[1]).to(torch.bfloat16)]
+    got = weighted_agg_leaves(leaves, _t(scales), denom)
+    assert [g.dtype for g in got] == [x.dtype for x in leaves]
+    for x, g in zip(leaves, got):
+        want = weighted_agg_ref(x, _t(scales))
+        if with_denom:
+            want = (weighted_agg_ref(x.float(), _t(scales)) / denom).to(x.dtype)
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+    for x, g in zip(stacked, got):
+        if x.shape[1] == 0:
+            assert g.shape == (0,)
+            continue
+        ref = np.asarray(jagg(jnp.asarray(x), jnp.asarray(scales),
+                              interpret=True))
+        if with_denom:
+            ref = ref / np.float32(2.5)
+        np.testing.assert_allclose(g.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+def test_weighted_agg_leaves_checks_its_inputs():
+    x, w = torch.zeros(3, 5), torch.ones(3)
+    with pytest.raises(ValueError):
+        weighted_agg_leaves([x, torch.zeros(2, 5)], w)
+    with pytest.raises(ValueError):
+        weighted_agg_leaves([x], w, torch.ones(2))
+
+
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
 @pytest.mark.parametrize("weighted", [False, True])
 def test_masked_weighted_mean_matches(backend, weighted):
@@ -163,6 +260,29 @@ def test_weighted_sum_tree_matches_and_keeps_leaf_dtype(backend):
         {n: jnp.asarray(v, jnp.bfloat16) for n, v in leaves.items()},
         jnp.asarray(w), backend=backend)
     assert all(v.dtype == jnp.bfloat16 for v in jbf.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_masked_weighted_mean_takes_other_float_dtypes(dtype):
+    # The kernel reads float32 and bfloat16; other leaves are summed in
+    # float32 and come back in their own dtype, as the reference's mean does.
+    k = 5
+    leaves = _leaves(k, seed=7)
+    mask = np.array([1, 1, 0, 1, 0], np.float32)
+    sizes = np.array([3, 8, 2, 5, 1], np.float32)
+    tree = {n: _t(v).to(dtype) for n, v in leaves.items()}
+    out = tdispatch.masked_weighted_mean(tree, _t(mask), _t(sizes))
+    ref = tdispatch.masked_weighted_mean(tree, _t(mask), _t(sizes),
+                                         backend="reference")
+    jref = jdispatch.masked_weighted_mean(
+        {n: jnp.asarray(v.float().numpy()) for n, v in tree.items()},
+        jnp.asarray(mask), jnp.asarray(sizes), backend="pallas_interpret")
+    tol = 1e-3 if dtype == torch.float16 else 1e-6
+    for name in leaves:
+        assert out[name].dtype == dtype
+        torch.testing.assert_close(out[name], ref[name], rtol=tol, atol=tol)
+        np.testing.assert_allclose(out[name].double().numpy(),
+                                   np.asarray(jref[name]), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("backend", ("auto", "reference"))

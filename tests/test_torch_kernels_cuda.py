@@ -22,7 +22,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention, gqa_attention_ref, gqa_flash_attention)
 from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref  # noqa: E402
+from repro_torch.kernels.dispatch import masked_weighted_mean  # noqa: E402
 from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,  # noqa: E402
+                                              weighted_agg_leaves,
                                               weighted_agg_ref)
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +77,72 @@ def test_flash_kernel_matches_plain_version(cuda, bh, s, d, dtype, window):
     tol = (2e-5 * (1 + want.abs()) if dtype == torch.float32
            else 2.0 ** -7 * want.abs() + 1e-5)
     assert bool(((got - want).abs() <= tol).all())
+
+
+def test_weighted_agg_tree_is_one_launch(cuda):
+    sizes = [288, 32, 18432, 64, 401408, 128, 1280, 10]   # the paper CNN
+    xs = [_randn((30, n), n, cuda) for n in sizes]
+    w = _randn((30,), 1, cuda).abs()
+    mask = (_randn((30,), 2, cuda) > 0).float()
+    sums = weighted_agg_leaves(xs, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["weighted_agg"] == 1
+    for x, got in zip(xs, sums):
+        tol = 2 * 30 * 2.0 ** -24 * (w @ x.abs())
+        assert bool(((got - weighted_agg_ref(x, w)).abs() <= tol).all())
+    tree = {f"leaf{i}": x for i, x in enumerate(xs)}
+    means = masked_weighted_mean(tree, mask, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["weighted_agg"] == 2
+    ww = mask * w
+    denom = torch.clamp(ww.sum(), min=1e-12)
+    for (name, x), got in zip(tree.items(), means.values()):
+        want = weighted_agg_ref(x, ww, denom)
+        tol = (2 * 30 * 2.0 ** -24 * (ww @ x.abs()) / denom
+               + 2.0 ** -23 * want.abs())
+        assert bool(((got - want).abs() <= tol).all()), name
+    bf = weighted_agg_leaves([x.bfloat16() for x in xs[:3]] + xs[3:], w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["weighted_agg"] == 4   # one a dtype
+    assert [y.dtype for y in bf[:3]] == [torch.bfloat16] * 3
+
+
+def test_weighted_agg_splits_past_the_table(cuda):
+    # 200 leaves, 190 of them non-empty: three tables of at most 64, block
+    # starts from 0 in each; odd sizes take scalar loads.
+    sizes = [(i % 7) * 300 + i % 3 for i in range(200)]
+    assert sum(n > 0 for n in sizes) == 190
+    xs = [_randn((5, n), n + i, cuda) for i, n in enumerate(sizes)]
+    w = _randn((5,), 3, cuda)
+    sums = weighted_agg_leaves(xs, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["weighted_agg"] == 3
+    for x, got in zip(xs, sums):
+        tol = 2 * 5 * 2.0 ** -24 * (w.abs() @ x.abs())
+        assert bool(((got - weighted_agg_ref(x, w)).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("bh,s,d,causal,window", [
+    (8, 77, 64, True, 0), (8, 1000, 128, True, 0), (8, 1000, 128, True, 256),
+    (8, 77, 64, False, 0), (8, 1000, 128, False, 0)])
+def test_bf16_flash_kernel_edges(cuda, bh, s, d, causal, window):
+    q, k, v = (_randn((bh, s, d), s + d + i, cuda).bfloat16()
+               for i in range(3))
+    got = flash_attention(q, k, v, causal=causal, window=window).float()
+    want = attention_ref(q, k, v, causal, window).float()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-5).all())
+
+
+def test_bf16_gqa_kernel_matches_plain_version(cuda):
+    q = _randn((2, 333, 40, 128), 4, cuda).bfloat16()
+    k = _randn((2, 333, 8, 128), 5, cuda).bfloat16()
+    v = _randn((2, 333, 8, 128), 6, cuda).bfloat16()
+    got = gqa_flash_attention(q, k, v).float()
+    want = gqa_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-5).all())
 
 
 def test_gqa_kernel_matches_plain_version(cuda):
