@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time and the compiler's register report;
-   check from ``cuobjdump -sass`` that the bf16 flash kernel runs on the
-   tensor cores (``HGMMA``) and from the ``-Xptxas -v`` log that it spills
-   nothing;
+   check from ``cuobjdump -sass`` that the bf16 flash kernel and both SSD
+   scan kernels run on the tensor cores (``HGMMA``, ``HMMA``) and from the
+   ``-Xptxas -v`` log that they spill nothing;
 3. hold ``label_hist`` against its plain version on the card: bit-equal;
 4. hold ``weighted_agg`` against its plain version on the card at every leaf
    shape of the paper CNN with K=30 clients, in float32 and bfloat16, then
@@ -35,8 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and through the GQA wrapper at (4, 1024, 40, 128) x (4, 1024, 8, 128) and
    (2, 333, 40, 128) x (2, 333, 8, 128);
 9. hold ``ssd_scan`` (``ssd_apply``) against its plain version on the card at
-   mamba2-1.3b's prefill shape (b=4, S=1024, H=64, P=64, G=1, N=128) and at
-   reduced shapes;
+   mamba2-1.3b's prefill shape (b=4, S=1024, H=64, P=64, G=1, N=128), at
+   reduced shapes and on a long, strongly decaying sequence (S=2048, dt up
+   to 10, A near -10);
 10. serve both archs at ``reduced(dtype="float32")`` on the card and on the
     CPU from the same weights and tokens, TF32 off: prefill logits, every
     cache and every decode step's logits within ``SERVE_TOL``;
@@ -68,10 +69,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth and
-# float32 rate outside the tensor cores (both kernels run on CUDA cores).
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth, the
+# float32 rate outside the tensor cores (label_hist and weighted_agg run
+# there) and the TF32 rate of the tensor cores (the SSD scan's products).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 K_CLIENTS = 30
 # The H100's top SM clock, to turn a host time into spin-kernel cycles (a
@@ -220,13 +223,19 @@ def _assert_close(what: str, got, want, tol: float) -> float:
     return err.max().item()
 
 
-def flash_sass_report(lib: Path) -> None:
-    """The bf16 flash kernel's instantiations: wgmma (``HGMMA``) instructions
-    in their SASS, registers and spills from the ``-Xptxas -v`` log.  Raises
-    unless every instantiation has HGMMA and spills nothing."""
+# Kernels that must run on the tensor cores: name in the SASS, the
+# instruction that shows it, and the template arguments printed beside it.
+TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",)),
+                       ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
+                       ("ssd_prep_kernel", "HMMA", ("NP",)))
+
+
+def tensor_core_report(lib: Path) -> None:
+    """For each instantiation of ``TENSOR_CORE_KERNELS``: its tensor-core
+    instructions in the SASS, registers and spills from the ``-Xptxas -v``
+    log.  Raises unless every instantiation has them and spills nothing."""
     import re
     from repro_torch.kernels.build import cuda_tool
-    kernel = "flash_attention_wgmma"
     ptxas, name = {}, None
     for line in Path(str(lib) + ".log").read_text().splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -234,7 +243,7 @@ def flash_sass_report(lib: Path) -> None:
         if m:
             name = m.group(1)
             continue
-        if name and kernel in name:
+        if name:
             entry = ptxas.setdefault(name, {})
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
@@ -246,25 +255,30 @@ def flash_sass_report(lib: Path) -> None:
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    hgmma, name = {}, None
+    lines, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-        elif name and kernel in name:
-            hgmma[name] = hgmma.get(name, 0) + line.count("HGMMA")
-    if not hgmma or set(hgmma) != set(ptxas):
-        raise AssertionError(f"{kernel}: SASS functions {sorted(hgmma)} do "
-                             f"not match the ptxas log's {sorted(ptxas)}")
-    for name in sorted(hgmma):
-        info = ptxas[name]
-        d = re.search(r"ILi(\d+)E", name)
-        say(f"{kernel}<D={d.group(1) if d else '?'}>: {hgmma[name]} HGMMA "
-            f"instructions, {info.get('registers')} registers, "
-            f"{info.get('spill_bytes')} bytes of spill stores and loads")
-        if hgmma[name] == 0 or info.get("spill_bytes") != 0:
-            raise AssertionError(f"{name}: no HGMMA in its SASS or spills "
-                                 f"({info})")
+            lines[name] = []
+        elif name:
+            lines[name].append(line)
+    for kernel, instr, args in TENSOR_CORE_KERNELS:
+        names = sorted(n for n in lines if kernel in n)
+        if not names or names != sorted(n for n in ptxas if kernel in n):
+            raise AssertionError(f"{kernel}: SASS functions {names} do not "
+                                 f"match the ptxas log's")
+        for n in names:
+            count = sum(line.count(instr) for line in lines[n])
+            info = ptxas[n]
+            vals = re.findall(r"Li(\d+)E", n)
+            targs = ", ".join(f"{a}={v}" for a, v in zip(args, vals))
+            say(f"{kernel}<{targs}>: {count} {instr} "
+                f"instructions, {info.get('registers')} registers, "
+                f"{info.get('spill_bytes')} bytes of spill stores and loads")
+            if count == 0 or info.get("spill_bytes") != 0:
+                raise AssertionError(f"{n}: no {instr} in its SASS or spills "
+                                     f"({info})")
 
 
 def phase8_flash(dev) -> float:
@@ -320,16 +334,23 @@ def phase8_flash(dev) -> float:
     return worst
 
 
-def _ssd_inputs(dev, b, s, h, p, g_, n, seed):
+def _ssd_inputs(dev, b, s, h, p, g_, n, seed, decaying=False):
+    """x, dt, A, B, C as the model draws them; ``decaying``: dt uniform in
+    [0, 10) and A near -10, so the log-decay summed over one of the kernel's
+    chunks reaches thousands."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    return (rn(b, s, h, p), torch.nn.functional.softplus(rn(b, s, h)),
-            -torch.exp(0.3 * rn(h)), 0.5 * rn(b, s, g_, n),
-            0.5 * rn(b, s, g_, n))
+    x = rn(b, s, h, p)
+    if decaying:
+        dt = 10 * torch.rand((b, s, h), generator=gen, device=dev)
+        A = -10 * torch.exp(0.1 * rn(h))
+    else:
+        dt, A = torch.nn.functional.softplus(rn(b, s, h)), -torch.exp(0.3 * rn(h))
+    return x, dt, A, 0.5 * rn(b, s, g_, n), 0.5 * rn(b, s, g_, n)
 
 
 def phase9_ssd(dev) -> float:
@@ -338,14 +359,18 @@ def phase9_ssd(dev) -> float:
     from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref
     say("== 9. ssd_scan against its plain version")
     worst = 0.0
-    for b, s, h, p, g_, n, chunk in [(4, 1024, 64, 64, 1, 128, 128),
-                                     (2, 96, 16, 32, 1, 32, 32),
-                                     (2, 64, 4, 8, 2, 64, 16)]:
-        args = _ssd_inputs(dev, b, s, h, p, g_, n, seed=s + h)
+    for b, s, h, p, g_, n, chunk, decaying in [
+            (4, 1024, 64, 64, 1, 128, 128, False),
+            (2, 96, 16, 32, 1, 32, 32, False),
+            (2, 64, 4, 8, 2, 64, 16, False),
+            (1, 2048, 4, 64, 1, 128, 128, True)]:
+        args = _ssd_inputs(dev, b, s, h, p, g_, n, seed=s + h,
+                           decaying=decaying)
         y, fin = ssd_apply(*args, chunk=chunk)
         y_ref, fin_ref = ssd_apply_ref(*args)
         torch.cuda.synchronize()
-        what = f"ssd_apply (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n})"
+        what = (f"ssd_apply (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n}"
+                f"{', strongly decaying' if decaying else ''})")
         err = max(_assert_close(what + " y", y, y_ref, SSD_TOL),
                   _assert_close(what + " state", fin, fin_ref, SSD_TOL))
         worst = max(worst, err)
@@ -558,6 +583,21 @@ def flash_mma_flops(b: int, s: int, h: int, d: int) -> int:
     return b * h * tiles * 3 * 2 * 64 * 64 * d
 
 
+def ssd_mma_flops(b: int, s: int, h: int, p: int, g_: int, n: int) -> int:
+    """Tensor-core operations the SSD kernels run (csrc/ssd_scan.cu), each
+    product three times for the split TF32 (hi.hi, hi.lo, lo.hi), N padded
+    to 16/32/64/128 and P to 64 rows a head, over chunks of 32 steps: C.B^T
+    once per (b, chunk, group); per head and chunk S_in.C^T (from the second
+    chunk on), M.X and the state update.  For information only: the bound
+    counts the chunked form's products once."""
+    np_ = next(w for w in (16, 32, 64, 128) if n <= w)
+    chunks, heads = -(-s // 32), b * h * -(-p // 64)
+    per_head = 3 * 2 * 64 * 8 * (
+        (chunks - 1) * (np_ // 8) * 32 + chunks * 4 * (32 + np_))
+    prep = 3 * 2 * 32 * 32 * np_ * b * chunks * g_
+    return heads * per_head + prep
+
+
 def phase12_times(dev) -> dict:
     """flash_attention and ssd_scan at the serving path's shapes."""
     import torch
@@ -592,19 +632,32 @@ def phase12_times(dev) -> dict:
         f"achieved")
 
     b, s, h, p, g_, n = SERVE_BATCH, SERVE_PROMPT, 64, 64, 1, 128
+    chunk = 128                               # mamba2-1.3b's ssm_chunk
     args = _ssd_inputs(dev, b, s, h, p, g_, n, seed=12)
-    ssd = {"ms": time_ms(lambda: ssd_apply(*args, chunk=128)),
+    ssd = {"ms": time_ms(lambda: ssd_apply(*args, chunk=chunk)),
            "plain": time_ms(lambda: ssd_apply_ref(*args), reps=1, trials=3),
            "lib": None}
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g_ * n
                   + b * h * p * n)
-    ops = 5 * b * s * h * p * n
-    ssd["bound"], ssd["by"] = bound(nbytes, ops)
+    # The chunked form's products done once: per head and chunk C.B^T is
+    # shared by the group, then (C.B^T o L).X, C.S_in^T and X^T.B.
+    ops = 2 * b * s * (g_ * chunk * n + h * p * (chunk + 2 * n))
+    ssd["bound"], ssd["by"] = bound(nbytes, ops, TF32_OPS_PER_S)
+    recurrence = 5 * b * s * h * p * n / F32_OPS_PER_S * 1e3
     say(f"ssd_scan (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n}, f32): kernel "
         f"{ssd['ms']:.4f} ms, bound {ssd['bound']:.4f} ms ({ssd['by']}: "
-        f"{ops / 1e9:.2f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB), "
-        f"plain {ssd['plain']:.4f} ms; no single PyTorch call computes the "
-        f"SSD scan, so there is no library time")
+        f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; the chunked form's products "
+        f"at chunk {chunk}, {ops / 1e9:.2f} GFLOP, take "
+        f"{ops / TF32_OPS_PER_S * 1e3:.4f} ms at 495 TFLOP/s TF32), plain "
+        f"{ssd['plain']:.4f} ms; no single PyTorch call computes the SSD "
+        f"scan, so there is no library time")
+    say(f"ssd_scan, the plain recurrence's float32 arithmetic (5 flops per "
+        f"(t, p, n) at 67 TFLOP/s, the bound the recurrence kernel had): "
+        f"{recurrence:.4f} ms")
+    mma = ssd_mma_flops(b, s, h, p, g_, n)
+    say(f"ssd_scan kernels' own tensor-core work: {mma / 1e9:.1f} GFLOP "
+        f"(split TF32, each product three times), "
+        f"{mma / (ssd['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
     return {"flash_attention": fa, "ssd_scan": ssd}
 
 
@@ -646,7 +699,7 @@ def main() -> int:
     build.library()
     say(f"built {lib.name} in {time.time() - t0:.1f} s")
     say(Path(str(lib) + ".log").read_text().strip())
-    flash_sass_report(lib)
+    tensor_core_report(lib)
 
     say("== 3. label_hist against its plain version (bit-equal)")
     hist_err = 0.0

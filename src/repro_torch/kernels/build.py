@@ -24,8 +24,9 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry point -> argument types; each returns an int: cudaGetLastError()
-# after a launch, 0 from repro_weighted_agg_geometry.
+# C entry point -> argument types; each returns an int (cudaGetLastError()
+# after a launch, 0 from repro_weighted_agg_geometry) unless RESTYPES says
+# otherwise.
 SIGNATURES = {
     "repro_label_hist": [_P, _P, _P, _LL, _LL, _I, _P],
     "repro_weighted_agg_f32": [_P, _I, _LL, _P, _I, _P, _P],
@@ -33,8 +34,10 @@ SIGNATURES = {
     "repro_weighted_agg_geometry": [_P, _P, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    "repro_ssd_scan": [_P] * 7 + [_I] * 7 + [_P],
+    "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_P],
+    "repro_ssd_scan_scratch_bytes": [_I] * 4,
 }
+RESTYPES = {"repro_ssd_scan_scratch_bytes": _LL}   # bytes of scratch
 
 
 def sources() -> list[Path]:
@@ -105,7 +108,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -1,9 +1,12 @@
 """The Mamba2 SSD scan: the wrapper of ``csrc/ssd_scan.cu``.
 
 Replaces src/repro/kernels/ssd_scan/ssd_scan.py:ssd_scan (body
-``_ssd_kernel``).  The source note in the .cu file says which of the two
-simple forms the kernel takes (the plain recurrence, state in registers),
-why, and what bounds it on the card.
+``_ssd_kernel``).  The source note in the .cu file says how the kernel runs
+the chunked SSD form on the tensor cores (split TF32, the state kept in
+registers across chunks), and what bounds it on the card.  One call runs two
+device kernels: C·Bᵀ and the split operands once per (batch, chunk, group)
+into a scratch this wrapper allocates, then the chunked scan, which reads
+them.
 """
 from __future__ import annotations
 
@@ -15,15 +18,8 @@ from .ref import ssd_ref
 # Launches of the CUDA kernel since the last reset (repro_torch.kernels).
 launches = 0
 
-
-def _state_lanes(n: int) -> int:
-    """Threads that share one state row in the kernel (32 columns each), or
-    0 if the kernel does not take this N (32 times a power of two up to
-    32)."""
-    lanes = n // 32
-    if n % 32 or not lanes or lanes > 32 or lanes & (lanes - 1):
-        return 0
-    return lanes
+# The kernel's own chunk length (Q in csrc/ssd_scan.cu).
+CHUNK = 32
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -34,8 +30,9 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            B: torch.Tensor, C: torch.Tensor, *, a_stride: int):
     """x (b, S, H, P), dt (b, S, H), A read at ``[b * a_stride + h]``,
     B/C (b, S, G, N) with G dividing H, all float32 on one CUDA device ->
-    (y (b, S, H, P), final_state (b, H, P, N)) float32, by one launch.
-    Raises on what the kernel does not take."""
+    (y (b, S, H, P), final_state (b, H, P, N)) float32, by one launch of
+    the C entry (two device kernels).  Raises on what the kernel does not
+    take."""
     ts = (x, dt, A, B, C)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError(f"ssd_scan runs on one CUDA device; got "
@@ -47,19 +44,25 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_scan needs contiguous inputs")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    lanes = _state_lanes(n)
-    if not lanes or p * lanes > 1024:
-        raise ValueError(f"the kernel takes N in 32·2^k up to 1024 "
-                         f"and P·lanes <= 1024; got P={p}, N={n}")
+    if n % 8 or not 0 < n <= 128 or p % 4:
+        raise ValueError(f"the kernel takes N in multiples of 8 up to 128 "
+                         f"and P a multiple of 4; got P={p}, N={n}")
+    if g == 0 or h % g or b * h >= 2 ** 31 \
+            or b * -(-s // CHUNK) * g >= 2 ** 31:
+        raise ValueError(f"the kernel takes G dividing H and fewer than 2^31 "
+                         f"blocks; got b={b}, S={s}, H={h}, G={g}")
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     fin = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b * h * p == 0:
         return y, fin
+    lib = library()
+    scratch = torch.empty((lib.repro_ssd_scan_scratch_bytes(b, s, g, n),),
+                          dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    check_launch("ssd_scan", library().repro_ssd_scan(
+    check_launch("ssd_scan", lib.repro_ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), fin.data_ptr(), b, s, h, p, g, n,
-        a_stride, stream))
+        C.data_ptr(), y.data_ptr(), fin.data_ptr(), scratch.data_ptr(), b, s,
+        h, p, g, n, a_stride, stream))
     global launches
     launches += 1
     return y, fin
@@ -69,7 +72,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int = 128):
     """x (BH, S, P); dt (BH, S); A (BH,); B/C (BH, S, N) ->
     (y (BH, S, P) float32, final_state (BH, P, N) float32).  S % chunk == 0,
-    as the reference requires (the kernel itself does not chunk).
+    as the reference requires; the kernel runs its own chunk of 32 steps,
+    masking the tail, and its result does not depend on ``chunk``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (inputs cast to float32, as the TPU kernel casts them) or raise."""

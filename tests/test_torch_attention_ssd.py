@@ -201,6 +201,121 @@ def test_ssd_scan_matches_pallas_kernel_in_interpret_mode():
     _close(fin, fin_ref, 1e-4)
 
 
+# The CUDA kernel's arithmetic (csrc/ssd_scan.cu), emulated on the CPU: the
+# chunked SSD form over chunks of 32 steps, every product on the tensor cores
+# with operands read as TF32 (10 mantissa bits) and float32 sums.  ``split``
+# takes each operand as hi = TF32(v) rounded to nearest plus lo = v - hi,
+# which the tensor cores read truncated, and sums hi.hi + hi.lo + lo.hi;
+# otherwise one pass on operands rounded to TF32.  ``direct`` sums each decay
+# exponent over its own steps (as the kernel does); otherwise it is the
+# difference cum_t - cum_s of two running sums.
+SSD_TOL = 1e-4
+
+
+def _tf32_round(x):
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_mm(a, b, split):
+    if not split:
+        return _tf32_round(a) @ _tf32_round(b)
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _emulated_ssd_kernel(x, dt, A, B, C, *, split, chunk=32, direct=True):
+    """x (BH, S, P), dt (BH, S), A (BH,), B/C (BH, S, N), float32 ->
+    (y, final state) as the kernel computes them."""
+    bh, s, p = x.shape
+    state = torch.zeros((bh, p, B.shape[-1]))
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    ys = []
+    for c0 in range(0, s, chunk):
+        xc, dtc, Bc, Cc = (t[:, c0:c0 + chunk] for t in (x, dt, B, C))
+        dA = dtc * A[:, None]
+        cum = torch.cumsum(dA, 1)
+        if direct:
+            # seg[t, s] = sum over (s, t], summed from t down; rest[s] =
+            # sum over (s, Q).
+            seg = torch.zeros((bh, chunk, chunk))
+            for t in range(1, chunk):
+                seg[:, t, :t] = torch.flip(torch.cumsum(
+                    torch.flip(dA[:, 1:t + 1], [1]), 1), [1])
+            rest = seg[:, -1]
+        else:
+            seg = cum[:, :, None] - cum[:, None, :]
+            rest = cum[:, -1:] - cum
+        L = torch.where(tri, torch.exp(torch.where(tri, seg, -torch.inf)), 0.0)
+        M = _tf32_mm(Cc, Bc.transpose(1, 2), split) * L * dtc[:, None, :]
+        ys.append(torch.exp(cum)[:, :, None]
+                  * _tf32_mm(Cc, state.transpose(1, 2), split)
+                  + _tf32_mm(M, xc, split))
+        xw = xc * (torch.exp(rest) * dtc)[:, :, None]
+        state = (torch.exp(cum[:, -1])[:, None, None] * state
+                 + _tf32_mm(xw.transpose(1, 2), Bc, split))
+    return torch.cat(ys, 1), state
+
+
+def _ssd_recurrence_f64(x, dt, A, B, C):
+    x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+    state = torch.zeros((x.shape[0], x.shape[2], B.shape[2]),
+                        dtype=torch.float64)
+    ys = []
+    for t in range(x.shape[1]):
+        state = (state * torch.exp(dt[:, t] * A)[:, None, None]
+                 + (dt[:, t, None] * x[:, t])[:, :, None] * B[:, t, None])
+        ys.append(torch.einsum("bpn,bn->bp", state, C[:, t]))
+    return torch.stack(ys, 1), state
+
+
+def _ssd_err(got, want):
+    return max(((g.double() - w).abs() / (1 + w.abs())).max().item()
+               for g, w in zip(got, want))
+
+
+def _design_inputs(decaying):
+    """H 2, S 512, P 64, N 128: mamba2-1.3b's head shapes.  ``decaying``
+    draws dt up to 10 and A near -10, so a chunk's log-decay reaches
+    thousands."""
+    rng = np.random.default_rng(14)
+    x, dt, A, B, C = _ssd_inputs((), 512, 2, 64, 1, 128, seed=14)
+    if decaying:
+        dt = rng.uniform(0, 10, dt.shape).astype(np.float32)
+        A = (-10 * np.exp(0.1 * rng.standard_normal(2))).astype(np.float32)
+    return tuple(_t(a) for a in (x.transpose(1, 0, 2), dt.T, A,
+                                 B[:, 0][None].repeat(2, 0),
+                                 C[:, 0][None].repeat(2, 0)))
+
+
+@pytest.mark.parametrize("decaying", [False, True])
+def test_ssd_design_needs_the_tf32_split(decaying):
+    args = _design_inputs(decaying)
+    want = _ssd_recurrence_f64(*args)
+    once = _ssd_err(_emulated_ssd_kernel(*args, split=False), want)
+    split = _ssd_err(_emulated_ssd_kernel(*args, split=True), want)
+    print(f"decaying={decaying}: one TF32 pass {once:.2e}, split {split:.2e}")
+    assert once > SSD_TOL
+    assert split < SSD_TOL / 2
+
+
+def test_ssd_design_sums_each_decay_exponent_directly():
+    # With a strong decay, exp(cum_t - cum_s) from two running sums cancels
+    # in float32: at chunk 64 it misses the limit, the direct sums do not.
+    args = _design_inputs(decaying=True)
+    want = _ssd_recurrence_f64(*args)
+    diff = _ssd_err(_emulated_ssd_kernel(*args, split=True, chunk=64,
+                                         direct=False), want)
+    direct = _ssd_err(_emulated_ssd_kernel(*args, split=True, chunk=64), want)
+    print(f"chunk 64: difference of running sums {diff:.2e}, direct {direct:.2e}")
+    assert diff > SSD_TOL
+    assert direct < SSD_TOL / 2
+
+
 def test_ssd_wrappers_check_shapes():
     x, dt, A, B, C = (_t(a) for a in _ssd_inputs((1,), 24, 2, 4, 1, 4, 0))
     with pytest.raises(ValueError):      # S not a chunk multiple

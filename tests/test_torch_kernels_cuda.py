@@ -170,11 +170,63 @@ def test_ssd_kernel_matches_plain_version(cuda, b, s, h, g, p, n):
     torch.testing.assert_close(fin, fin_ref, rtol=1e-4, atol=1e-4)
 
 
+def test_ssd_kernel_strong_decay_stays_finite_and_close(cuda):
+    # dt up to 10 and A near -10: the log-decay sum inside one of the
+    # kernel's chunks reaches thousands, where exp(cum_t - cum_s) taken as a
+    # difference of running sums would lose the 1e-4.
+    rng = np.random.default_rng(7)
+    b, s, h, g, p, n = 1, 2048, 4, 1, 64, 128
+    x = _randn((b, s, h, p), 11, cuda)
+    dt = torch.from_numpy(rng.uniform(0, 10, (b, s, h)).astype(np.float32)).to(cuda)
+    A = torch.from_numpy(
+        (-10 * np.exp(0.1 * rng.standard_normal(h))).astype(np.float32)).to(cuda)
+    B, C = 0.5 * _randn((b, s, g, n), 12, cuda), 0.5 * _randn((b, s, g, n), 13, cuda)
+    y, fin = ssd_apply(x, dt, A, B, C, chunk=128)
+    y_ref, fin_ref = ssd_apply_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fin, fin_ref, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_is_deterministic(cuda):
+    x = _randn((1, 256, 8, 64), 21, cuda)
+    dt = torch.nn.functional.softplus(_randn((1, 256, 8), 22, cuda))
+    A = -torch.exp(0.3 * _randn((8,), 23, cuda))
+    B, C = 0.5 * _randn((1, 256, 1, 128), 24, cuda), 0.5 * _randn((1, 256, 1, 128), 25, cuda)
+    y1, fin1 = ssd_apply(x, dt, A, B, C, chunk=128)
+    y2, fin2 = ssd_apply(x, dt, A, B, C, chunk=128)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_scan"] == 2
+    assert torch.equal(y1, y2) and torch.equal(fin1, fin2)
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [
+    (2, 80, 6, 2, 8, 16, 16),      # three heads a group, P = 8, N = 16
+    (1, 100, 3, 1, 40, 24, 20),    # odd heads, P and N below their tiles
+    (1, 64, 2, 2, 128, 72, 32)])   # P over one block's 64 rows, N = 72
+def test_ssd_kernel_groups_narrow_heads_and_a_ragged_tail(cuda, b, s, h, g,
+                                                          p, n, chunk):
+    # S is no multiple of the kernel's 32-step chunk in the first two cases,
+    # so the last chunk is part padding; G, P and N land off the kernel's
+    # tiles (two heads a block, 64 rows a head, N padded to 16/32/64/128).
+    x = _randn((b, s, h, p), 31, cuda)
+    dt = torch.nn.functional.softplus(_randn((b, s, h), 32, cuda))
+    A = -torch.exp(0.3 * _randn((h,), 33, cuda))
+    B, C = 0.5 * _randn((b, s, g, n), 34, cuda), 0.5 * _randn((b, s, g, n), 35, cuda)
+    y, fin = ssd_apply(x, dt, A, B, C, chunk=chunk)
+    y_ref, fin_ref = ssd_apply_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_scan"] == 1
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fin, fin_ref, rtol=1e-4, atol=1e-4)
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = _randn((2, 16, 48), 0, cuda)          # head_dim 48: not 64 or 128
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     x = _randn((1, 32, 2, 4), 0, cuda)
-    B = _randn((1, 32, 1, 12), 1, cuda)       # N = 12: no lane layout
+    B = _randn((1, 32, 1, 12), 1, cuda)       # N = 12: no multiple of 8
     with pytest.raises(ValueError, match="N in"):
         ssd_apply(x, x[..., 0].abs(), -x[0, 0, :, 0].abs(), B, B, chunk=32)
