@@ -11,7 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    check from ``cuobjdump -sass`` that the bf16 flash kernel and both SSD
    scan kernels run on the tensor cores (``HGMMA``, ``HMMA``) and from the
    ``-Xptxas -v`` log that they spill nothing;
-3. hold ``label_hist`` against its plain version on the card: bit-equal;
+3. hold ``label_hist`` against its plain version on the card, bit-equal, at
+   the round's shapes, the batched grid's (10500, 290, 10), long rows
+   (8, 2^20, 10), C = 1 and 33, n = 0, 1 and 31, rows shared by 8 and 4
+   warps, long rows with C > 32, rows that start off a 16-byte boundary,
+   all-invalid rows and labels of -1 and C only;
 4. hold ``weighted_agg`` against its plain version on the card at every leaf
    shape of the paper CNN with K=30 clients, in float32 and bfloat16, then
    the whole round's tree in one call (one launch), plain and as the masked
@@ -26,7 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    a round);
 7. time each kernel at the main path's shapes with CUDA events (device
    time per call), beside its bound, its plain version and one PyTorch call
-   computing the same function;
+   computing the same function; ``label_hist`` also beside the launch floor
+   (``torch.cuda._sleep(0)`` timed the same way), and at the grid's shape
+   cold (each call on the next of 9 copies of the inputs, 137 MB in all),
+   warm and as ``torch.bincount``, and at (1000, 4096, 62) and
+   (8, 2^20, 10) cold, each beside its bound;
 8. hold ``flash_attention`` against its plain version on the card at
    qwen3-14b's prefill shape (BH=160, S=1024, D=128, bf16), causal and with
    window=256, at an unaligned float32 shape (8, 77, 64), at the bf16
@@ -51,7 +59,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``SELF_TOL_F32``;
 12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes.
 
-The line before the last is a JSON object with each kernel's numbers; the
+The line before the last is a JSON object with each kernel's numbers
+(``label_hist``'s also ``floor_ms`` and the grid's cold ``grid_ms``); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the checkout's ``src/repro_torch`` beside this file, the script exits
 non-zero and prints no result.
@@ -59,6 +68,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -178,6 +188,16 @@ def time_ms(fn, reps: int = 20, trials: int = 15) -> float:
     return statistics.median(times)
 
 
+def time_cold_ms(fn, inputs, trials: int = 15) -> float:
+    """``time_ms`` of ``fn(*args)`` with each call on the next of the
+    distinct ``inputs`` in turn.  When together they exceed the 50 MB L2
+    cache, a call finds its inputs evicted by the calls since their last
+    use, and reads them from device memory."""
+    turn = itertools.cycle(inputs)
+    return time_ms(lambda: fn(*next(turn)), reps=2 * len(inputs),
+                   trials=trials)
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over ``ops_per_s`` (float32 on CUDA cores by default)."""
@@ -279,6 +299,120 @@ def tensor_core_report(lib: Path) -> None:
             if count == 0 or info.get("spill_bytes") != 0:
                 raise AssertionError(f"{n}: no {instr} in its SASS or spills "
                                      f"({info})")
+
+
+# label_hist's shapes beyond the FL round's (B=100, n=290, C=10): the batched
+# grid's histograms in one call (BENCH_sim_grid.json's 7 cases x 3 strategies
+# x 5 seeds = 105 trials of 100 clients, 290 labels each), many classes, and
+# few long rows.
+HIST_GRID = (10500, 290, 10)
+HIST_CLASSES = (1000, 4096, 62)
+HIST_LONG = (8, 1 << 20, 10)
+# Inputs a cold timing rotates through, in bytes at least (2.5x the L2).
+COLD_BYTES = 125e6
+
+
+def hist_inputs(dev, b: int, n: int, c: int, seed: int):
+    """Labels in [-3, C + 3) (out of range too) and valid with p = 0.9."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    labels = torch.from_numpy(
+        rng.integers(-3, c + 3, (b, n)).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random((b, n)) > 0.1).to(dev)
+    return labels, valid
+
+
+def hist_cases(dev):
+    """(what, labels, valid, C) for phase 3: the three shapes of the round,
+    the grid, long rows and the kernel's edges."""
+    import torch
+    cases = [(str(shape), *hist_inputs(dev, *shape, seed=sum(shape)),
+              shape[2])
+             for shape in [(100, 290, 10), (7, 33, 5), HIST_CLASSES,
+                           HIST_GRID, HIST_LONG,
+                           (64, 1000, 1), (64, 1000, 33),   # C either side of 32
+                           (5, 0, 10), (9, 1, 10), (9, 31, 10),
+                           (200, 8192, 10), (1000, 4096, 10),  # rows of 8, 4 warps
+                           (4, 300000, 40), (3, 40000, 10),   # split rows
+                           (4400, 100, 16), (4400, 100, 17)]]  # many rows
+    # Rows that start off a 16-byte boundary: a view one row into a larger
+    # tensor (labels and valid in one phase, and labels alone, which sends
+    # every sample down the scalar path).
+    big_l, big_v = hist_inputs(dev, 6, 4097, 10, seed=4097)
+    _, own_v = hist_inputs(dev, 5, 4097, 10, seed=4098)
+    cases.append(("(5, 4097, 10) at a row offset", big_l[1:], big_v[1:], 10))
+    cases.append(("(5, 4097, 10), labels alone at a row offset", big_l[1:],
+                  own_v, 10))
+    # The same with many short rows of odd length (C = 16).
+    big_l, big_v = hist_inputs(dev, 4500, 33, 16, seed=4500)
+    _, own_v = hist_inputs(dev, 4499, 33, 16, seed=4499)
+    cases.append(("(4499, 33, 16) at a row offset", big_l[1:], big_v[1:], 16))
+    cases.append(("(4499, 33, 16), labels alone at a row offset", big_l[1:],
+                  own_v, 16))
+    # All-invalid rows, and labels only -1 or C.
+    labels, valid = hist_inputs(dev, 50, 290, 10, seed=50)
+    valid[::3] = False
+    cases.append(("(50, 290, 10) every third row invalid", labels, valid, 10))
+    edge = torch.where(labels > 4, 10, -1).to(torch.int32)
+    cases.append(("(50, 290, 10) labels -1 and C only", edge, valid, 10))
+    return cases
+
+
+def label_hist_times(dev, kernel, main) -> dict:
+    """``kernel`` (label_hist_kernel) timed beside the launch floor, at the
+    FL round's inputs ``main`` = (labels, valid, C), and at the grid, many
+    classes and long rows shapes, each beside its bound: cold on rotating
+    copies (and warm at the grid), with torch.bincount at the grid."""
+    import torch
+
+    def bytes_and_ops(labels, valid, c):
+        counted = float((valid & (labels >= 0) & (labels < c)).sum().item())
+        b, n = labels.shape
+        return b * n * (4 + 1) + b * c * 4, counted
+
+    def bincount_ms(labels, valid, c):
+        b = labels.shape[0]
+        ok = valid & (labels >= 0) & (labels < c)
+        flat = torch.arange(b, device=dev)[:, None] * c + labels.long()
+        flat = torch.where(ok, flat, b * c).reshape(-1)
+        return time_ms(lambda: torch.bincount(flat, minlength=b * c + 1))
+
+    res = {"floor_ms": time_ms(lambda: torch.cuda._sleep(0)),
+           "main_ms": time_ms(lambda: kernel(*main))}
+    for name, (b, n, c) in (("grid", HIST_GRID), ("classes", HIST_CLASSES),
+                            ("long", HIST_LONG)):
+        copies = max(8, math.ceil(COLD_BYTES / (b * n * 5)))
+        inputs = [hist_inputs(dev, b, n, c, seed=i) + (c,)
+                  for i in range(copies)]
+        entry = {"shape": (b, n, c), "copies": copies,
+                 "cold_ms": time_cold_ms(kernel, inputs)}
+        entry["bound_ms"], entry["by"] = bound(*bytes_and_ops(*inputs[0]))
+        entry["mb"] = b * n * 5 / 1e6
+        if name == "grid":
+            entry["warm_ms"] = time_ms(lambda: kernel(*inputs[0]))
+            entry["bincount_ms"] = bincount_ms(*inputs[0])
+        res[name] = entry
+        del inputs
+    return res
+
+
+def say_label_hist_times(t: dict) -> None:
+    say(f"launch floor, torch.cuda._sleep(0) timed the same way: "
+        f"{t['floor_ms']:.4f} ms")
+    say(f"label_hist at the round's shape: kernel {t['main_ms']:.4f} ms, "
+        f"{t['main_ms'] - t['floor_ms']:.4f} ms over the floor")
+    for name, what in (("grid", "the grid's histograms in one call"),
+                       ("classes", "many classes"), ("long", "long rows")):
+        e = t[name]
+        line = (f"label_hist {tuple(e['shape'])}, {what}: cold "
+                f"{e['cold_ms']:.4f} ms over {e['copies']} copies "
+                f"({e['mb']:.1f} MB each), bound {e['bound_ms']:.4f} ms "
+                f"({e['by']}), {e['bound_ms'] / e['cold_ms']:.0%} of it")
+        if name == "grid":
+            line += (f"; warm {e['warm_ms']:.4f} ms; torch.bincount "
+                     f"{e['bincount_ms']:.4f} ms")
+        say(line)
 
 
 def phase8_flash(dev) -> float:
@@ -680,6 +814,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.dispatch import client_histograms
     from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref
+    from repro_torch.kernels.label_hist.label_hist import plan_hist
     from repro_torch.kernels.dispatch import masked_weighted_mean
     from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,
                                                   weighted_agg_leaves,
@@ -702,19 +837,20 @@ def main() -> int:
     tensor_core_report(lib)
 
     say("== 3. label_hist against its plain version (bit-equal)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     hist_err = 0.0
-    for b, n, c in [(100, 290, 10), (7, 33, 5), (1000, 4096, 62)]:
-        rng = np.random.default_rng(b * n + c)
-        labels = torch.from_numpy(
-            rng.integers(-3, c + 3, (b, n)).astype(np.int32)).to(dev)
-        valid = torch.from_numpy(rng.random((b, n)) > 0.1).to(dev)
+    for what, labels, valid, c in hist_cases(dev):
         got = label_hist_kernel(labels, valid, c)
         want = label_hist_ref(labels, valid, c)
         torch.cuda.synchronize()
         hist_err = max(hist_err, (got - want).abs().max().item())
         if not torch.equal(got, want):
-            raise AssertionError(f"label_hist differs at {(b, n, c)}")
-        say(f"label_hist {(b, n, c)}: equal, {int(want.sum().item())} counts")
+            raise AssertionError(f"label_hist differs at {what}")
+        plan = plan_hist(*labels.shape, c, sms)
+        say(f"label_hist {what}: equal, {int(want.sum().item())} counts; "
+            f"{plan.blocks} blocks of {plan.threads} threads, "
+            f"{plan.team_threads} threads a row, {plan.chunks_per_row} "
+            f"chunks a row")
 
     say("== 4. weighted_agg against its plain version")
     cfg = FLConfig()
@@ -883,7 +1019,8 @@ def main() -> int:
     counted = float(label_hist_ref(lab0, val, c).sum().item())
     flat = torch.arange(b, device=dev)[:, None] * c + lab0.long()
     flat = torch.where(val, flat, b * c).reshape(-1)
-    hist_ms = time_ms(lambda: label_hist_kernel(lab0, val, c))
+    hist_times = label_hist_times(dev, label_hist_kernel, (lab0, val, c))
+    hist_ms = hist_times["main_ms"]
     hist_plain = time_ms(lambda: label_hist_ref(lab0, val, c))
     hist_lib = time_ms(lambda: torch.bincount(flat, minlength=b * c + 1))
     hist_bound, hist_by = bound(lab0.numel() * 4 + val.numel() + b * c * 4,
@@ -891,6 +1028,7 @@ def main() -> int:
     say(f"label_hist (B={b}, n={n}, C={c}): kernel {hist_ms:.4f} ms, bound "
         f"{hist_bound:.6f} ms ({hist_by}), plain {hist_plain:.4f} ms, "
         f"bincount {hist_lib:.4f} ms")
+    say_label_hist_times(hist_times)
 
     agg = dict.fromkeys(("plain", "lib", "bytes", "ops"), 0.0)
     xs = [torch.from_numpy(np.random.default_rng(size).standard_normal(
@@ -932,7 +1070,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/label_hist/label_hist.py:37",
          "launches": launches["label_hist"], "max_abs_err": hist_err,
          "ms": hist_ms, "plain_ms": hist_plain, "bound_ms": hist_bound,
-         "bound_by": hist_by, "library_ms": hist_lib},
+         "bound_by": hist_by, "library_ms": hist_lib,
+         "floor_ms": hist_times["floor_ms"],
+         "grid_ms": hist_times["grid"]["cold_ms"]},
         {"name": "weighted_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
          "replaces": "src/repro/kernels/weighted_agg/weighted_agg.py:28",

@@ -28,7 +28,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # after a launch, 0 from repro_weighted_agg_geometry) unless RESTYPES says
 # otherwise.
 SIGNATURES = {
-    "repro_label_hist": [_P, _P, _P, _LL, _LL, _I, _P],
+    "repro_label_hist": [_P, _P, _P, _LL, _LL] + [_I] * 4 + [_LL, _LL, _I, _P],
     "repro_weighted_agg_f32": [_P, _I, _LL, _P, _I, _P, _P],
     "repro_weighted_agg_bf16": [_P, _I, _LL, _P, _I, _P, _P],
     "repro_weighted_agg_geometry": [_P, _P, _P],

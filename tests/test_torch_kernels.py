@@ -25,6 +25,7 @@ from repro.kernels.weighted_agg.weighted_agg import weighted_agg_kernel as jagg 
 from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.kernels import dispatch as tdispatch  # noqa: E402
 from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
+from repro_torch.kernels.label_hist import label_hist as tlabel_hist  # noqa: E402
 from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,  # noqa: E402
                                               weighted_agg_leaves,
                                               weighted_agg_ref)
@@ -57,9 +58,19 @@ def _leaves(k, seed):
 # label_hist
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,n,c", [(6, 29, 10), (7, 33, 5), (9, 600, 13)])
-def test_label_hist_plain_version_equals_pallas_kernel(b, n, c):
+@pytest.mark.parametrize("b,n,c,invalid_rows", [
+    pytest.param(6, 29, 10, False, id="6-29-10"),
+    pytest.param(7, 33, 5, False, id="7-33-5"),
+    pytest.param(9, 600, 13, False, id="9-600-13"),
+    pytest.param(3, 40000, 10, False, id="long-row-3-40000-10"),
+    pytest.param(40, 1030, 40, False, id="many-classes-40-1030-40"),
+    pytest.param(5, 50, 1, False, id="one-class-5-50-1"),
+    pytest.param(6, 1, 10, False, id="one-sample-6-1-10"),
+    pytest.param(8, 290, 10, True, id="all-invalid-rows-8-290-10")])
+def test_label_hist_plain_version_equals_pallas_kernel(b, n, c, invalid_rows):
     labels, valid = _labels(b, n, c, seed=b * n)
+    if invalid_rows:
+        valid[::2] = False
     ref = np.asarray(jhist(jnp.asarray(labels), jnp.asarray(valid), c,
                            interpret=True))
     port = label_hist_kernel(_t(labels), _t(valid), c)
@@ -84,6 +95,96 @@ def test_client_histograms_and_statistics_match(backend, with_valid):
         np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6,
                                    atol=0)
+
+
+# Shapes across the plan's regimes: one warp a row (the batched grid's 105
+# trials x 100 clients, the FL round), warps sharing a row, rows cut into
+# chunks (long rows), C on either side of 32, the edges n = 0 and 1, and C so
+# large that a block holds only 4 warps' bins.
+PLAN_SHAPES = [(100, 290, 10), (10500, 290, 10), (7, 33, 5), (1000, 4096, 62),
+               (200, 8192, 10), (8, 1 << 20, 10), (3, 40000, 10),
+               (4, 300000, 40), (64, 1000, 33), (2, 5, 12288), (5, 0, 10),
+               (9, 1, 10), (2000, 64, 2000)]
+# Multiprocessors of an H100 SXM, for the plans of the tests.
+H100_SMS = 132
+
+
+def _plan_segments(plan, rows, n):
+    """(row, start, end) of every live team of ``plan``, in flat sample
+    indices, as ``HistPlan``'s docstring defines them."""
+    for t in range(min(plan.blocks * plan.rows_per_block,
+                       rows * plan.chunks_per_row)):
+        row, k = divmod(t, plan.chunks_per_row)
+        s = row * n + k * plan.chunk
+        yield row, s, min(s + plan.chunk, (row + 1) * n)
+
+
+@pytest.mark.parametrize("b,n,c", PLAN_SHAPES)
+def test_label_hist_plan_covers_every_sample_once(b, n, c):
+    plan = tlabel_hist.plan_hist(b, n, c, H100_SMS)
+    covered = np.zeros(b * n, np.int32)
+    chunks = np.zeros(b, np.int32)
+    for row, start, end in _plan_segments(plan, b, n):
+        assert row * n <= start <= end <= (row + 1) * n
+        covered[start:end] += 1
+        chunks[row] += 1
+    assert (covered == 1).all()
+    assert (chunks == plan.chunks_per_row).all()
+    # A row cut into chunks is added into the output, which must start at 0.
+    assert plan.zero_out == (plan.chunks_per_row > 1)
+    if plan.zero_out:
+        assert plan.rows_per_block == 1
+    assert plan.threads <= 256 and plan.smem_bytes <= 48 * 1024
+    assert plan.team_threads in (32, 64, 128, 256)
+    tlabel_hist._check_plan(plan, b, n, c)     # the launch's own check
+
+
+def test_label_hist_plan_of_the_fl_round_is_one_launch_without_split():
+    plan = tlabel_hist.plan_hist(100, 290, 10, H100_SMS)
+    assert plan.chunks_per_row == 1 and not plan.zero_out
+    assert plan.team_threads == 32
+    assert 25 <= plan.blocks <= 100
+    assert plan.blocks * plan.rows_per_block >= 100
+    long_rows = tlabel_hist.plan_hist(8, 1 << 20, 10, H100_SMS)
+    assert long_rows.zero_out and long_rows.blocks >= H100_SMS
+
+
+# Plans the kernel would run wrong: rows or samples left uncovered, an empty
+# chunk, too little shared memory, a team that is not whole warps, too many
+# threads a block.
+_GOOD_PLAN = dict(rows_per_block=4, team_threads=64, chunks_per_row=1,
+                  chunk=290, blocks=25, smem_bytes=4 * 64 * 4)
+
+
+@pytest.mark.parametrize("fault", [
+    dict(blocks=24), dict(chunk=289), dict(chunks_per_row=2, chunk=145,
+                                           rows_per_block=1, blocks=199),
+    dict(chunks_per_row=3, chunk=145, rows_per_block=1, blocks=300),
+    dict(smem_bytes=4 * 64 * 4 - 4), dict(team_threads=16, smem_bytes=0),
+    dict(team_threads=96, smem_bytes=4 * 96 * 4),
+    dict(rows_per_block=8, blocks=13, smem_bytes=8 * 64 * 4),
+    dict(smem_bytes=48 * 1024 + 4)])
+def test_label_hist_launch_refuses_a_plan_that_misses_the_shape(fault):
+    labels = torch.zeros((100, 290), dtype=torch.int32)
+    valid = torch.ones((100, 290), dtype=torch.bool)
+    tlabel_hist._check_plan(tlabel_hist.HistPlan(**_GOOD_PLAN), 100, 290, 10)
+    bad = tlabel_hist.HistPlan(**{**_GOOD_PLAN, **fault})
+    with pytest.raises(ValueError, match="for \\(100, 290\\)"):
+        tlabel_hist._check_plan(bad, 100, 290, 10)
+    # The launch checks the plan first, before it needs the card.
+    with pytest.raises(ValueError, match="for \\(100, 290\\)"):
+        tlabel_hist._launch_plan(labels, valid, 10, bad)
+
+
+def test_label_hist_wrapper_raises_from_2_24_samples_a_row():
+    for n in (1 << 24, (1 << 24) + 5):
+        labels = torch.empty((1, n), dtype=torch.int32)
+        valid = torch.empty((1, n), dtype=torch.bool)
+        with pytest.raises(ValueError, match="2\\^24"):
+            label_hist_kernel(labels, valid, 10)
+        with pytest.raises(ValueError, match="2\\^24"):
+            tlabel_hist._launch_plan(
+                labels, valid, 10, tlabel_hist.plan_hist(1, 290, 10, H100_SMS))
 
 
 def test_label_hist_wrapper_checks_its_inputs():

@@ -54,6 +54,48 @@ def test_label_hist_kernel_bit_equal(cuda):
     assert torch.equal(got.cpu(), label_hist_ref(labels, valid, 10))
 
 
+def _hist_inputs(b, n, c, seed, dev):
+    rng = np.random.default_rng(seed)
+    labels = torch.from_numpy(rng.integers(-3, c + 3, (b, n)).astype(np.int32))
+    return labels.to(dev), torch.from_numpy(rng.random((b, n)) > 0.1).to(dev)
+
+
+# chip_smoke.py phase 3's shapes: the FL round's, the batched grid's (105
+# trials x 100 clients), many classes, long rows cut into chunks, C either
+# side of 32, n = 0, 1 and 31, rows shared by 8 and by 4 warps, long rows
+# with C > 32, and many short rows with C = 16 and 17.
+@pytest.mark.parametrize("b,n,c", [
+    (100, 290, 10), (10500, 290, 10), (1000, 4096, 62), (8, 1 << 20, 10),
+    (64, 1000, 1), (64, 1000, 33), (5, 0, 10), (9, 1, 10), (9, 31, 10),
+    (200, 8192, 10), (1000, 4096, 10), (4, 300000, 40), (3, 40000, 10),
+    (4400, 100, 16), (4400, 100, 17)])
+def test_label_hist_kernel_bit_equal_at_its_edges(cuda, b, n, c):
+    labels, valid = _hist_inputs(b, n, c, b + n + c, cuda)
+    got = label_hist_kernel(labels, valid, c)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["label_hist"] == 1
+    assert torch.equal(got, label_hist_ref(labels, valid, c))
+
+
+@pytest.mark.parametrize("b,n,c", [(6, 4097, 10), (4500, 33, 16)])
+@pytest.mark.parametrize("case", ["row-offset", "labels-alone-at-row-offset",
+                                  "invalid-rows", "labels-minus-1-and-C"])
+def test_label_hist_kernel_bit_equal_off_alignment_and_range(cuda, case, b, n,
+                                                             c):
+    labels, valid = _hist_inputs(b, n, c, n, cuda)
+    if case == "row-offset":            # rows start off a 16-byte boundary
+        labels, valid = labels[1:], valid[1:]
+    elif case == "labels-alone-at-row-offset":   # every sample scalar
+        labels, valid = labels[1:], _hist_inputs(b - 1, n, c, 1, cuda)[1]
+    elif case == "invalid-rows":
+        valid[::3] = False
+    else:
+        labels = torch.where(labels > c // 2, c, -1).to(torch.int32)
+    got = label_hist_kernel(labels, valid, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, label_hist_ref(labels, valid, c))
+
+
 @pytest.mark.parametrize("n", [10, 4100])
 def test_weighted_agg_kernel_matches(cuda, n):
     x = _randn((30, n), n, cuda)
