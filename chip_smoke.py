@@ -57,10 +57,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     in float32, prefill ≡ forward at the last prompt position and one decode
     step ≡ forward at the next, held to ``SELF_TOL_BF16`` and
     ``SELF_TOL_F32``;
-12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes.
+12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes;
+13. the grid engine (``run(ExperimentSpec(engine="sim"))``), in four parts:
+    (a) ``repro_torch.rng`` on the card against threefry known answers
+    taken from JAX (bits, keys and uniforms bit-equal, normals within
+    ``NORMAL_ULP``) and against the same draws on the CPU; (b) the main
+    path of this slice: 7 cases x (random, labelwise, kl) x 1 seed = 21
+    trials at the paper's per-trial width for 2 rounds, with the launch
+    counts set to 0 just before and read just after (1 ``label_hist`` and 1
+    ``weighted_agg`` launch a round, none of the LM kernels); (c) three
+    trials of a TF32-off grid against the host loop on the card:
+    histograms, masks, orders and ``num_selected`` bit-equal, parameters
+    within ``ADAM_REL`` of the update, loss and accuracy within
+    ``GRID_LOSS_REL`` and ``GRID_ACC_ATOL``; (d) ``weighted_agg`` with the
+    trial axis (21 trials) bit-equal to per-trial launches and timed beside
+    its bound, and ``label_hist`` timed on the engine's own (2100, 290, 10)
+    round-0 inputs.
 
 The line before the last is a JSON object with each kernel's numbers
-(``label_hist``'s also ``floor_ms`` and the grid's cold ``grid_ms``); the
+(``label_hist``'s also ``floor_ms``, the synthetic grid's cold ``grid_ms``
+and phase 13's ``engine_grid_*``; ``weighted_agg``'s also phase 13's
+``trial_axis_*``); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the checkout's ``src/repro_torch`` beside this file, the script exits
 non-zero and prints no result.
@@ -143,6 +160,48 @@ SELF_TOL_BF16 = {"qwen3-14b": {"prefill": 1e-2, "decode": 0.04},
                  "mamba2-1.3b": {"prefill": 1e-2, "decode": 0.13}}
 # Phase 11: the serving main path at full width, cut in depth to 16 tokens.
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
+
+# Phase 13 (a): threefry known answers, taken from jax.random (jax 0.9.0,
+# jax_threefry_partitionable on, the CPU): bits and uniforms bit-equal;
+# normals (bits of float32) within NORMAL_ULP, the limit
+# tests/test_torch_rng.py holds the port's CPU draws to (its erf_inv copy
+# differs from XLA's only through XLA's CPU sqrt).
+THREEFRY_KNOWN = {
+    "bits(PRNGKey(0), (3,))": [4070199207, 4202968722, 1427181096],
+    "fold_in(PRNGKey(0), 1)": [928981903, 3453687069],
+    "uniform(PRNGKey(0), (3,))": [0x3F729A4E, 0x3F7A8436, 0x3EAA221C],
+    "fold_in(PRNGKey(2**31 + 5), 1003)": [3167001686, 3653731380],
+    "bits(fold_in(PRNGKey(2**31 + 5), 1003), (5,))": [
+        2393393944, 2147669883, 224712787, 4245617430, 382588602],
+    "split(PRNGKey(7), 3)": [[3625411723, 1954958720],
+                             [195045567, 4062205631],
+                             [966301609, 1948237315]],
+    "normal(fold_in(fold_in(PRNGKey(2), 1000), 0), (8,))": [
+        0xBF3D1C8A, 0x3F804BD0, 0xBE901054, 0xBE8A1423, 0x3FB37253,
+        0x3F06A935, 0x3F4066CC, 0x3EE55FF2],
+}
+NORMAL_ULP = 2
+# Phase 13 (b): the grid engine at the paper's per-trial width (FLConfig():
+# N = 100, 30 a round, 290 samples, 4 local epochs of batch 32, Adam 1e-3,
+# fedavg), the seven cases x three strategies x one seed, cut to 2 rounds.
+GRID_STRATEGIES = ("random", "labelwise", "kl")
+GRID_ROUNDS = 2
+# The 21 trials fit the card in one training call; the grid is run again
+# with its training forced into chunks of GRID_CHUNK trials, as a card short
+# of memory would split it, and every trajectory must be bit-equal.
+GRID_CHUNK = 7
+# Phase 13 (c): three trials of a TF32-off grid against the host loop on the
+# card.  Selections are bit-equal by construction (the same keys and score
+# rounding).  The grid trains 9 trials' clients in one vmap where the host
+# loop trains 30, so the parameters could differ by the training kernels'
+# summation order; they are held as phase 5 holds card against CPU, the
+# update gap within ADAM_REL of the update's norm.  Measured (H100 80GB
+# HBM3, 700 W): the parameters bit-equal, the eval loss within 4.7e-7
+# relative (the eval runs 9 models in one vmap against 1).  The loss is
+# held to GRID_LOSS_REL, 20x that, and the accuracy to GRID_ACC_ATOL, half
+# of one of the 500 eval samples, so a flipped sample fails.
+GRID_LOSS_REL = 1e-5
+GRID_ACC_ATOL = 1e-3
 
 
 def say(msg: str) -> None:
@@ -795,6 +854,344 @@ def phase12_times(dev) -> dict:
     return {"flash_attention": fa, "ssd_scan": ssd}
 
 
+def _ulp_gap(a, b):
+    """|a − b| in float32 ulps, through the sign-magnitude order of the bit
+    patterns (so values either side of 0 compare too)."""
+    import torch
+
+    def order(x):
+        i = x.float().cpu().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (order(a) - order(b)).abs()
+
+
+def phase13a_threefry(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import rng
+    say("== 13a. threefry on the card: JAX's known answers, and the CPU's "
+        "draws")
+    k0 = rng.PRNGKey(0, dev)
+    kb = rng.fold_in(rng.PRNGKey(2 ** 31 + 5, dev), 1003)
+    got = {
+        "bits(PRNGKey(0), (3,))": rng.random_bits(k0, (3,)),
+        "fold_in(PRNGKey(0), 1)": rng.fold_in(k0, 1),
+        "uniform(PRNGKey(0), (3,))": (
+            rng.uniform(k0, (3,)).view(torch.int32).to(torch.int64)
+            & 0xFFFFFFFF),
+        "fold_in(PRNGKey(2**31 + 5), 1003)": kb,
+        "bits(fold_in(PRNGKey(2**31 + 5), 1003), (5,))": rng.random_bits(
+            kb, (5,)),
+        "split(PRNGKey(7), 3)": rng.split(rng.PRNGKey(7, dev), 3),
+    }
+    for name, x in got.items():
+        if x.cpu().tolist() != THREEFRY_KNOWN[name]:
+            raise AssertionError(f"threefry {name}: {x.cpu().tolist()} on the "
+                                 f"card, JAX gives {THREEFRY_KNOWN[name]}")
+    name = "normal(fold_in(fold_in(PRNGKey(2), 1000), 0), (8,))"
+    want = torch.from_numpy(np.array(THREEFRY_KNOWN[name], np.uint32)
+                            .view(np.float32))
+    normal = rng.normal(rng.fold_in(rng.fold_in(rng.PRNGKey(2, dev), 1000),
+                                    0), (8,))
+    known_gap = int(_ulp_gap(normal, want).max())
+    if known_gap > NORMAL_ULP:
+        raise AssertionError(f"threefry {name}: {known_gap} ulp from JAX's")
+    say(f"known answers: {len(got)} key/bit/uniform cases bit-equal; 8 "
+        f"normals within {known_gap} ulp of JAX's (limit {NORMAL_ULP})")
+    # The same draws on the card and on the CPU (which the CPU tests hold to
+    # JAX): 64 keys of many seeds, 16,384 elements each.
+    keys = rng.fold_in(rng.PRNGKey(torch.arange(64) * 7919 + 3), 1001)
+    shape = (16384,)
+    for what in ("random_bits", "uniform"):
+        fn = getattr(rng, what)
+        if not torch.equal(fn(keys.to(dev), shape).cpu(), fn(keys, shape)):
+            raise AssertionError(f"threefry {what}: card differs from CPU")
+    gap = _ulp_gap(rng.normal(keys.to(dev), shape), rng.normal(keys, shape))
+    share = float((gap > 0).float().mean())
+    if int(gap.max()) > NORMAL_ULP:
+        raise AssertionError(f"normal: card {int(gap.max())} ulp from CPU")
+    say(f"card against CPU, 64 keys x {shape[0]}: bits and uniforms "
+        f"bit-equal; normals differ on {share:.3e} of draws, by at most "
+        f"{int(gap.max())} ulp (the card's own rounding; limit {NORMAL_ULP})")
+    return {"normal_known_ulp": known_gap, "normal_card_ulp": int(gap.max()),
+            "normal_card_share": share}
+
+
+def _grid_spec():
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import CASES
+    from repro_torch.fl import ExperimentSpec, ScenarioSpec
+    return ExperimentSpec(
+        scenarios=tuple(ScenarioSpec.from_case(c) for c in CASES),
+        strategies=GRID_STRATEGIES, seeds=(0,), engine="sim", fl=FLConfig(),
+        rounds=GRID_ROUNDS)
+
+
+def phase13b_grid(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import run
+    spec = _grid_spec()
+    cfg = spec.fl
+    trials = len(spec.scenarios) * len(spec.strategies) * len(spec.seeds)
+    say(f"== 13b. main path: run(ExperimentSpec(engine='sim')), "
+        f"{len(spec.scenarios)} cases x {spec.strategies} x 1 seed = "
+        f"{trials} trials, {GRID_ROUNDS} rounds, paper width")
+    ds = ImageDataset(device=dev)
+    # The grid runs as a user's process would, with PyTorch's default TF32
+    # settings (cuDNN's convolutions in TF32, matmuls in float32); phases 8
+    # and 10 turned both off for the float32 checks after them.
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(spec, ds=ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    meta = res.meta["sim"]
+    if meta["chunk_trials"] != trials:
+        raise AssertionError(f"grid: {trials} trials split into chunks of "
+                             f"{meta['chunk_trials']}")
+    import repro_torch.fl.sim as sim
+    chunk_of = sim._chunk_trials
+    sim._chunk_trials = lambda device, per_trial, n: GRID_CHUNK
+    try:
+        chunked = run(spec, ds=ds, device=dev)
+    finally:
+        sim._chunk_trials = chunk_of
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    if chunked.meta["sim"]["chunk_trials"] != GRID_CHUNK:
+        raise AssertionError("grid: the forced chunks did not take")
+    for name in ("num_selected", "loss", "accuracy"):
+        if not np.array_equal(getattr(chunked, name), getattr(res, name)):
+            raise AssertionError(f"grid: {name} trained in chunks of "
+                                 f"{GRID_CHUNK} differs from one pass")
+    say(f"grid: trained in chunks of {GRID_CHUNK} trials, every trajectory "
+        f"bit-equal to the one pass (TF32 as PyTorch's defaults)")
+    want = {"label_hist": GRID_ROUNDS, "weighted_agg": GRID_ROUNDS,
+            "flash_attention": 0, "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"grid launch counts {launches}, expected {want}")
+    if not (np.isfinite(res.accuracy).all() and np.isfinite(res.loss).all()):
+        raise AssertionError("grid: non-finite trajectory")
+    nsel = res.num_selected
+    if not np.all((nsel == 0) | (nsel == cfg.clients_per_round)):
+        raise AssertionError(f"grid: num_selected {nsel.tolist()}")
+    for s in ("random", "kl"):          # every client has data: always 30
+        i = spec.strategies.index(s)
+        if not np.all(nsel[:, i] == cfg.clients_per_round):
+            raise AssertionError(f"grid: {s} selected {nsel[:, i].tolist()}")
+    for k, sc in enumerate(res.scenarios):
+        say(f"  {sc:8s} final acc " + "  ".join(
+            f"{st}={res.accuracy[k, i, 0, -1]:.4f}"
+            f" (sel {nsel[k, i, 0].tolist()})"
+            for i, st in enumerate(res.strategies)))
+    round_s = meta["round_s"]
+    say(f"grid: launches {launches}; rounds {[f'{x:.3f}' for x in round_s]} "
+        f"s wall ({round_s[-1] / trials * 1e3:.1f} ms a trial in the last "
+        f"round); whole run {wall:.2f} s; training chunk "
+        f"{meta['chunk_trials']} trials ({meta['per_trial_bytes'] / 1e9:.2f} "
+        f"GB a trial); torch.cuda.max_memory_allocated "
+        f"{peak / 1e9:.2f} GB")
+    return {"launches": launches, "round_s": round_s, "trials": trials,
+            "peak_bytes": peak, "wall_s": wall,
+            "chunk_trials": meta["chunk_trials"],
+            "per_trial_bytes": meta["per_trial_bytes"]}
+
+
+def _host_trace(plan, cfg, strategy: str, seed: int, ds, rounds: int):
+    """The host loop's rounds, as ``run_fl_host`` runs them, keeping each
+    round's histograms, mask, selected clients and the final params."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.data import client_batches
+    from repro_torch.fl import get_workload, make_fl_round
+    wl = get_workload("cnn")
+    key = rng.PRNGKey(seed, ds.device)
+    init = params = wl.init(rng.fold_in(key, 1), ds)
+    fl_round = make_fl_round(wl.make_loss(ds), cfg, strategy)
+    eval_batch, eval_fn = wl.eval_set(ds, 50), wl.make_eval(ds)
+    out = {k: [] for k in ("hists", "mask", "selected", "num_selected",
+                           "loss", "accuracy")}
+    for t in range(rounds):
+        kt = rng.fold_in(key, 1000 + t)
+        data = wl.materialize(ds, plan[t], rng.fold_in(kt, 0))
+        batches = client_batches(data, cfg.batch_size, wl.batch_keys)
+        params, info = fl_round(params, batches, data["hists"],
+                                rng.fold_in(kt, 1))
+        with torch.no_grad():
+            loss, m = eval_fn(params, eval_batch)
+        for k, v in (("hists", data["hists"]), ("mask", info["mask"]),
+                     ("selected", info["selected"].long()),
+                     ("num_selected", info["num_selected"]),
+                     ("loss", loss), ("accuracy", m["accuracy"])):
+            out[k].append(v)
+    return init, params, out
+
+
+def phase13c_grid_vs_host(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import case_label_plan
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import GridRun, run_fl_host
+    say("== 13c. three grid trials against the host loop on the card "
+        "(TF32 off)")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = FLConfig()
+    cases = ("case1b", "case2b", "iid")
+    plans = np.stack([case_label_plan(c, 0, GRID_ROUNDS, cfg.num_clients)
+                      for c in cases])
+    ds = ImageDataset(device=dev)
+    grid = GridRun(plans, cfg, strategies=GRID_STRATEGIES, seeds=(0,),
+                   rounds=GRID_ROUNDS, ds=ds, device=dev)
+    infos = [grid.round(t) for t in range(GRID_ROUNDS)]
+    res = grid.result(0.0)
+    worst = {"update_rel": 0.0, "loss_rel": 0.0, "acc": 0.0}
+    for k in range(3):                   # trial (case k, strategy k, seed 0)
+        strategy = GRID_STRATEGIES[k]
+        trial = k * len(GRID_STRATEGIES) + k
+        init, params, host = _host_trace(plans[k], cfg, strategy, 0, ds,
+                                         GRID_ROUNDS)
+        for t, info in enumerate(infos):
+            for name in ("hists", "mask", "selected"):
+                if not torch.equal(info[name][trial], host[name][t]):
+                    raise AssertionError(f"grid vs host: {cases[k]}/"
+                                         f"{strategy} round {t} {name} differ")
+        nsel = [float(x) for x in host["num_selected"]]
+        if res.num_selected[k, k, 0].tolist() != nsel:
+            raise AssertionError(f"grid vs host: num_selected "
+                                 f"{res.num_selected[k, k, 0]} vs {nsel}")
+        hist = run_fl_host(plans[k], cfg, strategy=strategy, rounds=GRID_ROUNDS,
+                           seed=0, ds=ds, device=dev)
+        if hist.loss != [float(x) for x in host["loss"]]:
+            raise AssertionError("run_fl_host differs from its own rounds")
+        upd = torch.cat([(params[n] - init[n]).reshape(-1) for n in params])
+        gap = torch.cat([(grid.params[n][trial] - params[n]).reshape(-1)
+                         for n in params])
+        rel = float(gap.norm() / upd.norm())
+        gap_loss = np.abs(res.loss[k, k, 0] - np.asarray(hist.loss))
+        loss_rel = float(np.max(np.where(
+            gap_loss == 0, 0.0,
+            gap_loss / np.maximum(np.abs(hist.loss), 1e-30))))
+        acc = float(np.max(np.abs(res.accuracy[k, k, 0] - hist.accuracy)))
+        say(f"  {cases[k]}/{strategy}: histograms, masks, orders, "
+            f"num_selected {nsel} bit-equal; |param gap| / |update| "
+            f"{rel:.3e}, loss rel {loss_rel:.3e}, accuracy {acc:.4f} "
+            f"(grid {res.accuracy[k, k, 0].tolist()}, host {hist.accuracy})")
+        worst = {"update_rel": max(worst["update_rel"], rel),
+                 "loss_rel": max(worst["loss_rel"], loss_rel),
+                 "acc": max(worst["acc"], acc)}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    if not (worst["update_rel"] <= ADAM_REL
+            and worst["loss_rel"] <= GRID_LOSS_REL
+            and worst["acc"] <= GRID_ACC_ATOL):
+        raise AssertionError(f"grid vs host beyond the limits: {worst}")
+    return worst
+
+
+def phase13d_trial_axis(dev) -> dict:
+    import math
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import GridRun
+    from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref
+    from repro_torch.kernels.weighted_agg import (weighted_agg_leaves,
+                                                  weighted_agg_ref)
+    from repro_torch.models import cnn_init
+    spec = _grid_spec()
+    trials = len(spec.scenarios) * len(spec.strategies)
+    say(f"== 13d. weighted_agg with the trial axis ({trials} trials) and "
+        f"label_hist on the grid engine's inputs")
+    sizes = [math.prod(v.shape) for v in cnn_init(device=dev).values()]
+    g = np.random.default_rng(13)
+    xs = [torch.from_numpy(0.05 * g.standard_normal(
+        (trials, K_CLIENTS, n)).astype(np.float32)).to(dev) for n in sizes]
+    w = torch.from_numpy((g.uniform(30, 290, (trials, K_CLIENTS))
+                          * (g.random((trials, K_CLIENTS)) > 0.2))
+                         .astype(np.float32)).to(dev)
+    denom = torch.clamp(w.sum(-1), min=1e-12)
+    kernels.reset_launch_counts()
+    got = weighted_agg_leaves(xs, w, denom)
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["weighted_agg"] != 1:
+        raise AssertionError("weighted_agg: the trial axis took more than one "
+                             "launch")
+    for t in range(trials):
+        one = weighted_agg_leaves([x[t] for x in xs], w[t], denom[t:t + 1])
+        if not all(torch.equal(y[t], y1) for y, y1 in zip(got, one)):
+            raise AssertionError(f"weighted_agg trial {t}: batched launch "
+                                 f"differs from its own launch")
+    err = 0.0
+    for x, y in zip(xs, got):
+        want = weighted_agg_ref(x, w, denom)
+        tol = (2 * K_CLIENTS * 2.0 ** -24 * torch.einsum("tk,tkn->tn", w,
+                                                           x.abs())
+               / denom[:, None] + 2.0 ** -23 * want.abs())
+        e = (y - want).abs()
+        if bool((e > tol).any()):
+            raise AssertionError(f"weighted_agg trial axis: {e.max().item()} "
+                                 f"over the float32 bound")
+        err = max(err, e.max().item())
+    agg = {"ms": time_ms(lambda: weighted_agg_leaves(xs, w, denom)),
+           "plain": time_ms(lambda: [weighted_agg_ref(x, w, denom)
+                                     for x in xs], reps=2, trials=5),
+           "lib": time_ms(lambda: [torch.bmm(w[:, None, :], x) for x in xs]),
+           "err": err}
+    nbytes = sum(trials * (K_CLIENTS * n + K_CLIENTS + n) * 4 for n in sizes)
+    agg["bound"], agg["by"] = bound(nbytes, 2 * trials * K_CLIENTS * sum(sizes))
+    say(f"weighted_agg (T={trials}, K={K_CLIENTS}, the CNN's {len(sizes)} "
+        f"leaves, {sum(sizes)} columns): bit-equal to {trials} one-trial "
+        f"launches, max abs err {err:.3e} against the plain version; kernel "
+        f"{agg['ms']:.4f} ms, bound {agg['bound']:.4f} ms ({agg['by']}, "
+        f"{nbytes / 1e6:.1f} MB), plain {agg['plain']:.4f} ms, bmm a leaf "
+        f"{agg['lib']:.4f} ms")
+    # label_hist on the engine's own round-0 inputs: every trial's plan row.
+    ds = ImageDataset(device=dev)
+    plans = np.stack([s.lower(spec.fl, spec.seeds, GRID_ROUNDS).plan
+                      for s in spec.scenarios])
+    grid = GridRun(plans, spec.fl, strategies=spec.strategies,
+                   seeds=spec.seeds, rounds=GRID_ROUNDS, ds=ds, device=dev)
+    lab = grid.plans[grid.plan_idx, 0]
+    lab = lab.reshape(-1, lab.shape[-1]).contiguous()
+    val = lab >= 0
+    lab0 = torch.where(val, lab, 0)
+    b, n = lab.shape
+    c = 10
+    if not torch.equal(label_hist_kernel(lab0, val, c),
+                       label_hist_ref(lab0, val, c)):
+        raise AssertionError("label_hist differs on the grid's inputs")
+    flat = torch.arange(b, device=dev)[:, None] * c + lab0.long()
+    flat = torch.where(val, flat, b * c).reshape(-1)
+    hist = {"shape": [b, n, c],
+            "ms": time_ms(lambda: label_hist_kernel(lab0, val, c)),
+            "plain": time_ms(lambda: label_hist_ref(lab0, val, c)),
+            "lib": time_ms(lambda: torch.bincount(flat, minlength=b * c + 1))}
+    hist["bound"], hist["by"] = bound(lab0.numel() * 4 + val.numel()
+                                      + b * c * 4, float(val.sum().item()))
+    say(f"label_hist on the engine's round-0 inputs {tuple(hist['shape'])}: "
+        f"kernel {hist['ms']:.4f} ms (warm), bound {hist['bound']:.5f} ms "
+        f"({hist['by']}), plain {hist['plain']:.4f} ms, bincount "
+        f"{hist['lib']:.4f} ms")
+    return {"weighted_agg": agg, "label_hist": hist}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -820,6 +1217,7 @@ def main() -> int:
                                                   weighted_agg_leaves,
                                                   weighted_agg_ref)
     from repro_torch.models import cnn_init
+    from repro_torch.rng import PRNGKey
 
     dev = torch.device("cuda")
     t_start = time.time()
@@ -939,7 +1337,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     images, labels, valid = paper_round_inputs(np, cfg, seed=0)
     loss_fn = get_workload("cnn").make_loss(None)
-    init = cnn_init(torch.Generator().manual_seed(0), device="cpu")
+    init = cnn_init(PRNGKey(0), device="cpu")
     for opt in ("sgd", "adam"):
         round_cfg = dataclasses.replace(cfg, local_epochs=ROUND_EPOCHS,
                                         optimizer=opt)
@@ -1062,6 +1460,11 @@ def main() -> int:
     served = phase11_serve(dev)
     times = phase12_times(dev)
     fa, ssd = times["flash_attention"], times["ssd_scan"]
+    phase13a_threefry(dev)
+    grid = phase13b_grid(dev)
+    phase13c_grid_vs_host(dev)
+    axis = phase13d_trial_axis(dev)
+    ta, eh = axis["weighted_agg"], axis["label_hist"]
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1072,13 +1475,23 @@ def main() -> int:
          "ms": hist_ms, "plain_ms": hist_plain, "bound_ms": hist_bound,
          "bound_by": hist_by, "library_ms": hist_lib,
          "floor_ms": hist_times["floor_ms"],
-         "grid_ms": hist_times["grid"]["cold_ms"]},
+         "grid_ms": hist_times["grid"]["cold_ms"],
+         "engine_grid_launches": grid["launches"]["label_hist"],
+         "engine_grid_shape": eh["shape"], "engine_grid_ms": eh["ms"],
+         "engine_grid_plain_ms": eh["plain"],
+         "engine_grid_bound_ms": eh["bound"],
+         "engine_grid_library_ms": eh["lib"]},
         {"name": "weighted_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
          "replaces": "src/repro/kernels/weighted_agg/weighted_agg.py:28",
          "launches": launches["weighted_agg"], "max_abs_err": agg_err,
          "ms": agg["ms"], "plain_ms": agg["plain"], "bound_ms": agg_bound,
-         "bound_by": agg_by, "library_ms": agg["lib"]},
+         "bound_by": agg_by, "library_ms": agg["lib"],
+         "trial_axis_launches": grid["launches"]["weighted_agg"],
+         "trial_axis_max_abs_err": ta["err"], "trial_axis_ms": ta["ms"],
+         "trial_axis_plain_ms": ta["plain"],
+         "trial_axis_bound_ms": ta["bound"],
+         "trial_axis_library_ms": ta["lib"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",

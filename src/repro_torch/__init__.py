@@ -4,7 +4,12 @@ The package mirrors ``repro`` module for module and imports neither ``jax``
 nor ``repro``.  Entry points take ``device=None``, which means ``"cuda"``;
 without a card they raise unless the caller passes ``device="cpu"``.  The two
 kernels of the FL round (label histograms and the weighted client sum) are
-hand-written CUDA for Hopper under ``kernels/``.
+hand-written CUDA for Hopper under ``kernels/``.  Experiments run through
+``fl.run(ExperimentSpec(...))``: the ``"sim"`` engine is the batched grid
+(``fl/sim.py``, every trial of a grid in one round loop with one
+``label_hist`` and one ``weighted_agg`` launch a round), ``"host"`` the
+per-trial loop ``fl.run_fl_host``.  Randomness is JAX's threefry, bit for
+bit (``rng``).
 """
 from .device import resolve_device
 

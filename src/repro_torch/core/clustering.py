@@ -22,7 +22,7 @@ def area_index(hists: torch.Tensor,
     in this round's client population."""
     cov = coverage(hists)
     if num_active_labels is None:
-        num_active_labels = (hists > 0).any(dim=-2).sum(-1)
+        num_active_labels = (hists > 0).any(dim=-2).sum(-1, keepdim=True)
     q = torch.as_tensor(num_active_labels, dtype=torch.int32,
                         device=hists.device)
     return (q - cov + 1).to(torch.int32)

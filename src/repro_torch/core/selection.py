@@ -2,11 +2,13 @@
 
 Every strategy has the signature
 
-    select(generator, hists, n_select) -> SelectionResult(mask, scores, order, budget)
+    select(key, hists, n_select) -> SelectionResult(mask, scores, order, budget)
 
-with ``hists`` the (N, C) per-client label-histogram matrix of the round and
-``generator`` a ``torch.Generator`` on ``hists``' device (only ``random``
-draws from it).  ``mask`` is a float32 (N,) 0/1 vector of chosen clients and
+with ``hists`` the (…, N, C) per-client label-histogram matrix of the round
+and ``key`` a ``repro_torch.rng`` key (…, 2) (only ``random`` draws from it).
+Leading axes are independent rounds (the grid engine's trials), each
+selected as if alone.  ``mask`` is a float32 (…, N) 0/1 vector of chosen
+clients and
 ``budget`` the static number of training slots: the round trains exactly
 ``order[:budget]``, and ``mask[order[:budget]]`` says which of those are live.
 Invalid clients are scored −∞ and masked out, so Algorithm 1's "if count < n
@@ -15,7 +17,9 @@ replaced.
 
 Built-in strategies (ids in registration order, append-only, as in the
 reference): random, labelwise (THE PAPER: σ² ≠ 0 gate, top-n by σ²/n_i),
-labelwise_unnorm, coverage, kl, entropy, full, and labelwise_priority (id 7).
+labelwise_unnorm, coverage, kl, entropy, full, labelwise_priority (id 7),
+and dirichlet_uniformity (id 8, registered by ``fl.experiment`` through
+:func:`register_strategy`, as the reference registers it).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import rng
 from .clustering import area_index, selection_priority
 from .kl import uniformity_score
 from .label_stats import empirical_pdf, label_variance, label_variance_normed
@@ -37,9 +42,9 @@ class SelectionResult:
     """One round's selection decision: ``order`` sorts clients by descending
     priority with invalid clients last; ``budget`` is the static gather width
     (``None`` means the engine's ``clients_per_round``)."""
-    mask: torch.Tensor    # (N,) float32 ∈ {0, 1}
-    scores: torch.Tensor  # (N,) float32, the strategy's ranking statistic
-    order: torch.Tensor   # (N,) int32, descending priority, invalid last
+    mask: torch.Tensor    # (…, N) float32 ∈ {0, 1}
+    scores: torch.Tensor  # (…, N) float32, the strategy's ranking statistic
+    order: torch.Tensor   # (…, N) int32, descending priority, invalid last
     budget: Optional[int] = None
 
 
@@ -55,22 +60,21 @@ def selection_budget(result: SelectionResult, n_select: int,
 
 def topn_mask(scores: torch.Tensor, valid: torch.Tensor,
               n_select: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mask, order) of the top-``n_select`` valid entries.
+    """(mask, order) of the top-``n_select`` valid entries of the last axis.
 
     ``order`` sorts by (descending masked score, ascending client index):
     invalid entries are masked to ``NEG_INF`` and the sort is stable over the
     index-ordered input, which is the reference's tie-break."""
     masked = torch.where(valid, scores, NEG_INF)
-    order = torch.argsort(-masked, stable=True)
-    ranks = torch.empty_like(order)
-    ranks[order] = torch.arange(order.shape[0], device=order.device)
+    order = torch.argsort(-masked, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1)      # the inverse permutation
     chosen = (ranks < n_select) & valid
     return chosen.to(torch.float32), order.to(torch.int32)
 
 
 def _clamped(n_select: int, hists: torch.Tensor) -> int:
     """A top-n strategy's budget: n_select clamped to the population."""
-    return min(int(n_select), hists.shape[0])
+    return min(int(n_select), hists.shape[-2])
 
 
 def _topn(scores, valid, hists, n_select) -> SelectionResult:
@@ -83,42 +87,41 @@ def _nonempty(hists: torch.Tensor) -> torch.Tensor:
     return class_sum(hists) > 0
 
 
-def select_random(generator: Optional[torch.Generator], hists: torch.Tensor,
+def select_random(key: torch.Tensor, hists: torch.Tensor,
                   n_select: int) -> SelectionResult:
-    """Uniform without replacement among clients with data.  Draws from
-    ``generator``, so its numbers differ from the reference's JAX draws."""
-    scores = torch.rand(hists.shape[0], generator=generator,
-                        device=hists.device)
+    """Uniform without replacement among clients with data: the top n of
+    ``uniform(key, (N,))``, the reference's draw bit for bit."""
+    scores = rng.uniform(rng.as_key(key, hists.device), (hists.shape[-2],))
     return _topn(scores, _nonempty(hists), hists, n_select)
 
 
-def select_labelwise(generator, hists, n_select) -> SelectionResult:
+def select_labelwise(key, hists, n_select) -> SelectionResult:
     return _topn(label_variance_normed(hists), label_variance(hists) > 0,
                  hists, n_select)
 
 
-def select_labelwise_unnorm(generator, hists, n_select) -> SelectionResult:
+def select_labelwise_unnorm(key, hists, n_select) -> SelectionResult:
     scores = label_variance(hists)
     return _topn(scores, scores > 0, hists, n_select)
 
 
-def select_coverage(generator, hists, n_select) -> SelectionResult:
+def select_coverage(key, hists, n_select) -> SelectionResult:
     return _topn(selection_priority(hists), label_variance(hists) > 0,
                  hists, n_select)
 
 
-def select_kl(generator, hists, n_select) -> SelectionResult:
+def select_kl(key, hists, n_select) -> SelectionResult:
     return _topn(uniformity_score(hists), _nonempty(hists), hists, n_select)
 
 
-def select_entropy(generator, hists, n_select) -> SelectionResult:
+def select_entropy(key, hists, n_select) -> SelectionResult:
     """Shannon entropy of p(L_i): coverage first, balance second."""
     p = empirical_pdf(hists)
     scores = -class_dot(p, log(torch.clamp(p, min=1e-30)))
     return _topn(scores, _nonempty(hists), hists, n_select)
 
 
-def select_labelwise_priority(generator, hists, n_select) -> SelectionResult:
+def select_labelwise_priority(key, hists, n_select) -> SelectionResult:
     """§IV-A/B area priority through the area index: rank by −A_p with the
     σ²/n tie-break inside an area, gated by σ² ≠ 0."""
     c = hists.shape[-1]
@@ -127,14 +130,14 @@ def select_labelwise_priority(generator, hists, n_select) -> SelectionResult:
     return _topn(scores, label_variance(hists) > 0, hists, n_select)
 
 
-def select_full(generator, hists, n_select) -> SelectionResult:
+def select_full(key, hists, n_select) -> SelectionResult:
     """Every client with data; the budget is the whole population."""
     valid = _nonempty(hists).to(torch.float32)
-    order = torch.argsort(-valid, stable=True).to(torch.int32)
-    return SelectionResult(valid, valid, order, budget=hists.shape[0])
+    order = torch.argsort(-valid, dim=-1, stable=True).to(torch.int32)
+    return SelectionResult(valid, valid, order, budget=hists.shape[-2])
 
 
-SelectFn = Callable[[Optional[torch.Generator], torch.Tensor, int],
+SelectFn = Callable[[Optional[torch.Tensor], torch.Tensor, int],
                     SelectionResult]
 
 # Name -> callable, mutated only through register_strategy.

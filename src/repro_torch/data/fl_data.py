@@ -15,18 +15,27 @@ from ..kernels.dispatch import client_histograms
 from .synthetic import ImageDataset
 
 
-def materialize_round(ds: ImageDataset, plan_t: "np.ndarray | torch.Tensor",
-                      generator: Optional[torch.Generator]
-                      ) -> Dict[str, torch.Tensor]:
-    """plan_t (N, n_max) int32 labels with −1 padding -> round batch on the
-    dataset's device.  Histograms go through the label_hist kernel on a CUDA
-    device and its plain version on the CPU (bit-equal counts)."""
+def round_histograms(ds: ImageDataset, plan_t: "np.ndarray | torch.Tensor"
+                     ) -> Dict[str, torch.Tensor]:
+    """plan_t (…, N, n_max) int32 labels with −1 padding -> ``labels``,
+    ``valid`` and ``hists`` (…, N, C) on the dataset's device, without the
+    images: every row of every leading index in one ``label_hist`` launch on
+    a CUDA device (its plain version on the CPU; bit-equal counts)."""
     labels = torch.as_tensor(plan_t, dtype=torch.int32, device=ds.device)
     valid = labels >= 0
-    images = ds.sample(generator, labels)
     hists = client_histograms(torch.where(valid, labels, 0), ds.num_classes,
                               valid)
-    return {"images": images, "labels": labels, "valid": valid, "hists": hists}
+    return {"labels": labels, "valid": valid, "hists": hists}
+
+
+def materialize_round(ds: ImageDataset, plan_t: "np.ndarray | torch.Tensor",
+                      key) -> Dict[str, torch.Tensor]:
+    """plan_t (N, n_max) int32 labels with −1 padding -> round batch on the
+    dataset's device, images drawn from ``key`` as the reference draws
+    them.  Histograms go through the label_hist kernel on a CUDA device and
+    its plain version on the CPU (bit-equal counts)."""
+    data = round_histograms(ds, plan_t)
+    return {"images": ds.sample(key, data["labels"]), **data}
 
 
 def client_batches(data: Dict[str, torch.Tensor], batch_size: int,

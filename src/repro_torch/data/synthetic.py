@@ -3,12 +3,15 @@ for LM token streams).
 
 Images: class k is a fixed random smooth template T_k plus Gaussian noise.
 The templates come from NumPy (seed 1234) and are bit-equal to the
-reference's; the noise is drawn from a ``torch.Generator`` on the dataset's
-device, so its numbers differ from the reference's JAX draws.
+reference's; the noise is ``repro_torch.rng.normal`` under the caller's key,
+the reference's draw (to the ulp level ``rng`` states).  Each element's noise
+depends only on the key and its flat index, so :meth:`ImageDataset.sample`
+can draw a subset of rows and get exactly those rows of the whole draw.
 
 Tokens: domain k is a skewed unigram distribution over a vocab band.  Its
 log-probabilities come from NumPy (seed 77) and are bit-equal to the
-reference's; the draws come from a ``torch.Generator``.
+reference's; the draws come from a ``torch.Generator`` (the ``lm`` workload
+moves to keys with its own slice of the port).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import rng
 from ..device import resolve_device
 
 
@@ -55,22 +59,46 @@ class ImageDataset:
             self.num_classes, self.image_size, self.channels,
             self.seed)).to(self.device)
 
-    def sample(self, generator: Optional[torch.Generator],
-               labels: torch.Tensor) -> torch.Tensor:
-        """labels (...,) int -> images (..., H, W, C); label −1 -> zeros."""
+    def sample(self, key: "rng.KeyLike", labels: torch.Tensor,
+               rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """labels (…, R, n) int -> images (…, R, n, H, W, C), label −1 ->
+        zeros, with the reference's noise ``normal(key, images.shape)``.
+
+        ``key`` is one key (2,) or one per leading index (…, 2).  With
+        ``rows`` (…, S) int, only those rows of the last-but-one axis are
+        drawn -> (…, S, n, H, W, C): each row's noise comes from its own
+        counter offset, so the result is bit-equal to ``sample(key,
+        labels)`` gathered at ``rows``."""
         labels = torch.as_tensor(labels, dtype=torch.int32, device=self.device)
+        key = rng.as_key(key, self.device)
+        if labels.dim() == 1:       # (n,) samples: one row
+            return self.sample(key, labels[None], rows)[0]
+        per_row = labels.shape[-1] * self.image_size ** 2 * self.channels
+        if rows is None:
+            rows = torch.arange(labels.shape[-2], device=self.device)
+            rows = rows.expand(labels.shape[:-1])
+        rows = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        labels = torch.gather(labels, -2, rows[..., None].expand(
+            rows.shape + labels.shape[-1:]))
+        keys = key.expand(labels.shape[:-2] + (2,))
+        noise = rng.normal_rows(keys[..., None, :].expand(rows.shape + (2,)),
+                                rows * per_row, per_row)
+        noise = noise.reshape(labels.shape + self.templates.shape[1:])
         base = self.templates[torch.clamp(labels, min=0)]
-        noise = torch.randn(base.shape, generator=generator,
-                            device=self.device) * self.noise
-        return (base + noise) * (labels >= 0)[..., None, None, None]
+        return (base + noise * self._noise32) * (labels >= 0)[..., None, None,
+                                                              None]
+
+    @property
+    def _noise32(self) -> float:
+        return float(torch.tensor(self.noise, dtype=torch.float32))
 
     def test_set(self, n_per_class: int = 50,
                  seed: int = 999) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A fixed held-out set, drawn from its own generator."""
+        """The reference's held-out set: every class ``n_per_class`` times,
+        noise from ``PRNGKey(seed)``."""
         labels = torch.arange(self.num_classes, dtype=torch.int32,
                               device=self.device).repeat(n_per_class)
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        return self.sample(g, labels), labels
+        return self.sample(rng.PRNGKey(seed), labels), labels
 
 
 def token_log_probs(num_domains: int, vocab_size: int, concentration: float,

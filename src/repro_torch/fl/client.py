@@ -49,10 +49,10 @@ def local_train(params: Params, opt, batches: Batch, loss_fn: LossFn,
 
 def local_gradient(params: Params, batches: Batch, loss_fn: LossFn
                    ) -> Tuple[Params, Dict[str, torch.Tensor]]:
-    """FedSGD clients: each reports the mean of its minibatch gradients at the
-    shared ``params`` (leaves without a client axis).  Returns (S, ...)
-    gradients and {"loss": (S,) mean minibatch loss}."""
-    step = vmap(grad_and_value(loss_fn, has_aux=True), in_dims=(None, 0))
+    """FedSGD clients: each reports the mean of its minibatch gradients at its
+    own params (leaves (S, ...), as for :func:`local_train`).  Returns
+    (S, ...) gradients and {"loss": (S,) mean minibatch loss}."""
+    step = vmap(grad_and_value(loss_fn, has_aux=True))
     n_batches = next(iter(batches.values())).shape[1]
     acc, losses = None, []
     for b in range(n_batches):

@@ -8,11 +8,11 @@ slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from ..data import ImageDataset, materialize_round
+from ..data import ImageDataset, materialize_round, round_histograms
 from ..models import cnn_init, cnn_loss
 
 Params = Dict[str, torch.Tensor]
@@ -25,24 +25,32 @@ class Workload:
     """One client workload.
 
     * ``make_dataset(device)`` — the default dataset on ``device``;
-    * ``init(generator, ds)`` — parameter init on the dataset's device;
+    * ``init(key, ds)`` — parameter init on the dataset's device from a
+      ``repro_torch.rng`` key;
     * ``make_loss(ds)`` — ``loss(params, batch) -> (scalar, aux)`` over one
       client minibatch;
-    * ``materialize(ds, plan_t, generator)`` — (N, n_max) label plan row ->
-      round batch with ``labels``, ``valid``, ``hists`` and the payload leaves
+    * ``materialize(ds, plan_t, key)`` — (N, n_max) label plan row -> round
+      batch with ``labels``, ``valid``, ``hists`` and the payload leaves
       named in ``batch_keys``;
+    * ``hists(ds, plan_t)`` — (…, N, n_max) plan rows -> ``labels``,
+      ``valid`` and ``hists`` only (what selection needs);
+    * ``sample(ds, key, labels, rows)`` — the payload leaves of ``rows``
+      (…, S) of (…, N, n_max) labels, bit-equal to ``materialize``'s rows
+      (the grid engine draws only the selected clients);
     * ``eval_set(ds, n_per_class)`` / ``make_eval(ds)`` — held-out batch and
       ``eval(params, batch) -> (loss, {"accuracy": ...})``;
     * ``num_classes(ds)`` — histogram width."""
     name: str
     make_dataset: Callable[[Any], Any]
-    init: Callable[[Optional[torch.Generator], Any], Params]
+    init: Callable[[Any, Any], Params]
     make_loss: Callable[[Any], LossFn]
-    materialize: Callable[[Any, Any, Optional[torch.Generator]], Batch]
+    materialize: Callable[[Any, Any, Any], Batch]
     eval_set: Callable[[Any, int], Batch]
     make_eval: Callable[[Any], LossFn]
     batch_keys: Tuple[str, ...]
     num_classes: Callable[[Any], int]
+    hists: Callable[[Any, Any], Batch]
+    sample: Callable[[Any, Any, torch.Tensor, torch.Tensor], Batch]
 
 
 _WORKLOADS: Dict[str, Workload] = {}
@@ -73,8 +81,8 @@ def get_workload(workload: "str | Workload") -> Workload:
                        f"{registered_workloads()}") from None
 
 
-def _cnn_init(generator, ds: ImageDataset) -> Params:
-    return cnn_init(generator, num_classes=ds.num_classes,
+def _cnn_init(key, ds: ImageDataset) -> Params:
+    return cnn_init(key, num_classes=ds.num_classes,
                     image_size=ds.image_size, channels=ds.channels,
                     device=ds.device)
 
@@ -107,4 +115,7 @@ CNN_WORKLOAD = register_workload("cnn", Workload(
     make_eval=_cnn_make_eval,
     batch_keys=("images", "labels", "valid"),
     num_classes=lambda ds: ds.num_classes,
+    hists=round_histograms,
+    sample=lambda ds, key, labels, rows: {
+        "images": ds.sample(key, labels, rows)},
 ))

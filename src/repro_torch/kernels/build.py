@@ -29,8 +29,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # otherwise.
 SIGNATURES = {
     "repro_label_hist": [_P, _P, _P, _LL, _LL] + [_I] * 4 + [_LL, _LL, _I, _P],
-    "repro_weighted_agg_f32": [_P, _I, _LL, _P, _I, _P, _P],
-    "repro_weighted_agg_bf16": [_P, _I, _LL, _P, _I, _P, _P],
+    "repro_weighted_agg_f32": [_P, _I, _LL, _I, _P, _I, _LL, _P, _LL, _P],
+    "repro_weighted_agg_bf16": [_P, _I, _LL, _I, _P, _I, _LL, _P, _LL, _P],
     "repro_weighted_agg_geometry": [_P, _P, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P],

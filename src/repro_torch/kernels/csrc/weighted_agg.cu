@@ -1,8 +1,9 @@
 // Weighted sums over stacked client parameters on Hopper, every leaf of a
-// parameter tree in one launch:
-//   y_i[j] = sum_k s[k] * theta_i[k, j]  (/ denom, when given),
-//   theta_i (K, N_i) float32 or bfloat16, s (K,) float32, y_i (N_i,) in
-//   theta_i's dtype, accumulated in float32 and rounded once.
+// parameter tree, for every trial of a grid, in one launch:
+//   y_i[t, j] = sum_k s[t, k] * theta_i[t, k, j]  (/ denom[t], when given),
+//   theta_i (T, K, N_i) float32 or bfloat16, s (T, K) float32, y_i (T, N_i)
+//   in theta_i's dtype, accumulated in float32 and rounded once.  T = 1 is
+//   the one-model round.
 //
 // Replaces src/repro/kernels/weighted_agg/weighted_agg.py:weighted_agg_kernel
 // (body _agg_kernel), the FedAvg/FedSGD server reduction, which the
@@ -25,6 +26,12 @@
 // size or pointers rule out 16-byte loads takes scalar loads.  The optional
 // divide by a device scalar is IEEE float32 division, as torch's `/`, so the
 // mean needs no read back to the host.
+//
+// The trial axis (the grid engine's independent FL runs) is the grid's y
+// dimension: block (x, t) sums block x's columns of trial t with trial t's
+// weights and denominator, reached through per-trial strides on theta, y, s
+// and denom.  Each column is summed over k in the same order as in a
+// one-trial launch, so the batched launch is bit-equal to T launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,16 +47,21 @@ constexpr int kMaxLeaves = 64;
 // checks kThreads, kMaxLeaves and sizeof(LeafEntry) through
 // repro_weighted_agg_geometry before its first launch.
 struct LeafEntry {
-  const void* theta;       // (K, n) in the launch's dtype
-  void* out;               // (n,)
+  const void* theta;       // (T, K, n) in the launch's dtype
+  void* out;               // (T, n)
   long long n;
   long long first_block;   // the leaf's blocks are first_block, first_block + 1, ...
-  int vec;                 // 1: n and both pointers allow 16-byte loads
+  long long theta_trial;   // elements from one trial's theta to the next
+  long long out_trial;     // elements from one trial's out to the next
+  int vec;                 // 1: n, both pointers and both strides allow
+                           // 16-byte loads
   int pad;
 };
 
 struct LeafTable {
   LeafEntry leaf[kMaxLeaves];
+  long long scale_trial;   // floats from one trial's weights to the next
+  long long denom_trial;   // floats from one trial's denominator to the next
   int count;
 };
 
@@ -125,8 +137,11 @@ weighted_agg_kernel(const __grid_constant__ LeafTable table,
   }
   const LeafEntry& e = table.leaf[lo];
   const long long thread = (block - e.first_block) * kThreads + threadIdx.x;
-  const T* theta = static_cast<const T*>(e.theta);
-  T* out = static_cast<T*>(e.out);
+  const long long trial = blockIdx.y;
+  const T* theta = static_cast<const T*>(e.theta) + trial * e.theta_trial;
+  T* out = static_cast<T*>(e.out) + trial * e.out_trial;
+  scales += trial * table.scale_trial;
+  if (denom != nullptr) denom += trial * table.denom_trial;
   if (e.vec) {
     column_sum<T, 16 / sizeof(T)>(theta, out, e.n, thread, scales, k_clients,
                                   denom);
@@ -136,17 +151,22 @@ weighted_agg_kernel(const __grid_constant__ LeafTable table,
 }
 
 template <typename T>
-int launch(const void* entries, int count, long long blocks,
-           const void* scales, int k_clients, const void* denom,
-           void* stream) {
-  if (count <= 0 || blocks <= 0) return static_cast<int>(cudaGetLastError());
-  if (count > kMaxLeaves || blocks > 0x7fffffffLL)
+int launch(const void* entries, int count, long long blocks, int trials,
+           const void* scales, int k_clients, long long scale_trial,
+           const void* denom, long long denom_trial, void* stream) {
+  if (count <= 0 || blocks <= 0 || trials <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (count > kMaxLeaves || blocks > 0x7fffffffLL || trials > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   LeafTable table;
   memset(&table, 0, sizeof(table));
   memcpy(table.leaf, entries, sizeof(LeafEntry) * count);
   table.count = count;
-  weighted_agg_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
+  table.scale_trial = scale_trial;
+  table.denom_trial = denom_trial;
+  const dim3 grid(static_cast<unsigned int>(blocks),
+                  static_cast<unsigned int>(trials));
+  weighted_agg_kernel<T><<<grid, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       table, static_cast<const float*>(scales), k_clients,
       static_cast<const float*>(denom));
@@ -156,22 +176,29 @@ int launch(const void* entries, int count, long long blocks,
 }  // namespace
 
 // entries: `count` LeafEntry records in host memory, all of one dtype, with
-// first blocks numbered from 0 and `blocks` blocks in all; denom may be null.
-// Each returns cudaGetLastError() after the launch (0 on success).
+// first blocks numbered from 0 and `blocks` blocks in all, for each of
+// `trials` trials; trial t's weights start at scales + t * scale_trial and
+// its denominator at denom + t * denom_trial (denom may be null).  Each
+// returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_weighted_agg_f32(const void* entries, int count,
-                                      long long blocks, const void* scales,
-                                      int k_clients, const void* denom,
-                                      void* stream) {
-  return launch<float>(entries, count, blocks, scales, k_clients, denom,
-                       stream);
+                                      long long blocks, int trials,
+                                      const void* scales, int k_clients,
+                                      long long scale_trial,
+                                      const void* denom,
+                                      long long denom_trial, void* stream) {
+  return launch<float>(entries, count, blocks, trials, scales, k_clients,
+                       scale_trial, denom, denom_trial, stream);
 }
 
 extern "C" int repro_weighted_agg_bf16(const void* entries, int count,
-                                       long long blocks, const void* scales,
-                                       int k_clients, const void* denom,
-                                       void* stream) {
-  return launch<__nv_bfloat16>(entries, count, blocks, scales, k_clients,
-                               denom, stream);
+                                       long long blocks, int trials,
+                                       const void* scales, int k_clients,
+                                       long long scale_trial,
+                                       const void* denom,
+                                       long long denom_trial, void* stream) {
+  return launch<__nv_bfloat16>(entries, count, blocks, trials, scales,
+                               k_clients, scale_trial, denom, denom_trial,
+                               stream);
 }
 
 // The launch geometry the Python wrapper plans tables with: threads a block,

@@ -15,7 +15,10 @@ Numerics:
   (sums of 0/1 weights, exact in float32).
 * ``masked_weighted_mean`` / ``weighted_sum_tree``: float32 ulp level; the
   kernel accumulates in float32 in its own order.  ``weighted_sum_tree`` keeps
-  each leaf's dtype on both paths.
+  each leaf's dtype on both paths.  Both take an optional leading trial axis
+  (leaves (T, K, …) with weights (T, K) -> (T, …)), the grid engine's
+  independent FL runs, in the same one launch; each trial's result is
+  bit-equal to its own one-trial call.
 """
 from __future__ import annotations
 
@@ -67,41 +70,62 @@ def client_statistics(labels: torch.Tensor, num_classes: int,
 
 def _leaf_sums(tree: Params, w: torch.Tensor,
                denom: Optional[torch.Tensor] = None) -> Params:
-    """Σ_k w_k · leaf_k over every leaf's leading client axis (÷ denom when
-    given), one kernel launch for all leaves of one dtype.  The kernel reads
-    float32 and bfloat16; a leaf of another floating dtype (float16,
+    """Σ_k w_k · leaf_k over every leaf's client axis (÷ denom when given),
+    one kernel launch for all leaves of one dtype.  ``w`` (K,) or, with a
+    trial axis, (T, K): the leaves' leading axes are ``w``'s.  The kernel
+    reads float32 and bfloat16; a leaf of another floating dtype (float16,
     float64) is summed in float32 and its result cast back to its dtype."""
-    flats = [x.reshape(x.shape[0], -1).contiguous() for x in tree.values()]
+    lead = w.dim()
+    flats = [x.reshape(x.shape[:lead] + (-1,)).contiguous()
+             for x in tree.values()]
     flats = [x if x.dtype in _KERNEL_DTYPES else x.to(torch.float32)
              for x in flats]
     sums = weighted_agg_leaves(flats, w, denom)
-    return {k: y.reshape(x.shape[1:]).to(x.dtype)
+    return {k: y.reshape(x.shape[:lead - 1] + x.shape[lead:]).to(x.dtype)
             for (k, x), y in zip(tree.items(), sums)}
+
+
+def _per_trial(fn, tree: Params, *vectors: Optional[torch.Tensor]) -> Params:
+    """``fn`` on each trial of a (T, K, …) tree with (T, K) vectors, stacked
+    back to (T, …): the reference formulas have no trial axis."""
+    trials = [fn({k: x[t] for k, x in tree.items()},
+                 *(None if v is None else v[t] for v in vectors))
+              for t in range(vectors[0].shape[0])]
+    return {k: torch.stack([r[k] for r in trials]) for k in tree}
 
 
 def masked_weighted_mean(stacked: Params, mask: torch.Tensor,
                          weights: Optional[torch.Tensor] = None, *,
                          backend: str = "auto") -> Params:
-    """Weighted mean over the leading (client) axis restricted to ``mask``:
-    the FedAvg/FedSGD server reduction, with ``masked_mean``'s signature and
-    its ε-denominator for an empty mask.  The kernel path sums each leaf in
-    float32 and divides by Σw in float32 before rounding to the leaf's dtype,
-    as the reference's kernel path does, in one launch for the whole tree."""
+    """Weighted mean over the client axis restricted to ``mask``: the
+    FedAvg/FedSGD server reduction, with ``masked_mean``'s signature and its
+    ε-denominator for an empty mask.  ``mask`` (K,), or (T, K) for leaves
+    (T, K, …) -> (T, …) with a denominator a trial.  The kernel path sums
+    each leaf in float32 and divides by Σw in float32 before rounding to the
+    leaf's dtype, as the reference's kernel path does, in one launch for the
+    whole tree and every trial."""
     if _check(backend) == "reference":
+        if mask.dim() == 2:
+            return _per_trial(masked_mean, stacked, mask, weights)
         return masked_mean(stacked, mask, weights)
     w = mask.to(torch.float32)
     if weights is not None:
         w = w * weights.to(torch.float32)
-    return _leaf_sums(stacked, w, torch.clamp(w.sum(), min=1e-12))
+    return _leaf_sums(stacked, w, torch.clamp(w.sum(-1), min=1e-12))
 
 
 def weighted_sum_tree(tree: Params, weights: torch.Tensor, *,
                       backend: str = "auto") -> Params:
-    """Σ_k w_k · x_k over every leaf's leading axis, without normalizing.
-    Every leaf keeps its dtype: the reference reduces in the leaf's dtype,
-    the kernel accumulates in float32 and rounds once."""
+    """Σ_k w_k · x_k over every leaf's client axis, without normalizing;
+    ``weights`` (K,), or (T, K) for leaves (T, K, …) -> (T, …).  Every leaf
+    keeps its dtype: the reference reduces in the leaf's dtype, the kernel
+    accumulates in float32 and rounds once."""
     w = weights.to(torch.float32)
     if _check(backend) == "reference":
+        if w.dim() == 2:
+            return _per_trial(
+                lambda t, v: weighted_sum_tree(t, v, backend="reference"),
+                tree, w)
         return {k: (w.reshape(w.shape + (1,) * (x.dim() - 1)).to(x.dtype)
                     * x).sum(0) for k, x in tree.items()}
     return _leaf_sums(tree, w)

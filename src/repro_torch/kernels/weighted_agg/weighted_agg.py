@@ -4,8 +4,9 @@
 Replaces src/repro/kernels/weighted_agg/weighted_agg.py:weighted_agg_kernel.
 The source note in the .cu file says what bounds the kernel on the card and
 why it is a column reduction on CUDA cores rather than a tensor-core product.
-One launch sums every leaf of one dtype (up to ``MAX_LEAVES`` a launch): the
-Python side plans the table of leaves that the launch takes.
+One launch sums every leaf of one dtype (up to ``MAX_LEAVES`` a launch) for
+every trial of a grid (the launch's second grid axis): the Python side plans
+the table of leaves that the launch takes.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ class _Entry(ctypes.Structure):
     """One leaf of the kernel's table (``LeafEntry`` in the .cu file)."""
     _fields_ = [("theta", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("n", ctypes.c_longlong), ("first_block", ctypes.c_longlong),
+                ("theta_trial", ctypes.c_longlong),
+                ("out_trial", ctypes.c_longlong),
                 ("vec", ctypes.c_int), ("pad", ctypes.c_int)]
 
 
@@ -85,17 +88,19 @@ def plan_launches(sizes: Sequence[int], vec: Sequence[bool],
 def launch_tables(leaves: Sequence[torch.Tensor],
                   outs: Sequence[torch.Tensor]
                   ) -> list[tuple[torch.dtype, list[LeafSlot]]]:
-    """The launches that sum ``leaves`` (K, N_i) into ``outs`` (N_i,): one
-    table a dtype (float32, then bfloat16), split every ``MAX_LEAVES``
+    """The launches that sum ``leaves`` (T, K, N_i) into ``outs`` (T, N_i):
+    one table a dtype (float32, then bfloat16), split every ``MAX_LEAVES``
     leaves, each slot's ``index`` the leaf's position in ``leaves``.  16-byte
-    loads where N_i and both tensors' addresses allow them."""
+    loads where N_i and both tensors' addresses allow them (every trial's
+    rows then start 16-byte aligned too: K·N_i and N_i are multiples of the
+    vector width)."""
     tables = []
     for dtype in _ENTRY:
         group = [i for i, x in enumerate(leaves) if x.dtype == dtype]
         width = vector_width(dtype)
-        vec = [loads_16_bytes(leaves[i].shape[1], width, leaves[i].data_ptr(),
+        vec = [loads_16_bytes(leaves[i].shape[-1], width, leaves[i].data_ptr(),
                               outs[i].data_ptr()) for i in group]
-        for table in plan_launches([leaves[i].shape[1] for i in group], vec,
+        for table in plan_launches([leaves[i].shape[-1] for i in group], vec,
                                    width):
             tables.append((dtype, [replace(slot, index=group[slot.index])
                                    for slot in table]))
@@ -120,14 +125,18 @@ def _kernel_library() -> ctypes.CDLL:
 
 def _check_leaves(leaves: Sequence[torch.Tensor], scales: torch.Tensor,
                   denom: Optional[torch.Tensor]) -> None:
-    if scales.dim() != 1:
-        raise ValueError(f"need scales (K,); got {tuple(scales.shape)}")
+    """Leaves (K, N) with scales (K,) and one denom value, or leaves
+    (T, K, N) with scales (T, K) and denom (T,)."""
+    if scales.dim() not in (1, 2):
+        raise ValueError(f"need scales (K,) or (T, K); got "
+                         f"{tuple(scales.shape)}")
     for x in leaves:
-        if x.dim() != 2 or x.shape[0] != scales.shape[0]:
-            raise ValueError(f"need stacked (K, N) leaves with K = "
-                             f"{scales.shape[0]}; got {tuple(x.shape)}")
-    if denom is not None and denom.numel() != 1:
-        raise ValueError(f"denom must hold one value; got "
+        if x.dim() != scales.dim() + 1 or x.shape[:-1] != scales.shape:
+            raise ValueError(f"need stacked {tuple(scales.shape)} + (N,) "
+                             f"leaves; got {tuple(x.shape)}")
+    trials = 1 if scales.dim() == 1 else scales.shape[0]
+    if denom is not None and denom.numel() != trials:
+        raise ValueError(f"denom must hold one value a trial ({trials}); got "
                          f"{tuple(denom.shape)}")
 
 
@@ -137,10 +146,12 @@ def weighted_agg_leaves(leaves: Sequence[torch.Tensor], scales: torch.Tensor,
     """Each leaf (K, N_i) float32 or bfloat16 -> (N_i,)
     ``sum_k scales[k] * leaf[k]``, accumulated in float32, divided by
     ``denom`` (one float32 value) in float32 when given, rounded once to the
-    leaf's dtype.
+    leaf's dtype.  With a trial axis, leaves (T, K, N_i), scales (T, K) and
+    denom (T,) -> (T, N_i), each trial summed as it would be alone.
 
     CPU tensors take the plain version.  CUDA tensors make one kernel launch
-    for the leaves of each dtype (one per ``MAX_LEAVES`` leaves), or raise."""
+    for the leaves of each dtype (one per ``MAX_LEAVES`` leaves) for all
+    trials, or raise."""
     _check_leaves(leaves, scales, denom)
     tensors = [*leaves, scales] + ([] if denom is None else [denom])
     if all(t.device.type == "cpu" for t in tensors):
@@ -158,21 +169,24 @@ def weighted_agg_leaves(leaves: Sequence[torch.Tensor], scales: torch.Tensor,
                         f"{sorted({str(x.dtype) for x in leaves})}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("weighted_agg needs contiguous inputs")
-    outs = [torch.empty((x.shape[1],), dtype=x.dtype, device=dev)
-            for x in leaves]
+    batched = scales.dim() == 2
+    trials, k_clients = (scales.shape if batched else (1, scales.shape[0]))
+    outs = [torch.empty(x.shape[:-2] + x.shape[-1:], dtype=x.dtype,
+                        device=dev) for x in leaves]
     stream = torch.cuda.current_stream(dev).cuda_stream
     denom_ptr = None if denom is None else denom.data_ptr()
     global launches
     for dtype, table in launch_tables(leaves, outs):
         rows = (_Entry * len(table))(*(
             _Entry(leaves[slot.index].data_ptr(), outs[slot.index].data_ptr(),
-                   slot.n, slot.first_block, int(slot.vec), 0)
+                   slot.n, slot.first_block, k_clients * slot.n, slot.n,
+                   int(slot.vec), 0)
             for slot in table))
         blocks = table[-1].first_block + table[-1].blocks
         entry = getattr(_kernel_library(), _ENTRY[dtype])
         check_launch("weighted_agg", entry(
-            ctypes.addressof(rows), len(table), blocks, scales.data_ptr(),
-            scales.shape[0], denom_ptr, stream))
+            ctypes.addressof(rows), len(table), blocks, trials,
+            scales.data_ptr(), k_clients, k_clients, denom_ptr, 1, stream))
         launches += 1
     return outs
 

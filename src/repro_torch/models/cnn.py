@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import rng
 from ..device import resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -26,28 +27,42 @@ Params = Dict[str, torch.Tensor]
 REFERENCE_LAYOUT = {"conv1.w": (3, 2, 0, 1), "conv2.w": (3, 2, 0, 1)}
 
 
-def cnn_init(generator: Optional[torch.Generator] = None,
+def cnn_init(key: "rng.KeyLike | None" = None,
              num_classes: int = 10, image_size: int = 28, channels: int = 1,
              c1: int = 32, c2: int = 64, hidden: int = 128,
              device: "str | torch.device | None" = None) -> Params:
-    """He-normal weights and zero biases, drawn from ``generator`` (which must
-    live on ``device``)."""
+    """He-normal weights and zero biases from ``key`` (``PRNGKey(0)`` when
+    None), as the reference draws them: ``split(key, 4)``, one leaf each,
+    conv weights drawn in the reference's HWIO layout and stored OIHW.  A
+    batch of keys (…, 2) gives a batch of models, leaves (…, *shape)."""
     device = resolve_device(device)
+    key = rng.as_key(rng.PRNGKey(0) if key is None else key, device)
+    lead = key.shape[:-1]
+    ks = rng.split(key, 4)
     s = image_size // 4  # two 2× pools
     flat = s * s * c2
 
-    def he(shape, fan_in):
-        w = torch.randn(shape, generator=generator, device=device)
-        return w * math.sqrt(2.0 / fan_in)
+    def he(i, shape, fan_in, perm=None):
+        scale = float(torch.tensor(math.sqrt(2.0 / fan_in),
+                                   dtype=torch.float32))
+        w = rng.normal(ks[..., i, :], shape) * scale
+        if perm is None:
+            return w
+        return w.permute(tuple(range(len(lead)))
+                         + tuple(len(lead) + a for a in perm)).contiguous()
 
     def zeros(n):
-        return torch.zeros((n,), device=device)
+        return torch.zeros(lead + (n,), device=device)
 
+    hwio = REFERENCE_LAYOUT["conv1.w"]
     return {
-        "conv1.w": he((c1, channels, 3, 3), 9 * channels), "conv1.b": zeros(c1),
-        "conv2.w": he((c2, c1, 3, 3), 9 * c1), "conv2.b": zeros(c2),
-        "fc1.w": he((flat, hidden), flat), "fc1.b": zeros(hidden),
-        "fc2.w": he((hidden, num_classes), hidden), "fc2.b": zeros(num_classes),
+        "conv1.w": he(0, (3, 3, channels, c1), 9 * channels, hwio),
+        "conv1.b": zeros(c1),
+        "conv2.w": he(1, (3, 3, c1, c2), 9 * c1, hwio),
+        "conv2.b": zeros(c2),
+        "fc1.w": he(2, (flat, hidden), flat), "fc1.b": zeros(hidden),
+        "fc2.w": he(3, (hidden, num_classes), hidden),
+        "fc2.b": zeros(num_classes),
     }
 
 

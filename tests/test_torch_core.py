@@ -24,6 +24,7 @@ from repro.core import noniid as jnoniid  # noqa: E402
 from repro.core import selection as jsel  # noqa: E402
 from repro.data.synthetic import ImageDataset as JImageDataset  # noqa: E402
 
+from repro_torch import rng  # noqa: E402
 from repro_torch.core import aggregation as tagg  # noqa: E402
 from repro_torch.core import clustering as tclust  # noqa: E402
 from repro_torch.core import kl as tkl  # noqa: E402
@@ -106,14 +107,13 @@ def test_image_templates_bit_equal_and_sampler_shapes():
     port = TImageDataset(device="cpu")
     np.testing.assert_array_equal(port.templates.numpy(), _np(ref.templates))
     labels = torch.tensor([[0, 3, -1], [9, -1, -1]], dtype=torch.int32)
-    g = torch.Generator().manual_seed(0)
-    imgs = port.sample(g, labels)
+    imgs = port.sample(rng.PRNGKey(0), labels)
     assert imgs.shape == (2, 3, 28, 28, 1) and imgs.dtype == torch.float32
     assert torch.all(imgs[labels < 0] == 0)
     x, y = port.test_set(3)
     x2, _ = port.test_set(3)
     np.testing.assert_array_equal(y.numpy(), _np(ref.test_set(3)[1]))
-    assert torch.equal(x, x2)  # the eval set has its own fixed generator
+    assert torch.equal(x, x2)  # the eval set has its own fixed key
 
 
 # ---------------------------------------------------------------------------
@@ -173,9 +173,13 @@ def test_kl_divergence_matches():
 # ---------------------------------------------------------------------------
 
 def test_strategy_registry_ids_match_reference_prefix():
+    # Both packages register id 8 from their fl.experiment module.
+    import repro.fl.experiment  # noqa: F401
+    import repro_torch.fl.experiment  # noqa: F401
     port = tsel.registered_strategies()
     assert port == ("random", "labelwise", "labelwise_unnorm", "coverage",
-                    "kl", "entropy", "full", "labelwise_priority")
+                    "kl", "entropy", "full", "labelwise_priority",
+                    "dirichlet_uniformity")
     assert jsel.registered_strategies()[:len(port)] == port
     for i, name in enumerate(port):
         assert tsel.strategy_id(name) == i
@@ -208,10 +212,9 @@ def test_strategies_bit_equal(name, n_select):
 
 @pytest.mark.parametrize("n_select", [3, 40])
 def test_random_strategy_structure(n_select):
-    """``random`` draws from a torch.Generator, so its draw differs from the
-    reference's; its budget, validity gate and determinism must hold."""
-    g = torch.Generator().manual_seed(11)
-    res = tsel.get_strategy("random")(g, _t(HISTS), n_select)
+    """``random``'s budget, validity gate and determinism under a key (its
+    draw against the reference's: tests/test_torch_experiment.py)."""
+    res = tsel.get_strategy("random")(rng.PRNGKey(11), _t(HISTS), n_select)
     valid = HISTS.sum(-1) > 0
     mask = res.mask.numpy()
     assert res.budget == min(n_select, HISTS.shape[0])
@@ -220,8 +223,7 @@ def test_random_strategy_structure(n_select):
     order = res.order.numpy()
     assert sorted(order.tolist()) == list(range(HISTS.shape[0]))
     assert mask[order[res.budget:]].sum() == 0
-    again = tsel.get_strategy("random")(torch.Generator().manual_seed(11),
-                                        _t(HISTS), n_select)
+    again = tsel.get_strategy("random")(rng.PRNGKey(11), _t(HISTS), n_select)
     assert torch.equal(res.order, again.order)
 
 

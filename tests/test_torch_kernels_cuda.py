@@ -149,6 +149,68 @@ def test_weighted_agg_tree_is_one_launch(cuda):
     assert [y.dtype for y in bf[:3]] == [torch.bfloat16] * 3
 
 
+@pytest.mark.parametrize("trials", [1, 21, 105])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weighted_agg_trial_axis_bit_equal_to_per_trial_launches(cuda, trials,
+                                                                 dtype):
+    """The grid engine's reduction: leaves (T, K, N) with weights (T, K) and
+    a denominator a trial in one launch, bit-equal to T one-trial launches;
+    ragged leaf sizes (scalar and 16-byte paths) and the paper CNN's."""
+    sizes = [288, 32, 18432, 64, 4013, 128, 1280, 10, 7]
+    k = 30
+    xs = [_randn((trials, k, n), n + trials, cuda).to(dtype) for n in sizes]
+    w = _randn((trials, k), trials, cuda).abs()
+    denom = torch.clamp(w.sum(-1), min=1e-12)
+    kernels.reset_launch_counts()
+    got = weighted_agg_leaves(xs, w, denom)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["weighted_agg"] == 1
+    for t in range(trials):
+        one = weighted_agg_leaves([x[t] for x in xs], w[t], denom[t:t + 1])
+        for y, y1 in zip(got, one):
+            assert y.dtype == dtype and torch.equal(y[t], y1)
+    for x, y in zip(xs, got):
+        want = weighted_agg_ref(x, w, denom).float()
+        tol = (2 * k * 2.0 ** -24 * torch.einsum("tk,tkn->tn", w,
+                                                  x.float().abs())
+               / denom[:, None] + 2.0 ** -23 * want.abs())
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * want.abs()
+        assert bool(((y.float() - want).abs() <= tol).all())
+
+
+def test_weighted_agg_trial_axis_one_client(cuda):
+    """K = 1: every trial's sum is its one client scaled, divided."""
+    xs = [_randn((21, 1, n), n, cuda) for n in (33, 4096)]
+    w = _randn((21, 1), 5, cuda).abs() + 0.5
+    got = weighted_agg_leaves(xs, w, w[:, 0])
+    torch.cuda.synchronize()
+    for t in range(21):
+        one = weighted_agg_leaves([x[t] for x in xs], w[t], w[t])
+        assert all(torch.equal(y[t], y1) for y, y1 in zip(got, one))
+    for x, y in zip(xs, got):
+        torch.testing.assert_close(y, x[:, 0], rtol=2.0 ** -22, atol=0)
+
+
+def test_masked_weighted_mean_trial_axis_is_one_launch(cuda):
+    """``dispatch.masked_weighted_mean`` with a trial axis: one launch for
+    the tree and every trial, each trial equal to its own call."""
+    tree = {"w": _randn((21, 30, 8, 4), 1, cuda),
+            "b": _randn((21, 30, 4), 2, cuda)}
+    mask = (_randn((21, 30), 3, cuda) > 0).float()
+    mask[4] = 0.0                                # an empty selection
+    sizes = _randn((21, 30), 4, cuda).abs() * 100
+    kernels.reset_launch_counts()
+    got = masked_weighted_mean(tree, mask, sizes)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["weighted_agg"] == 1
+    for t in range(21):
+        one = masked_weighted_mean({k: v[t] for k, v in tree.items()},
+                                   mask[t], sizes[t])
+        for k in tree:
+            assert torch.equal(got[k][t], one[k]), (t, k)
+
+
 def test_weighted_agg_splits_past_the_table(cuda):
     # 200 leaves, 190 of them non-empty: three tables of at most 64, block
     # starts from 0 in each; odd sizes take scalar loads.

@@ -20,6 +20,7 @@ from repro.models.cnn import cnn_init as jcnn_init  # noqa: E402
 from repro.models.cnn import cnn_loss as jcnn_loss  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 
+from repro_torch import rng  # noqa: E402
 from repro_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.models import cnn_apply, cnn_init, cnn_loss  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
@@ -61,7 +62,7 @@ def test_param_conversion_round_trip_and_layout():
 
 
 def test_cnn_init_shapes_match_reference():
-    port = cnn_init(torch.Generator().manual_seed(0), num_classes=C,
+    port = cnn_init(rng.PRNGKey(0), num_classes=C,
                     image_size=HW, c1=C1, c2=C2, hidden=HID, device="cpu")
     ref = params_from_jax(_init(), device="cpu")
     assert {k: v.shape for k, v in port.items()} == {

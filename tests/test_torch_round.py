@@ -165,7 +165,7 @@ def test_run_fl_host_end_to_end_on_cpu():
         assert hist.wall_s > 0
     runs = [run_fl_host(plan, cfg, strategy="random", eval_n_per_class=2,
                         device="cpu") for _ in range(2)]
-    assert runs[0].loss == runs[1].loss  # seeded generators: reproducible
+    assert runs[0].loss == runs[1].loss  # seeded keys: reproducible
 
 
 def test_run_fl_host_rejects_unported_options():
