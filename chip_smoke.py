@@ -72,12 +72,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``GRID_LOSS_REL`` and ``GRID_ACC_ATOL``; (d) ``weighted_agg`` with the
     trial axis (21 trials) bit-equal to per-trial launches and timed beside
     its bound, and ``label_hist`` timed on the engine's own (2100, 290, 10)
-    round-0 inputs.
+    round-0 inputs;
+14. clustered and robust aggregation through the grid engine at the same
+    21-trial paper width for 2 rounds, TF32 as PyTorch's defaults:
+    (a) ``clustered_fedavg4`` with the launch counts set to 0 just before
+    and read just after (1 ``label_hist`` and 4 ``weighted_agg`` launches a
+    round); (b) ``median``, ``trimmed_mean`` and ``krum``, each under
+    ``poison`` (scale -4) and ``stale_update`` (tau 1) on a quarter of the
+    clients (1 ``label_hist`` launch a round, no ``weighted_agg``); (c) three
+    TF32-off trials against ``run_fl_host`` on the card, clustered and with
+    ``krum`` + ``poison``: assignments, masks, orders and ``num_selected``
+    bit-equal, parameters within ``ADAM_REL``, loss and accuracy within
+    ``GRID_LOSS_REL``/``GRID_ACC_ATOL``; (d) k-means of the round-0
+    (21, 100, 10) histograms bit-equal to the same call on the CPU, and the
+    three reducers at the CNN's leaves with K = 30 against the CPU (median
+    bit-equal, trimmed mean within ``TRIM_ULP``, Krum's pick equal), each
+    timed on the grid's (21, 30, ...) update stack, beside the clustered
+    round's four ``weighted_agg`` launches; (e) (a) again with
+    ``telemetry=("auto",)``, its trajectories bit-identical to (a).
 
 The line before the last is a JSON object with each kernel's numbers
 (``label_hist``'s also ``floor_ms``, the synthetic grid's cold ``grid_ms``
 and phase 13's ``engine_grid_*``; ``weighted_agg``'s also phase 13's
-``trial_axis_*``); the
+``trial_axis_*`` and phase 14's ``clustered_*``); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the checkout's ``src/repro_torch`` beside this file, the script exits
 non-zero and prints no result.
@@ -202,6 +219,17 @@ GRID_CHUNK = 7
 # of one of the 500 eval samples, so a flipped sample fails.
 GRID_LOSS_REL = 1e-5
 GRID_ACC_ATOL = 1e-3
+# Phase 14: the clustered family of the paper's claim at the widest cluster
+# count the card run exercises, and the attack the robust grid runs (a
+# quarter of the clients byzantine, sign-flipped and amplified 4x, and
+# training from the previous round's global).  The trimmed mean sums the
+# sorted slots left to right on both sides, so the card is held to the
+# CPU's bits up to TRIM_ULP (it is bit-equal when nothing else differs).
+CLUSTERED = "clustered_fedavg4"
+ROBUST = ("median", "trimmed_mean", "krum")
+ATTACK = {"frac": 0.25, "behaviors": ["poison", "stale_update"],
+          "scale": -4.0, "tau": 1}
+TRIM_ULP = 1
 
 
 def say(msg: str) -> None:
@@ -917,14 +945,14 @@ def phase13a_threefry(dev) -> dict:
             "normal_card_share": share}
 
 
-def _grid_spec():
+def _grid_spec(**kw):
     from repro_torch.configs import FLConfig
     from repro_torch.core import CASES
     from repro_torch.fl import ExperimentSpec, ScenarioSpec
     return ExperimentSpec(
         scenarios=tuple(ScenarioSpec.from_case(c) for c in CASES),
         strategies=GRID_STRATEGIES, seeds=(0,), engine="sim", fl=FLConfig(),
-        rounds=GRID_ROUNDS)
+        rounds=GRID_ROUNDS, **kw)
 
 
 def phase13b_grid(dev) -> dict:
@@ -1008,33 +1036,46 @@ def phase13b_grid(dev) -> dict:
             "per_trial_bytes": meta["per_trial_bytes"]}
 
 
-def _host_trace(plan, cfg, strategy: str, seed: int, ds, rounds: int):
+def _host_trace(plan, cfg, strategy: str, seed: int, ds, rounds: int,
+                aggregation=None, poison_scale=None, adv=None):
     """The host loop's rounds, as ``run_fl_host`` runs them, keeping each
-    round's histograms, mask, selected clients and the final params."""
+    round's histograms, mask, selected clients, a clustered family's
+    assignment (else the eval loss and accuracy) and the init and final
+    params.  ``poison_scale`` with the (N,) byzantine mask ``adv`` runs the
+    poison behavior."""
     import torch
     from repro_torch import rng
     from repro_torch.data import client_batches
     from repro_torch.fl import get_workload, make_fl_round
+    from repro_torch.fl.round import (resolve_aggregator,
+                                      stack_global_params)
     wl = get_workload("cnn")
+    agg = resolve_aggregator(aggregation, cfg)
     key = rng.PRNGKey(seed, ds.device)
     init = params = wl.init(rng.fold_in(key, 1), ds)
-    fl_round = make_fl_round(wl.make_loss(ds), cfg, strategy)
+    if agg.clustered:
+        init = params = stack_global_params(params, agg.n_clusters)
+    fl_round = make_fl_round(wl.make_loss(ds), cfg, strategy, agg,
+                             poison_scale=poison_scale)
     eval_batch, eval_fn = wl.eval_set(ds, 50), wl.make_eval(ds)
     out = {k: [] for k in ("hists", "mask", "selected", "num_selected",
-                           "loss", "accuracy")}
+                           "assign", "loss", "accuracy")}
     for t in range(rounds):
         kt = rng.fold_in(key, 1000 + t)
         data = wl.materialize(ds, plan[t], rng.fold_in(kt, 0))
         batches = client_batches(data, cfg.batch_size, wl.batch_keys)
         params, info = fl_round(params, batches, data["hists"],
-                                rng.fold_in(kt, 1))
-        with torch.no_grad():
-            loss, m = eval_fn(params, eval_batch)
+                                rng.fold_in(kt, 1), adv)
         for k, v in (("hists", data["hists"]), ("mask", info["mask"]),
                      ("selected", info["selected"].long()),
                      ("num_selected", info["num_selected"]),
-                     ("loss", loss), ("accuracy", m["accuracy"])):
+                     ("assign", info.get("cluster_assign"))):
             out[k].append(v)
+        if not agg.clustered:
+            with torch.no_grad():
+                loss, m = eval_fn(params, eval_batch)
+            out["loss"].append(loss)
+            out["accuracy"].append(m["accuracy"])
     return init, params, out
 
 
@@ -1190,6 +1231,302 @@ def phase13d_trial_axis(dev) -> dict:
         f"({hist['by']}), plain {hist['plain']:.4f} ms, bincount "
         f"{hist['lib']:.4f} ms")
     return {"weighted_agg": agg, "label_hist": hist}
+
+
+def _tf32(cudnn: bool, matmul: bool):
+    """Set cuDNN's and cuBLAS's TF32 flags; returns the ones they replace."""
+    import torch
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    return old
+
+
+def _grid_run(dev, ds, **kw) -> dict:
+    """One 21-trial grid through ``run``, its launch counts read around it;
+    -> the result, the counts, the warm round's wall time and the peak."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.fl import run
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(_grid_spec(**kw), ds=ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    meta = res.meta["sim"]
+    return {"res": res, "launches": launches, "wall_s": wall,
+            "round_s": meta["round_s"], "peak_bytes": meta["peak_bytes"],
+            "chunk_trials": meta["chunk_trials"]}
+
+
+def _say_grid(what: str, g: dict, trials: int, base_round_s: float) -> None:
+    warm = g["round_s"][-1]
+    say(f"{what}: launches {g['launches']}; rounds "
+        f"{[f'{x:.3f}' for x in g['round_s']]} s wall, warm round "
+        f"{warm:.3f} s ({warm / trials * 1e3:.1f} ms a trial; phase 13b's "
+        f"warm round {base_round_s:.3f} s, "
+        f"{base_round_s / trials * 1e3:.1f} ms a trial); training chunk "
+        f"{g['chunk_trials']} trials; peak {g['peak_bytes'] / 1e9:.2f} GB")
+
+
+def phase14ab_grid(dev, base_round_s: float) -> dict:
+    import numpy as np
+    from repro_torch.data import ImageDataset
+    spec = _grid_spec()
+    trials = len(spec.scenarios) * len(spec.strategies)
+    m_c = 4
+    say(f"== 14a. main path: {CLUSTERED} through run(ExperimentSpec("
+        f"engine='sim')), {trials} trials, {GRID_ROUNDS} rounds, paper width")
+    ds = ImageDataset(device=dev)
+    old = _tf32(True, False)
+    try:
+        clus = _grid_run(dev, ds, aggregation=CLUSTERED)
+        want = {"label_hist": GRID_ROUNDS, "weighted_agg": m_c * GRID_ROUNDS,
+                "flash_attention": 0, "ssd_scan": 0}
+        if clus["launches"] != want:
+            raise AssertionError(f"clustered grid launches {clus['launches']}"
+                                 f", expected {want}")
+        res = clus["res"]
+        cl = res.cluster_trajectories()
+        if cl["n_clusters"] != m_c or cl["assign"].shape != (
+                7, 3, 1, GRID_ROUNDS, spec.fl.num_clients):
+            raise AssertionError(f"clustered grid: detail {cl['assign'].shape}")
+        for name in ("accuracy", "loss"):
+            if not (np.isfinite(getattr(res, name)).all()
+                    and np.isfinite(cl[name]).all()):
+                raise AssertionError(f"clustered grid: non-finite {name}")
+        occupied = [len(np.unique(cl["assign"][k, 0, 0, 0]))
+                    for k in range(7)]
+        say(f"clustered: clusters occupied in round 0 by case {occupied}; "
+            f"final mixture acc " + " ".join(
+                f"{sc}={res.accuracy[k, 1, 0, -1]:.4f}"
+                for k, sc in enumerate(res.scenarios)) + " (labelwise)")
+        _say_grid(CLUSTERED, clus, trials, base_round_s)
+
+        say("== 14e. the same grid with telemetry=('auto',)")
+        tel = _grid_run(dev, ds, aggregation=CLUSTERED, telemetry=("auto",))
+        for name in ("accuracy", "loss", "num_selected"):
+            if not np.array_equal(getattr(tel["res"], name),
+                                  getattr(res, name)):
+                raise AssertionError(f"telemetry on changed {name}")
+        tc = tel["res"].cluster_trajectories()
+        for name in ("accuracy", "loss", "assign"):
+            if not np.array_equal(tc[name], cl[name]):
+                raise AssertionError(f"telemetry on changed cluster {name}")
+        series = tel["res"].telemetry()
+        if set(series) != {"selection_entropy", "selected_label_hist",
+                           "update_norm", "cluster_occupancy",
+                           "centroid_drift"}:
+            raise AssertionError(f"telemetry series {sorted(series)}")
+        say(f"telemetry on: trajectories and cluster detail bit-identical to "
+            f"14a; series {sorted(series)}; warm round "
+            f"{tel['round_s'][-1]:.3f} s")
+
+        say(f"== 14b. robust reducers under {ATTACK}")
+        robust = {}
+        for name in ROBUST:
+            g = _grid_run(dev, ds, aggregation=name, adversary=ATTACK)
+            want = {"label_hist": GRID_ROUNDS, "weighted_agg": 0,
+                    "flash_attention": 0, "ssd_scan": 0}
+            if g["launches"] != want:
+                raise AssertionError(f"{name} grid launches {g['launches']}, "
+                                     f"expected {want}")
+            r = g["res"]
+            if not (np.isfinite(r.accuracy).all()
+                    and np.isfinite(r.loss).all()):
+                raise AssertionError(f"{name}: non-finite trajectory")
+            _say_grid(name, g, trials, base_round_s)
+            robust[name] = g
+    finally:
+        _tf32(*old)
+    return {"clustered": clus, "telemetry": tel, "robust": robust,
+            "trials": trials}
+
+
+def phase14c_vs_host(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import case_label_plan
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import GridRun, run_fl_host
+    say("== 14c. three grid trials against run_fl_host on the card (TF32 "
+        "off): clustered, and krum + poison")
+    old = _tf32(False, False)
+    cfg = FLConfig()
+    cases = ("case1b", "case2b", "iid")
+    plans = np.stack([case_label_plan(c, 0, GRID_ROUNDS, cfg.num_clients)
+                      for c in cases])
+    ds = ImageDataset(device=dev)
+    poison = {"frac": ATTACK["frac"], "behaviors": ["poison"],
+              "scale": ATTACK["scale"]}
+    from repro_torch.core import adversary_mask
+    adv = adversary_mask(104729, cfg.num_clients, poison["frac"])
+    worst = {"update_rel": 0.0, "loss_rel": 0.0, "acc": 0.0}
+    try:
+        for agg, adversary in ((CLUSTERED, None), ("krum", poison)):
+            grid = GridRun(plans, cfg, strategies=GRID_STRATEGIES, seeds=(0,),
+                           rounds=GRID_ROUNDS, ds=ds, aggregation=agg,
+                           adversary=adversary,
+                           adv=None if adversary is None else adv[None],
+                           device=dev)
+            infos = [grid.round(t) for t in range(GRID_ROUNDS)]
+            res = grid.result(0.0)
+            for k in range(3):
+                strategy = GRID_STRATEGIES[k]
+                trial = k * len(GRID_STRATEGIES) + k
+                advt = (None if adversary is None else
+                        torch.from_numpy(adv.astype(np.float32)).to(dev))
+                init, params, host = _host_trace(
+                    plans[k], cfg, strategy, 0, ds, GRID_ROUNDS, agg,
+                    None if adversary is None else poison["scale"], advt)
+                names = ["hists", "mask", "selected"]
+                if adversary is None:
+                    names.append("assign")
+                for t, info in enumerate(infos):
+                    for name in names:
+                        g = info[name if name != "assign" else "assign"][trial]
+                        if not torch.equal(g, host[name][t]):
+                            raise AssertionError(
+                                f"{agg} grid vs host: {cases[k]}/{strategy} "
+                                f"round {t} {name} differ")
+                nsel = [float(x) for x in host["num_selected"]]
+                if res.num_selected[k, k, 0].tolist() != nsel:
+                    raise AssertionError(f"{agg}: num_selected "
+                                         f"{res.num_selected[k, k, 0]} vs "
+                                         f"{nsel}")
+                hist = run_fl_host(plans[k], cfg, strategy=strategy,
+                                   aggregation=agg, rounds=GRID_ROUNDS,
+                                   seed=0, ds=ds, adversary=adversary,
+                                   adv=None if adversary is None else adv,
+                                   device=dev)
+                upd = torch.cat([(params[n] - init[n]).reshape(-1)
+                                 for n in params])
+                gap = torch.cat([(grid.params[n][trial] - params[n])
+                                 .reshape(-1) for n in params])
+                rel = float(gap.norm() / upd.norm())
+                gap_loss = np.abs(res.loss[k, k, 0] - np.asarray(hist.loss))
+                loss_rel = float(np.max(np.where(
+                    gap_loss == 0, 0.0,
+                    gap_loss / np.maximum(np.abs(hist.loss), 1e-30))))
+                acc = float(np.max(np.abs(res.accuracy[k, k, 0]
+                                          - hist.accuracy)))
+                if adversary is None and hist.cluster_assign != \
+                        res.cluster_assign[k, k, 0].tolist():
+                    raise AssertionError(f"{agg}: run_fl_host's assignments "
+                                         "differ from the grid's")
+                say(f"  {agg} {cases[k]}/{strategy}: histograms, masks, "
+                    f"orders{', assignments' if adversary is None else ''}, "
+                    f"num_selected {nsel} bit-equal; |param gap| / |update| "
+                    f"{rel:.3e}, loss rel {loss_rel:.3e}, accuracy {acc:.4f}")
+                worst = {"update_rel": max(worst["update_rel"], rel),
+                         "loss_rel": max(worst["loss_rel"], loss_rel),
+                         "acc": max(worst["acc"], acc)}
+    finally:
+        _tf32(*old)
+    if not (worst["update_rel"] <= ADAM_REL
+            and worst["loss_rel"] <= GRID_LOSS_REL
+            and worst["acc"] <= GRID_ACC_ATOL):
+        raise AssertionError(f"phase 14 grid vs host beyond the limits: "
+                             f"{worst}")
+    return worst
+
+
+def phase14d_card_vs_cpu(dev, trials: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import get_aggregator, kmeans_cluster, krum_scores
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import GridRun
+    from repro_torch.kernels.dispatch import masked_weighted_mean
+    from repro_torch.models import cnn_init
+    say("== 14d. k-means and the robust reducers on the card against the CPU")
+    spec = _grid_spec()
+    ds = ImageDataset(device=dev)
+    plans = np.stack([s.lower(spec.fl, spec.seeds, GRID_ROUNDS).plan
+                      for s in spec.scenarios])
+    grid = GridRun(plans, spec.fl, strategies=spec.strategies,
+                   seeds=spec.seeds, rounds=GRID_ROUNDS, ds=ds, device=dev)
+    hists = grid.wl.hists(ds, grid.plans[grid.plan_idx, 0])["hists"]
+    for m in (2, 4, 8):
+        a_gpu, c_gpu = kmeans_cluster(hists, m)
+        a_cpu, c_cpu = kmeans_cluster(hists.cpu(), m)
+        if not (torch.equal(a_gpu.cpu(), a_cpu)
+                and torch.equal(c_gpu.cpu(), c_cpu)):
+            raise AssertionError(f"k-means M={m}: card differs from the CPU")
+    say(f"k-means of the round-0 histograms {tuple(hists.shape)}, M = 2, 4, "
+        f"8: assignments and centroids bit-equal to the CPU")
+    shapes = {k: tuple(v.shape) for k, v in cnn_init(device=dev).items()}
+    g = np.random.default_rng(14)
+    tree = {k: (0.05 * g.standard_normal((K_CLIENTS,) + s)
+                + 0.01 * g.standard_normal((K_CLIENTS,) + (1,) * len(s)))
+            .astype(np.float32) for k, s in shapes.items()}
+    live = (g.random(K_CLIENTS) > 0.2).astype(np.float32)
+    sizes = g.uniform(30, 290, K_CLIENTS).astype(np.float32)
+    cpu = ({k: torch.from_numpy(v) for k, v in tree.items()},
+           torch.from_numpy(live), torch.from_numpy(sizes))
+    card = ({k: v.to(dev) for k, v in cpu[0].items()}, cpu[1].to(dev),
+            cpu[2].to(dev))
+    checks = {}
+    for name in ROBUST:
+        fn = get_aggregator(name).reduce
+        got, want = fn(*card), fn(*cpu)
+        ulp = max(int(_ulp_gap(got[k], want[k]).max()) for k in want)
+        checks[name] = ulp
+        if name == "median" and ulp != 0:
+            raise AssertionError(f"median: card {ulp} ulp from the CPU")
+        if name == "trimmed_mean" and ulp > TRIM_ULP:
+            raise AssertionError(f"trimmed_mean: card {ulp} ulp from the CPU")
+        if name == "krum" and ulp != 0:
+            raise AssertionError("krum: the card picked another client")
+    scores = torch.sort(krum_scores({k: v[None] for k, v in card[0].items()},
+                                    card[1][None])[0]).values.cpu()
+    margin = float((scores[1] - scores[0]) / scores[0])
+    say(f"reducers at the CNN's leaves, K={K_CLIENTS}, "
+        f"{int(live.sum())} live: median {checks['median']} ulp, "
+        f"trimmed_mean {checks['trimmed_mean']} ulp (limit {TRIM_ULP}), krum "
+        f"the same client (score margin to the next {margin:.3e} relative)")
+    # Device time a round at the grid's shape: (trials, 30, ...) updates.
+    big = {k: torch.from_numpy(np.broadcast_to(
+        v, (trials,) + v.shape).copy()).to(dev) for k, v in tree.items()}
+    del tree
+    lv = torch.from_numpy(np.stack([np.roll(live, t) for t in range(trials)])
+                          ).to(dev)
+    sz = torch.from_numpy(np.broadcast_to(sizes, (trials, K_CLIENTS)).copy()
+                          ).to(dev)
+    times = {name: time_ms(lambda f=get_aggregator(name).reduce: f(big, lv,
+                                                                    sz),
+                           reps=2, trials=5) for name in ROBUST}
+    m_c = 4
+    assign = torch.from_numpy(g.integers(0, m_c, (trials, K_CLIENTS))
+                              ).to(dev)
+    clus_ms = time_ms(lambda: [masked_weighted_mean(
+        big, lv * (assign == c).to(lv.dtype), sz) for c in range(m_c)],
+        reps=5, trials=10)
+    one_ms = time_ms(lambda: masked_weighted_mean(big, lv, sz), reps=5,
+                     trials=10)
+    n = sum(math.prod(s) for s in shapes.values())
+    # The function's bound: the (T, K, n) stack read once, the M·T models
+    # written once, each element weighted into one cluster.  The M-launch
+    # design reads the stack M times; its traffic is printed beside.
+    c_bound, c_by = bound(4 * (trials * K_CLIENTS * n + m_c * trials * n),
+                          2 * trials * K_CLIENTS * n)
+    design_ms = 4 * m_c * (trials * K_CLIENTS * n + trials * n) \
+        / HBM_BYTES_PER_S * 1e3
+    say(f"device time a round at ({trials}, {K_CLIENTS}, the CNN's "
+        f"{n} params): " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                     times.items())
+        + f"; the clustered reduction, {m_c} weighted_agg launches "
+        f"{clus_ms:.4f} ms (the function's bound {c_bound:.4f} ms, {c_by}; "
+        f"the {m_c}-launch design's traffic {design_ms:.4f} ms), one launch "
+        f"{one_ms:.4f} ms")
+    return {"reducer_ms": times, "reducer_ulp": checks, "krum_margin": margin,
+            "clustered_ms": clus_ms, "clustered_bound_ms": c_bound,
+            "clustered_design_traffic_ms": design_ms,
+            "clustered_bound_by": c_by, "one_launch_ms": one_ms}
 
 
 def main() -> int:
@@ -1465,6 +1802,10 @@ def main() -> int:
     phase13c_grid_vs_host(dev)
     axis = phase13d_trial_axis(dev)
     ta, eh = axis["weighted_agg"], axis["label_hist"]
+    p14 = phase14ab_grid(dev, grid["round_s"][-1])
+    phase14c_vs_host(dev)
+    p14d = phase14d_card_vs_cpu(dev, p14["trials"])
+    clus = p14["clustered"]
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1491,7 +1832,11 @@ def main() -> int:
          "trial_axis_max_abs_err": ta["err"], "trial_axis_ms": ta["ms"],
          "trial_axis_plain_ms": ta["plain"],
          "trial_axis_bound_ms": ta["bound"],
-         "trial_axis_library_ms": ta["lib"]},
+         "trial_axis_library_ms": ta["lib"],
+         "clustered_launches": clus["launches"]["weighted_agg"],
+         "clustered_ms": p14d["clustered_ms"],
+         "clustered_bound_ms": p14d["clustered_bound_ms"],
+         "clustered_design_traffic_ms": p14d["clustered_design_traffic_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",

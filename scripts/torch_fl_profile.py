@@ -4,6 +4,7 @@
     python3 scripts/torch_fl_profile.py [--rounds-warm 2] [--top 12]
                                         [--out build/fl_profile.json]
     python3 scripts/torch_fl_profile.py --grid [--seeds 5] [--top 16]
+                                        [--aggregation NAME] [--attack]
                                         [--out build/fl_grid_profile.json]
 
 Runs ``run_fl_host`` at the paper's width (``configs.FLConfig()``: 100
@@ -27,6 +28,11 @@ runs under ``torch.profiler``.  It prints the round's wall time, busy share
 and launches, the device time by kernel and by the engine's phases (the ``grid/<phase>`` ranges: ``draw`` is the
 threefry/normal image noise), ``label_hist`` at the engine's
 (T·100, 290, 10) and ``weighted_agg``'s share, and the peak memory.
+``--aggregation`` picks the family (``fedavg`` by default; a clustered one
+adds the ``grid/kmeans`` phase and M ``weighted_agg`` launches a round, a
+robust one runs its reducer in ``grid/aggregate``), and ``--attack`` turns
+on ``chip_smoke.py`` phase 14's adversary (a quarter of the clients poison
+at scale −4 and train from the previous round's global).
 
 Needs a CUDA device; writes the numbers as JSON to ``--out``.
 """
@@ -143,7 +149,13 @@ def _device_times(prof):
     return device, copies_us, launches, ranges
 
 
-def profile_grid(seeds: int, top: int) -> dict:
+# chip_smoke.py phase 14's adversary.
+ATTACK = {"frac": 0.25, "behaviors": ["poison", "stale_update"],
+          "scale": -4.0, "tau": 1}
+
+
+def profile_grid(seeds: int, top: int, aggregation: str = "fedavg",
+                 attack: bool = False) -> dict:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -151,7 +163,7 @@ def profile_grid(seeds: int, top: int) -> dict:
     from repro_torch.configs import FLConfig
     from repro_torch.core import CASES
     from repro_torch.data import ImageDataset
-    from repro_torch.fl import GridRun, ScenarioSpec
+    from repro_torch.fl import ExperimentSpec, GridRun, ScenarioSpec
 
     dev = torch.device("cuda")
     cfg = FLConfig()
@@ -159,8 +171,14 @@ def profile_grid(seeds: int, top: int) -> dict:
     seed_list = tuple(range(seeds))
     plans = np.stack([ScenarioSpec.from_case(c, per_seed_plans=True)
                       .lower(cfg, seed_list, 2).plan for c in CASES])
+    adversary = ATTACK if attack else None
+    adv = (ExperimentSpec(scenarios=(), seeds=seed_list, fl=cfg,
+                          adversary=ATTACK).adversary_masks()
+           if attack else None)
     grid = GridRun(plans, cfg, strategies=strategies, seeds=seed_list,
-                   rounds=2, ds=ImageDataset(device=dev), device=dev)
+                   rounds=2, ds=ImageDataset(device=dev),
+                   aggregation=aggregation, adversary=adversary, adv=adv,
+                   device=dev)
     t0 = time.perf_counter()
     grid.round(0)
     torch.cuda.synchronize()
@@ -190,6 +208,7 @@ def profile_grid(seeds: int, top: int) -> dict:
                        "local_epochs": cfg.local_epochs,
                        "batch_size": cfg.batch_size,
                        "optimizer": cfg.optimizer,
+                       "aggregation": aggregation, "adversary": adversary,
                        "label_hist_shape": [grid.trials * cfg.num_clients,
                                             plans.shape[-1], 10]},
             "warm_round_s": warm_s, "round_wall_ms": wall * 1e3,
@@ -208,13 +227,14 @@ def profile_grid(seeds: int, top: int) -> dict:
 
 
 def main_grid(args, card: str) -> int:
-    r = profile_grid(args.seeds, args.top)
+    r = profile_grid(args.seeds, args.top, args.aggregation, args.attack)
     r["card"] = card
     c = r["config"]
     print(f"one warm grid round on {card}: {c['trials']} trials (7 cases x "
           f"{c['strategies']} x {c['seeds']} seeds), each {c['num_clients']}"
           f" clients, {c['clients_per_round']} a round, {c['local_epochs']} "
-          f"local epochs of batch {c['batch_size']}, {c['optimizer']}")
+          f"local epochs of batch {c['batch_size']}, {c['optimizer']}, "
+          f"{c['aggregation']}, adversary {c['adversary']}")
     print(f"  wall {r['round_wall_ms']:.1f} ms ({r['round_wall_ms'] / c['trials']:.2f}"
           f" ms a trial; the warm-up round {r['warm_round_s']:.2f} s); "
           f"device: kernels {r['kernel_device_ms']:.2f} ms, copies "
@@ -251,6 +271,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=5,
                     help="seeds of the --grid run (7 cases x 3 strategies "
                          "x seeds trials)")
+    ap.add_argument("--aggregation", default="fedavg",
+                    help="aggregation family of the --grid run")
+    ap.add_argument("--attack", action="store_true",
+                    help="run the --grid round under chip_smoke.py phase "
+                         "14's adversary")
     args = ap.parse_args(argv)
     if args.out is None:
         args.out = str(ROOT / "build" / ("fl_grid_profile.json" if args.grid

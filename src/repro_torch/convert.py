@@ -7,7 +7,9 @@ neither needs JAX.  The layout rule belongs to the model:
   nested dict (``{"conv1": {"w", "b"}, …}``), the port a flat
   ``dict[str, Tensor]`` keyed by the dotted path (``"conv1.w"``), and each
   leaf named in ``models.cnn.REFERENCE_LAYOUT`` is transposed by the axis
-  order given there (HWIO -> OIHW convolution kernels).
+  order given there (HWIO -> OIHW convolution kernels).  Leading stack axes
+  ride along untouched: a clustered model's (M, …) leaves or the grid's
+  (T, M, …) convert as one tree.
 * The LM stack (``lm_params_from_jax``/``lm_params_to_jax``): leaves keep the
   reference's layout; the reference's stacked blocks (``scan_layers``: each
   leaf of block j carries a leading repeat axis, ``transformer.stack_plan``)
@@ -38,30 +40,40 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _stacked(perm, ndim: int):
+    """``perm`` applied to the trailing ``len(perm)`` axes of an ``ndim``
+    array, its leading (stack) axes kept in place."""
+    lead = ndim - len(perm)
+    if lead < 0:
+        raise ValueError(f"a leaf of rank {ndim} cannot take the rank-"
+                         f"{len(perm)} layout {tuple(perm)}")
+    return tuple(range(lead)) + tuple(lead + int(i) for i in perm)
+
+
 def params_from_jax(tree: Mapping[str, Any],
                     device: "str | torch.device | None" = None
                     ) -> Dict[str, torch.Tensor]:
     """Nested reference CNN params (array-likes, any depth) -> flat port
     params on ``device``, each leaf named in the CNN's layout transposed to
-    the port's axis order."""
+    the port's axis order behind any leading stack axes."""
     device = resolve_device(device)
     out = {}
     for path, value in _flatten(tree).items():
         a = np.asarray(value)
         if path in CNN_LAYOUT:
-            a = a.transpose(CNN_LAYOUT[path])
+            a = a.transpose(_stacked(CNN_LAYOUT[path], a.ndim))
         out[path] = torch.from_numpy(np.array(a)).to(device)
     return out
 
 
 def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Flat port CNN params -> nested NumPy params in the reference's
-    layout."""
+    """Flat port CNN params (any leading stack axes) -> nested NumPy params
+    in the reference's layout."""
     out: Dict[str, Any] = {}
     for path, value in params.items():
         a = value.detach().cpu().numpy()
         if path in CNN_LAYOUT:
-            a = a.transpose(np.argsort(CNN_LAYOUT[path]))
+            a = a.transpose(_stacked(np.argsort(CNN_LAYOUT[path]), a.ndim))
         *parents, name = path.split(".")
         node = out
         for part in parents:

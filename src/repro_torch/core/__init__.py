@@ -1,9 +1,14 @@
 """Label plans, label statistics, selection and aggregation (mirrors
 ``repro.core``)."""
 from .aggregation import (AGGREGATORS, Aggregator, aggregator_id,
-                          get_aggregator, interpolate, masked_mean,
-                          register_aggregator, registered_aggregators)
-from .clustering import area_index, selection_priority
+                          get_aggregator, interpolate, krum_reduce,
+                          krum_scores, make_krum, make_trimmed_mean,
+                          masked_mean, median_reduce, register_aggregator,
+                          registered_aggregators, trimmed_mean_reduce)
+from .clustering import (area_counts, area_index, cluster_counts,
+                         cluster_membership, cluster_sizes,
+                         greedy_area_selection, kmeans_cluster,
+                         num_areas_upper_bound, selection_priority)
 from .kl import kl_divergence, kl_to_uniform, uniformity_score
 from .label_stats import (coverage, empirical_pdf, histogram, label_variance,
                           label_variance_normed, rank_remap_values)

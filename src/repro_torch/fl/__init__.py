@@ -4,7 +4,9 @@ from .experiment import (ExperimentResult, ExperimentSpec, LoweredScenario,
                          label_flip, quantity, register_engine,
                          register_transform, registered_transforms, run)
 from .loop import FLHistory, run_fl, run_fl_host
-from .round import client_update_step, make_fl_round, resolve_aggregator
+from .round import (client_update_step, clustered_update_step,
+                    make_fl_round, resolve_adversary, resolve_aggregator,
+                    stack_global_params)
 from .sim import (GridResult, GridRun, grid_arrays, run_grid, simulate,
                   stack_case_plans)
 from .workloads import (CNN_WORKLOAD, Workload, get_workload,
@@ -12,10 +14,12 @@ from .workloads import (CNN_WORKLOAD, Workload, get_workload,
 
 __all__ = ["CNN_WORKLOAD", "ExperimentResult", "ExperimentSpec", "FLHistory",
            "GridResult", "GridRun", "LoweredScenario", "ScenarioSpec", "TransformSpec",
-           "Workload", "availability", "client_update_step", "engines",
+           "Workload", "availability", "client_update_step",
+           "clustered_update_step", "engines",
            "get_workload", "grid_arrays", "label_flip", "local_gradient",
            "local_train", "make_fl_round", "quantity", "register_engine",
            "register_transform", "register_workload",
            "registered_transforms", "registered_workloads",
-           "resolve_aggregator", "run", "run_fl", "run_fl_host", "run_grid",
-           "simulate", "stack_case_plans"]
+           "resolve_adversary", "resolve_aggregator", "run", "run_fl",
+           "run_fl_host", "run_grid", "simulate", "stack_case_plans",
+           "stack_global_params"]

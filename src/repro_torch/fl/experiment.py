@@ -18,13 +18,15 @@ transforms lower on the host with the reference's NumPy draws and seed
 schedule, so plans and availability masks are bit-equal.
 
 Engines: ``"sim"`` is the batched grid (``fl.sim``: every trial of the grid
-in one round loop, one ``label_hist`` and one ``weighted_agg`` launch a
-round); ``"host"`` runs :func:`~repro_torch.fl.loop.run_fl_host` per grid
-cell, the parity oracle.  Not ported yet, and raising with their ROADMAP
-item: the ``sharded`` engine (Queue 1 item 12), ``hier`` and ``async``
-(item 13), clustered aggregators, robust ``reduce`` overrides and adversary
-behaviors (item 10), telemetry (item 11) and ``validate(deep=True)``
-(item 16).
+in one round loop, one ``label_hist`` launch a round and one ``weighted_agg``
+launch a round, or one a cluster for a clustered family); ``"host"`` runs
+:func:`~repro_torch.fl.loop.run_fl_host` per grid cell, the parity oracle.
+Both run every aggregation family of the registry (clustered and robust),
+the engine-level adversary behaviors and round telemetry; ``run`` folds the
+metric series, the engines' side facts, the trace spans and the peak device
+memory into the reference's ``meta["telemetry"]`` envelope.  Not ported yet,
+and raising with their ROADMAP item: the ``sharded`` engine (Queue 1 item
+12), ``hier`` and ``async`` (item 13) and ``validate(deep=True)`` (item 16).
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ from ..core import (CASES, SAMPLES_PER_CLIENT, SelectionResult, STRATEGIES,
                     register_strategy, topn_mask)
 from ..core.ordered import class_dot, class_sum, digamma
 from ..device import resolve_device
+from ..obs import (build_envelope, get_metric, memory_snapshots, profiler,
+                   record_duration, record_memory_analysis, series_arrays,
+                   span, span_summary, write_trace)
 
 # ---------------------------------------------------------------------------
 # Transform registry: kind -> lowering fn(plan, avail, seed, **params)
@@ -345,12 +350,6 @@ class LoweredScenario:
 # Experiment spec + result
 # ---------------------------------------------------------------------------
 
-# Reference aggregation families this port does not run yet.
-_UNPORTED_AGGREGATORS = ("clustered_fedavg", "clustered_fedsgd",
-                         "clustered_fedavg4", "clustered_fedavg8", "median",
-                         "trimmed_mean", "krum")
-
-
 def _jsonable_adversary(adv: Mapping[str, Any]) -> Dict[str, Any]:
     out = dict(adv)
     if "behaviors" in out:
@@ -381,9 +380,10 @@ class ExperimentSpec:
 
     def validate(self, deep: bool = False, ds=None) -> None:
         """The reference's name-level pass: unknown strategy, engine,
-        aggregator, workload or transform names and undeclared
-        ``engine_options`` keys raise; so do the options this port does not
-        run yet, each naming its ROADMAP item."""
+        aggregator, workload, transform or metric names, undeclared
+        ``engine_options`` keys and adversary behaviors an aggregation family
+        cannot take raise.  ``deep=True`` is not ported yet and raises,
+        naming its ROADMAP item."""
         if deep:
             raise NotImplementedError(
                 "validate(deep=True), the contract passes over the "
@@ -416,16 +416,7 @@ class ExperimentSpec:
                     f"engine {self.engine!r} does not accept engine_options "
                     f"key(s) {unknown}; it declares "
                     f"{sorted(accepted) or '(no options)'}")
-        name = self.aggregation or self.fl.aggregation
-        if name in _UNPORTED_AGGREGATORS:
-            raise NotImplementedError(
-                f"aggregation {name!r} (clustered and robust families) is not "
-                "ported yet (ROADMAP Queue 1 item 10)")
-        agg = get_aggregator(name)
-        if agg.clustered or agg.reduce is not None:
-            raise NotImplementedError(
-                "clustered aggregation and reduce overrides are not ported "
-                "yet (ROADMAP Queue 1 item 10)")
+        agg = get_aggregator(self.aggregation or self.fl.aggregation)
         if self.adversary:
             unknown = sorted(set(self.adversary) - _ADVERSARY_KEYS)
             if unknown:
@@ -435,15 +426,21 @@ class ExperimentSpec:
             if not 0.0 <= frac <= 1.0:
                 raise ValueError(
                     f"adversary frac must be in [0, 1]; got {frac}")
-            if self.adversary.get("behaviors"):
-                raise NotImplementedError(
-                    "adversary behaviors (poison, stale_update) are not "
-                    "ported yet (ROADMAP Queue 1 item 10)")
+            from .round import check_adversary, resolve_adversary
+            poison_scale, tau = resolve_adversary(self.adversary)
+            check_adversary(agg, poison_scale, tau)
+            if (poison_scale is not None or tau > 0) and self.engine in (
+                    "hier", "async"):
+                raise ValueError(
+                    f"engine {self.engine!r} does not support "
+                    "engine-level adversary behaviors (poison/"
+                    "stale_update); run on sim/host/sharded, or attack "
+                    "the plan with the label_flip transform")
         from .workloads import get_workload
         get_workload(self.workload)
-        if self.telemetry:
-            raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP Queue 1 item 11)")
+        for m in self.telemetry:
+            if m != "auto":
+                get_metric(m)
 
     def adversary_masks(self) -> Optional[np.ndarray]:
         """The (R, N) per-seed 0/1 byzantine masks of the spec's adversary
@@ -535,6 +532,28 @@ class ExperimentResult:
     def final_accuracy(self) -> np.ndarray:
         return self.accuracy[..., -1]
 
+    def cluster_trajectories(self) -> Optional[Dict[str, np.ndarray]]:
+        """A clustered family's detail from ``meta["clustered"]``:
+        ``accuracy``/``loss`` (K, S, R, T, n_clusters) per-cluster-model
+        trajectories and ``assign`` (K, S, R, T, N) round k-means
+        assignments; None for a single-model family."""
+        cl = self.meta.get("clustered")
+        if cl is None:
+            return None
+        return {"n_clusters": int(cl["n_clusters"]),
+                "accuracy": np.asarray(cl["cluster_accuracy"], np.float32),
+                "loss": np.asarray(cl["cluster_loss"], np.float32),
+                "assign": np.asarray(cl["cluster_assign"], np.int32)}
+
+    def telemetry(self) -> Optional[Dict[str, np.ndarray]]:
+        """The round-metric series of the ``meta["telemetry"]`` envelope as
+        float64 arrays, ``{name: (K, S, R, rounds, …)}``; None when the run
+        collected no metrics."""
+        env = self.meta.get("telemetry")
+        if not env or not env.get("series"):
+            return None
+        return series_arrays(env)
+
     def success_rate(self, threshold: float = 0.2) -> np.ndarray:
         """Paper Table II: fraction of seeds with final accuracy > τ; (K, S)."""
         return (self.final_accuracy > threshold).mean(axis=-1)
@@ -617,6 +636,22 @@ def engines() -> Tuple[str, ...]:
     return tuple(_ENGINES)
 
 
+def _clustered_meta(c_acc: np.ndarray, c_loss: np.ndarray,
+                    c_assign: np.ndarray) -> Dict[str, Any]:
+    """The engines' clustered side facts, as the reference writes them:
+    per-cluster trajectories (K, S, R, T, n_clusters) and round k-means
+    assignments (K, S, R, T, N) as nested lists, so ``to_json`` round-trips
+    them exactly."""
+    c_acc = np.asarray(c_acc, np.float32)
+    return {"clustered": {
+        "n_clusters": int(c_acc.shape[-1]),
+        "axes": ["scenario", "strategy", "seed", "round", "cluster"],
+        "assign_axes": ["scenario", "strategy", "seed", "round", "client"],
+        "cluster_accuracy": c_acc.tolist(),
+        "cluster_loss": np.asarray(c_loss, np.float32).tolist(),
+        "cluster_assign": np.asarray(c_assign, np.int32).tolist()}}
+
+
 def _engine_sim(spec: ExperimentSpec, lowered: Sequence[LoweredScenario], ds,
                 device):
     """The batched grid (``fl.sim.grid_arrays``): every (scenario, strategy,
@@ -654,20 +689,40 @@ def _engine_sim(spec: ExperimentSpec, lowered: Sequence[LoweredScenario], ds,
                       seeds=spec.seeds, aggregation=spec.aggregation,
                       rounds=spec.rounds, ds=ds, avail=avail,
                       eval_n_per_class=spec.eval_n_per_class,
-                      workload=spec.workload, device=device)
+                      workload=spec.workload, telemetry=spec.telemetry,
+                      adversary=spec.adversary or None,
+                      adv=spec.adversary_masks(), device=device)
+    record_memory_analysis("sim:grid", device)
+    meta: Dict[str, Any] = {"sim": res.meta}
+    if res.cluster_accuracy is not None:
+        meta.update(_clustered_meta(res.cluster_accuracy, res.cluster_loss,
+                                    res.cluster_assign))
+    if res.telemetry:
+        meta["_telemetry_series"] = res.telemetry
     return (res.accuracy, res.loss, res.num_selected, res.wall_s,
-            res.compile_s, {"sim": res.meta})
+            res.compile_s, meta)
 
 
 def _engine_host(spec: ExperimentSpec, lowered: Sequence[LoweredScenario], ds,
                  device):
     """The per-round host loop over every grid cell: the parity oracle."""
     from .loop import run_fl_host
+    agg = get_aggregator(spec.aggregation or spec.fl.aggregation)
+    adv_masks = spec.adversary_masks()
     k_n, s_n, r_n = len(lowered), len(spec.strategies), len(spec.seeds)
-    acc = np.zeros((k_n, s_n, r_n, spec.num_rounds), np.float32)
+    t_n = spec.num_rounds
+    acc = np.zeros((k_n, s_n, r_n, t_n), np.float32)
     loss = np.zeros_like(acc)
     nsel = np.zeros_like(acc)
+    if agg.clustered:
+        c_acc = np.zeros((k_n, s_n, r_n, t_n, agg.n_clusters), np.float32)
+        c_loss = np.zeros_like(c_acc)
+        c_assign = np.zeros((k_n, s_n, r_n, t_n, spec.fl.num_clients),
+                            np.int32)
+    tel: Dict[str, np.ndarray] = {}
     compile_s = 0.0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for k, low in enumerate(lowered):
         for r, seed in enumerate(spec.seeds):
@@ -677,13 +732,33 @@ def _engine_host(spec: ExperimentSpec, lowered: Sequence[LoweredScenario], ds,
                                 aggregation=spec.aggregation,
                                 rounds=spec.rounds, ds=ds, seed=seed,
                                 eval_n_per_class=spec.eval_n_per_class,
-                                workload=spec.workload, device=device)
+                                workload=spec.workload,
+                                telemetry=spec.telemetry,
+                                adversary=spec.adversary or None,
+                                adv=None if adv_masks is None
+                                else adv_masks[r], device=device)
                 compile_s += h.compile_s
                 acc[k, s, r] = h.accuracy
                 loss[k, s, r] = h.loss
                 nsel[k, s, r] = h.num_selected
+                if agg.clustered:
+                    c_acc[k, s, r] = h.cluster_accuracy
+                    c_loss[k, s, r] = h.cluster_loss
+                    c_assign[k, s, r] = h.cluster_assign
+                for name, v in (h.telemetry or {}).items():
+                    v = np.asarray(v, np.float32)
+                    if name not in tel:
+                        tel[name] = np.zeros((k_n, s_n, r_n) + v.shape,
+                                             np.float32)
+                    tel[name][k, s, r] = v
     wall = time.perf_counter() - t0 - compile_s
-    return acc, loss, nsel, wall, compile_s
+    record_memory_analysis("host:grid", device)
+    meta: Dict[str, Any] = {}
+    if agg.clustered:
+        meta.update(_clustered_meta(c_acc, c_loss, c_assign))
+    if tel:
+        meta["_telemetry_series"] = tel
+    return acc, loss, nsel, wall, compile_s, meta
 
 
 def _unported_engine(name: str, item: int) -> EngineFn:
@@ -713,20 +788,36 @@ def run(spec: ExperimentSpec, *, ds=None,
 
     Validates the spec, lowers every ScenarioSpec (source + ordered
     transforms) to arrays once, dispatches through the engine registry and
-    labels the output axes (scenario, strategy, seed, round).  Unlike the
-    reference's, ``meta`` carries no ``telemetry`` envelope (the ``obs``
-    package is ROADMAP Queue 1 item 11): only the engine's own side facts
-    (the grid engine's memory and chunking under ``meta["sim"]``)."""
-    spec.validate()
+    labels the output axes (scenario, strategy, seed, round).  Each stage
+    runs under an ``obs`` span, the engine under ``obs.profiler`` (and
+    ``torch.profiler`` with ``REPRO_TRACE_DIR`` set).  ``meta["telemetry"]``
+    is the reference's versioned envelope: the metric series, the engines'
+    side facts (``meta["clustered"]`` and the grid engine's ``meta["sim"]``
+    stay as aliases), the span summary and the run's peak device memory."""
+    with span("validate", engine=spec.engine):
+        spec.validate()
     device = resolve_device(device)
     if ds is None:
         from .workloads import get_workload
         ds = get_workload(spec.workload).make_dataset(device)
-    lowered = [s.lower(spec.fl, spec.seeds, spec.num_rounds)
-               for s in spec.scenarios]
-    out = _ENGINES[spec.engine](spec, lowered, ds, device)
+    with span("lower_scenarios", engine=spec.engine):
+        lowered = [s.lower(spec.fl, spec.seeds, spec.num_rounds)
+                   for s in spec.scenarios]
+    n_mem = len(memory_snapshots())
+    with profiler(spec.engine):
+        out = _ENGINES[spec.engine](spec, lowered, ds, device)
     acc, loss, nsel, wall_s, compile_s = out[:5]
     meta = dict(out[5]) if len(out) > 5 else {}
+    record_duration(f"engine_compile:{spec.engine}", compile_s)
+    record_duration(f"engine_wall:{spec.engine}", wall_s)
+    series = meta.pop("_telemetry_series", None)
+    facts = {k: meta[k] for k in ("sharded", "population", "clustered", "sim")
+             if k in meta}
+    meta["telemetry"] = build_envelope(
+        spec.engine, series=series, engine_facts=facts or None,
+        spans=span_summary(),
+        memory_analysis=memory_snapshots()[n_mem:] or None)
+    write_trace()          # nothing unless REPRO_TRACE_DIR is set
     return ExperimentResult(
         scenarios=tuple(s.name for s in spec.scenarios),
         strategies=tuple(spec.strategies), seeds=tuple(spec.seeds),

@@ -246,11 +246,19 @@ def test_topn_mask_and_budget_match():
 def test_aggregator_registry_ids():
     from repro.core import aggregation as jagg
     port = tagg.registered_aggregators()
-    assert port == ("fedavg", "fedsgd")
-    assert jagg.registered_aggregators()[:2] == port
+    assert port == ("fedavg", "fedsgd", "clustered_fedavg", "clustered_fedsgd",
+                    "clustered_fedavg4", "clustered_fedavg8", "median",
+                    "trimmed_mean", "krum")
+    assert jagg.registered_aggregators()[:9] == port
     assert tagg.aggregator_id("fedsgd") == 1
+    assert tagg.aggregator_id("krum") == 8
+    for name in port:
+        ja, ta = jagg.get_aggregator(name), tagg.get_aggregator(name)
+        assert (ta.base, ta.n_clusters, ta.kmeans_iters) == (
+            ja.base, ja.n_clusters, ja.kmeans_iters)
+        assert (ta.reduce is None) == (ja.reduce is None)
     with pytest.raises(KeyError):
-        tagg.get_aggregator("median")
+        tagg.get_aggregator("fedprox")
     with pytest.raises(ValueError):
         tagg.Aggregator("fedprox")
 

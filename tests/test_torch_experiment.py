@@ -376,10 +376,6 @@ def test_weighted_agg_trial_axis_plain_equals_one_trial_calls():
     (dict(engine="sharded"), "item 12"),
     (dict(engine="hier"), "item 13"),
     (dict(engine="async"), "item 13"),
-    (dict(aggregation="clustered_fedavg"), "item 10"),
-    (dict(aggregation="median"), "item 10"),
-    (dict(adversary={"frac": 0.3, "behaviors": ["poison"]}), "item 10"),
-    (dict(telemetry=("auto",)), "item 11"),
     ("deep", "item 16"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(change, item):

@@ -21,8 +21,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import dataclasses  # noqa: E402
-
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -166,17 +164,3 @@ def test_run_fl_host_end_to_end_on_cpu():
     runs = [run_fl_host(plan, cfg, strategy="random", eval_n_per_class=2,
                         device="cpu") for _ in range(2)]
     assert runs[0].loss == runs[1].loss  # seeded keys: reproducible
-
-
-def test_run_fl_host_rejects_unported_options():
-    from repro_torch.core import Aggregator
-    cfg = _cfg(FLConfig)
-    plan = case_label_plan("iid", 0, 1, N, samples_per_client=8)
-    for kw in ({"aggregation": Aggregator("fedavg", n_clusters=2)},
-               {"aggregation": Aggregator("fedavg",
-                                          reduce=lambda s, m, w: s)},
-               {"adversary": {"behaviors": ("poison",)}},
-               {"telemetry": ("auto",)}):
-        with pytest.raises(NotImplementedError):
-            run_fl_host(plan, cfg, device="cpu", **kw)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(_cfg(JFLConfig))
