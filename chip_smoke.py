@@ -89,12 +89,35 @@ Phases, in order; any failure raises and the script exits non-zero:
     bit-equal, trimmed mean within ``TRIM_ULP``, Krum's pick equal), each
     timed on the grid's (21, 30, ...) update stack, beside the clustered
     round's four ``weighted_agg`` launches; (e) (a) again with
-    ``telemetry=("auto",)``, its trajectories bit-identical to (a).
+    ``telemetry=("auto",)``, its trajectories bit-identical to (a);
+15. the population engines (``fl.population``): (a) ``run(ExperimentSpec(
+    engine="hier"))`` at the paper's width, case1b x (labelwise, random) x
+    1 seed, 2 rounds, 10 blocks of 10, with the launch counts set to 0 just
+    before and read just after (1 ``label_hist`` launch a round for all ten
+    blocks, no ``weighted_agg``: the two-tier sum is a plain product);
+    (b) ``engine="async"`` likewise under ``availability(0.3)``, buffer_k
+    10, tau_max 2, alpha 0.5 (1 ``label_hist`` and 1 ``weighted_agg``
+    launch a window, the K arrivals' means on its trial axis), with nonzero
+    delays; then, TF32 off, hier's selections bit-equal to sim's
+    ``order[:budget]`` and both degenerate async (tau_max 0, K = E,
+    ``full``) and hier within the reference's 1e-5 of sim; (c)
+    ``make_population_round`` at the reference benchmark's sweep (blocks
+    of 256, 32 selected, 8 samples a client, SGD), one round at N = 2^10,
+    2^13, 2^17 and 2^20 with its wall time, peak memory
+    (``max_memory_allocated``, reset between; flat once the chunks are
+    full) and launch counts (one ``label_hist`` a chunk of blocks and one
+    for the selected rows); at N = 2^13 ids, live flags, scores and
+    statistics bit-equal to the CPU and across chunkings; (d)
+    ``label_hist`` bit-equal to its plain version at (32, 8, 10),
+    (256, 8, 10) and the chunk's (65536, 8, 10), and ``weighted_agg`` at
+    async's (10 arrivals, 10 clients, the CNN's leaves), each timed beside
+    its bound.
 
 The line before the last is a JSON object with each kernel's numbers
-(``label_hist``'s also ``floor_ms``, the synthetic grid's cold ``grid_ms``
-and phase 13's ``engine_grid_*``; ``weighted_agg``'s also phase 13's
-``trial_axis_*`` and phase 14's ``clustered_*``); the
+(``label_hist``'s also ``floor_ms``, the synthetic grid's cold ``grid_ms``,
+phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
+``async_launches`` and ``population_*``; ``weighted_agg``'s also phase 13's
+``trial_axis_*``, phase 14's ``clustered_*`` and phase 15's ``async_*``); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the checkout's ``src/repro_torch`` beside this file, the script exits
 non-zero and prints no result.
@@ -230,6 +253,26 @@ ROBUST = ("median", "trimmed_mean", "krum")
 ATTACK = {"frac": 0.25, "behaviors": ["poison", "stale_update"],
           "scale": -4.0, "tau": 1}
 TRIM_ULP = 1
+# Phase 15: the population engines.  (a)–(b) at the paper's per-trial width
+# (FLConfig(): N = 100 in 10 blocks of 10, 30 a round, 290 samples, 4 local
+# epochs of batch 32, Adam), case1b × POP_STRATEGIES × one seed, 2 rounds;
+# async with buffer_k 10, tau_max 2, α 0.5 under availability(0.3), so that
+# the blocks' dark fractions give nonzero delays.  hier ≡ sim and the
+# degenerate async (tau_max 0, K = E, ``full``) ≡ sim are held to the
+# reference's own 1e-5 pin (tests/test_population.py), TF32 off.  (c) the
+# reference benchmark's sweep (benchmarks/population.py): blocks of 256,
+# 32 selected a round, 8 samples a client, SGD, batch 8, 1 local epoch, the
+# procedural plan, one round at each N; at POP_CHECK_N the round is held
+# bit-equal (ids, live flags, scores, statistics) to the CPU and to a
+# chunking of POP_CHUNK_ALT blocks.
+POP_STRATEGIES = ("labelwise", "random")
+POP_ROUNDS = 2
+POP_ASYNC = {"buffer_k": 10, "tau_max": 2, "alpha": 0.5}
+POP_PIN = 1e-5
+POP_BLOCK, POP_BUDGET, POP_SPC = 256, 32, 8
+POP_NS = (1 << 10, 1 << 13, 1 << 17, 1 << 20)
+POP_CHECK_N = 1 << 13
+POP_CHUNK_ALT = 5
 
 
 def say(msg: str) -> None:
@@ -1529,6 +1572,319 @@ def phase14d_card_vs_cpu(dev, trials: int) -> dict:
             "clustered_bound_by": c_by, "one_launch_ms": one_ms}
 
 
+def _pop_spec(engine: str, **kw):
+    from repro_torch.configs import FLConfig
+    from repro_torch.fl import ExperimentSpec, ScenarioSpec
+    base = dict(scenarios=(ScenarioSpec.from_case("case1b"),),
+                strategies=POP_STRATEGIES, seeds=(0,), engine=engine,
+                fl=FLConfig(), rounds=POP_ROUNDS)
+    base.update(kw)
+    return ExperimentSpec(**base)
+
+
+def _pop_run(dev, ds, spec, want: dict) -> dict:
+    """``run(spec)`` with the launch counts set to 0 just before and read
+    just after, held to ``want``; finite trajectories."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.fl import run
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(spec, ds=ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {"flash_attention": 0, "ssd_scan": 0, **want}
+    if launches != want:
+        raise AssertionError(f"{spec.engine}: launches {launches}, expected "
+                             f"{want}")
+    if not (np.isfinite(res.accuracy).all() and np.isfinite(res.loss).all()):
+        raise AssertionError(f"{spec.engine}: non-finite trajectory")
+    return {"res": res, "launches": launches, "wall_s": wall}
+
+
+def _pop_pin(what: str, got: dict, want: dict) -> float:
+    """max |diff| of two runs' loss and accuracy, held to POP_PIN, with
+    ``num_selected`` equal (dicts or results with those three arrays)."""
+    import numpy as np
+    def arr(r, k):
+        return np.asarray(r[k] if isinstance(r, dict) else getattr(r, k),
+                          np.float64).ravel()
+    if not np.array_equal(arr(got, "num_selected"),
+                          arr(want, "num_selected")):
+        raise AssertionError(f"{what}: num_selected differs")
+    gap = max(float(np.abs(arr(got, k) - arr(want, k)).max())
+              for k in ("loss", "accuracy"))
+    if not gap <= POP_PIN:
+        raise AssertionError(f"{what}: trajectories {gap:.3e} apart, over "
+                             f"{POP_PIN}")
+    return gap
+
+
+def phase15ab_engines(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import (GridRun, ScenarioSpec, availability,
+                                make_async_trial_fn, make_hier_trial_fn)
+    ds = ImageDataset(device=dev)
+    trials = len(POP_STRATEGIES)
+    rounds = trials * POP_ROUNDS
+    spec_h = _pop_spec("hier")
+    spec_a = _pop_spec("async", scenarios=(ScenarioSpec.from_case(
+        "case1b", transforms=(availability(0.3),)),),
+        engine_options=POP_ASYNC)
+    old = _tf32(True, False)
+    try:
+        say(f"== 15a. main path: run(ExperimentSpec(engine='hier')), case1b x "
+            f"{POP_STRATEGIES} x 1 seed, {POP_ROUNDS} rounds, paper width")
+        # One label_hist launch a round (all 10 blocks in one chunk), no
+        # weighted_agg: the two-tier sum is a plain product.
+        hier = _pop_run(dev, ds, spec_h, {"label_hist": rounds,
+                                          "weighted_agg": 0})
+        pop = hier["res"].meta["population"]
+        if (pop["num_blocks"], pop["block_size"]) != (10, 10):
+            raise AssertionError(f"hier: blocks {pop}")
+        lw = make_hier_trial_fn(spec_h.fl, ds, strategy="labelwise",
+                                rounds=POP_ROUNDS)
+        plan = spec_h.scenarios[0].lower(spec_h.fl, (0,), POP_ROUNDS).plan
+        h_round = lw(plan, 0)["round_s"]
+        say(f"hier: launches {hier['launches']}; meta {pop}; final acc "
+            + " ".join(f"{s}={hier['res'].accuracy[0, i, 0, -1]:.4f}"
+                       for i, s in enumerate(POP_STRATEGIES))
+            + f"; run {hier['wall_s']:.3f} s for {rounds} trial-rounds; "
+            f"labelwise alone: rounds {[f'{x:.3f}' for x in h_round]} s")
+
+        say(f"== 15b. main path: run(ExperimentSpec(engine='async')), "
+            f"availability(0.3), {POP_ASYNC}")
+        # Each window: one label_hist launch (the round's histograms) and
+        # one weighted_agg launch (the K arrivals' means, trial axis).
+        asy = _pop_run(dev, ds, spec_a, {"label_hist": rounds,
+                                         "weighted_agg": rounds})
+        pop_a = asy["res"].meta["population"]
+        if not pop_a["delay_max"] > 0:
+            raise AssertionError(f"async: no staleness under availability: "
+                                 f"{pop_a}")
+        low = spec_a.scenarios[0].lower(spec_a.fl, (0,), POP_ROUNDS)
+        from repro_torch.fl.population import derive_arrival_schedule
+        sched = derive_arrival_schedule(
+            low.plan, low.avail, rounds=POP_ROUNDS, num_blocks=10,
+            block_size=10, buffer_k=POP_ASYNC["buffer_k"],
+            tau_max=POP_ASYNC["tau_max"])
+        a_round = make_async_trial_fn(
+            spec_a.fl, ds, strategy="labelwise", rounds=POP_ROUNDS,
+            num_blocks=10, schedule=sched, **POP_ASYNC)(low.plan, 0)["round_s"]
+        say(f"async: launches {asy['launches']}; meta {pop_a}; final acc "
+            + " ".join(f"{s}={asy['res'].accuracy[0, i, 0, -1]:.4f}"
+                       for i, s in enumerate(POP_STRATEGIES))
+            + f"; selected {asy['res'].num_selected[0, :, 0].tolist()}; run "
+            f"{asy['wall_s']:.3f} s for {rounds} trial-windows; labelwise "
+            f"alone: windows {[f'{x:.3f}' for x in a_round]} s")
+    finally:
+        _tf32(*old)
+
+    say("== 15c'. TF32 off: hier against sim (labelwise), degenerate async "
+        "against sim (full)")
+    old = _tf32(False, False)
+    try:
+        hier_lw = lw(plan, 0)
+        grid = GridRun(plan[None], spec_h.fl, strategies=("labelwise",),
+                       seeds=(0,), rounds=POP_ROUNDS, ds=ds, device=dev)
+        for t in range(POP_ROUNDS):
+            sel = grid.round(t)
+            if not (np.array_equal(hier_lw["selected"][t],
+                                   sel["selected"][0].cpu().numpy())
+                    and np.array_equal(hier_lw["live"][t],
+                                       sel["live"][0].cpu().numpy())):
+                raise AssertionError(f"hier round {t}: selection differs "
+                                     f"from sim's order[:budget]")
+        gap_h = _pop_pin("hier vs sim", hier_lw, grid.result(0.0))
+        full = dict(strategies=("full",))
+        deg = _pop_run(dev, ds, _pop_spec(
+            "async", engine_options={"buffer_k": 10, "tau_max": 0}, **full),
+            {"label_hist": POP_ROUNDS, "weighted_agg": POP_ROUNDS})
+        sim = _pop_run(dev, ds, _pop_spec("sim", **full),
+                       {"label_hist": POP_ROUNDS,
+                        "weighted_agg": POP_ROUNDS})
+        gap_a = _pop_pin("degenerate async vs sim", deg["res"], sim["res"])
+        say(f"hier selections bit-equal to sim's order[:budget] in each "
+            f"round; trajectories {gap_h:.3e} apart; degenerate async (full, "
+            f"selected {deg['res'].num_selected.ravel().tolist()}) "
+            f"{gap_a:.3e} from sim (limit {POP_PIN})")
+    finally:
+        _tf32(*old)
+    return {"hier": hier, "async": asy, "hier_round_s": h_round,
+            "async_round_s": a_round, "hier_sim_gap": gap_h,
+            "async_sim_gap": gap_a}
+
+
+def phase15c_population(dev) -> dict:
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import make_population_round, synthetic_population_plan
+    from repro_torch.fl.population import _CHUNK_ROWS
+    from repro_torch.models import cnn_init
+    from repro_torch.rng import PRNGKey
+    say(f"== 15c. main path: make_population_round, blocks of {POP_BLOCK}, "
+        f"{POP_BUDGET} selected, {POP_SPC} samples a client, SGD, one round "
+        f"at N = {', '.join(str(n) for n in POP_NS)}")
+    ds = ImageDataset(device=dev)
+    params = cnn_init(PRNGKey(0), device=dev)
+    plan_fn = synthetic_population_plan(samples_per_client=POP_SPC)
+    key_t = PRNGKey(7)
+
+    def round_at(n, device=dev, data=ds, chunk=None):
+        return make_population_round(
+            plan_fn=plan_fn, num_clients=n, block_size=POP_BLOCK,
+            strategy="labelwise", budget=POP_BUDGET, ds=data,
+            batch_size=POP_SPC, chunk_blocks=chunk, device=device)
+
+    round_at(POP_NS[0])(params, key_t)          # warm-up: first calls
+    torch.cuda.synchronize()
+    rows = {}
+    for n in POP_NS:
+        rnd = round_at(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, info = rnd(params, key_t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        chunks = -(-rnd.num_blocks // max(1, _CHUNK_ROWS // POP_BLOCK))
+        # One label_hist launch a chunk of blocks, one for the selected
+        # rows' payload; the two-tier sum is a plain product.
+        want = {"label_hist": chunks + 1, "weighted_agg": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+        if launches != want:
+            raise AssertionError(f"population N={n}: launches {launches}, "
+                                 f"expected {want}")
+        if not (float(info["num_selected"]) > 0 and all(
+                bool(torch.isfinite(v).all()) for v in new.values())):
+            raise AssertionError(f"population N={n}: nothing selected or "
+                                 f"non-finite params")
+        if int(info["n_valid"]) != n:
+            raise AssertionError(f"population N={n}: {int(info['n_valid'])} "
+                                 f"clients counted")
+        rows[n] = {"wall_s": wall, "peak_bytes": peak,
+                   "launches": launches["label_hist"], "chunks": chunks,
+                   "num_selected": float(info["num_selected"]),
+                   "union_coverage": int(info["union_coverage"])}
+        say(f"N={n:8d}: {rnd.num_blocks} blocks in {chunks} chunks, "
+            f"{launches['label_hist']} label_hist launches; round "
+            f"{wall * 1e3:.1f} ms wall; peak {peak / 1e6:.1f} MB over the "
+            f"{base / 1e6:.1f} MB held; selected "
+            f"{rows[n]['num_selected']:.0f}, classes covered "
+            f"{rows[n]['union_coverage']}")
+    full = [n for n in POP_NS if n >= _CHUNK_ROWS]
+    ratio = rows[full[-1]]["peak_bytes"] / rows[full[0]]["peak_bytes"]
+    if ratio > 1.5:
+        raise AssertionError(f"population: peak memory grows with N once "
+                             f"the chunks are full ({ratio:.2f}x from "
+                             f"N={full[0]} to N={full[-1]})")
+    say(f"peak memory, full chunks: N={full[-1]} is {ratio:.3f}x N="
+        f"{full[0]}")
+    # Card against CPU, and two chunkings, at POP_CHECK_N.
+    cpu_ds = ImageDataset(device="cpu")
+    runs = {"card": round_at(POP_CHECK_N)(params, key_t),
+            f"card, chunks of {POP_CHUNK_ALT} blocks": round_at(
+                POP_CHECK_N, chunk=POP_CHUNK_ALT)(params, key_t),
+            "cpu": round_at(POP_CHECK_N, "cpu", cpu_ds)(
+                {k: v.cpu() for k, v in params.items()}, key_t.cpu())}
+    ref = runs["card"][1]
+    for what, (_, info) in runs.items():
+        for k in ("selected", "live", "scores", "hist_sum", "n_valid",
+                  "union_coverage"):
+            if not torch.equal(info[k].cpu(), ref[k].cpu()):
+                raise AssertionError(f"population N={POP_CHECK_N}: {k} of "
+                                     f"{what} differs from the card's")
+    gap = max(float((runs["cpu"][0][k] - runs["card"][0][k].cpu()).abs()
+                    .max()) for k in params)
+    say(f"N={POP_CHECK_N}: ids, live flags, scores and statistics bit-equal "
+        f"card vs CPU and across chunkings; params max |card - cpu| "
+        f"{gap:.3e}")
+    return {"rows": rows, "peak_ratio": ratio}
+
+
+def phase15d_kernels(dev) -> dict:
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.fl import synthetic_population_plan
+    from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref
+    from repro_torch.kernels.weighted_agg import (weighted_agg_leaves,
+                                                  weighted_agg_ref)
+    from repro_torch.models import cnn_init
+    from repro_torch.rng import PRNGKey
+    say("== 15d. label_hist and weighted_agg at the population engines' "
+        "shapes")
+    plan_fn = synthetic_population_plan(samples_per_client=POP_SPC)
+    c = 10
+    hist = {}
+    for rows in (POP_BUDGET, POP_BLOCK, 1 << 16):
+        lab = plan_fn(PRNGKey(3, dev), torch.arange(rows, device=dev))
+        val = torch.from_numpy(np.random.default_rng(rows).random(
+            lab.shape) > 0.1).to(dev)
+        lab0 = torch.where(val, lab, 0)
+        if not torch.equal(label_hist_kernel(lab0, val, c),
+                           label_hist_ref(lab0, val, c)):
+            raise AssertionError(f"label_hist differs at ({rows}, {POP_SPC}, "
+                                 f"{c})")
+        flat = torch.arange(rows, device=dev)[:, None] * c + lab0.long()
+        flat = torch.where(val, flat, rows * c).reshape(-1)
+        h = {"ms": time_ms(lambda: label_hist_kernel(lab0, val, c)),
+             "plain": time_ms(lambda: label_hist_ref(lab0, val, c)),
+             "lib": time_ms(lambda: torch.bincount(flat,
+                                                   minlength=rows * c + 1))}
+        h["bound"], h["by"] = bound(lab0.numel() * 4 + val.numel()
+                                    + rows * c * 4, float(val.sum().item()))
+        hist[rows] = h
+        say(f"label_hist ({rows}, {POP_SPC}, {c}): bit-equal; kernel "
+            f"{h['ms']:.4f} ms, bound {h['bound']:.6f} ms ({h['by']}), plain "
+            f"{h['plain']:.4f} ms, bincount {h['lib']:.4f} ms")
+    # async's per-window reduction: K arrivals (the trial axis) of
+    # block_budget clients each, over the CNN's leaves.
+    k_arr, k_cl = POP_ASYNC["buffer_k"], 10
+    sizes = [math.prod(v.shape) for v in cnn_init(device=dev).values()]
+    g = np.random.default_rng(15)
+    xs = [torch.from_numpy(0.05 * g.standard_normal(
+        (k_arr, k_cl, n)).astype(np.float32)).to(dev) for n in sizes]
+    w = torch.from_numpy((g.uniform(30, 290, (k_arr, k_cl))
+                          * (g.random((k_arr, k_cl)) > 0.2))
+                         .astype(np.float32)).to(dev)
+    denom = torch.clamp(w.sum(-1), min=1e-12)
+    got = weighted_agg_leaves(xs, w, denom)
+    err = 0.0
+    for x, y in zip(xs, got):
+        want = weighted_agg_ref(x, w, denom)
+        tol = (2 * k_cl * 2.0 ** -24 * torch.einsum("tk,tkn->tn", w, x.abs())
+               / denom[:, None] + 2.0 ** -23 * want.abs())
+        e = (y - want).abs()
+        if bool((e > tol).any()):
+            raise AssertionError(f"weighted_agg (K={k_arr} arrivals): "
+                                 f"{e.max().item()} over the float32 bound")
+        err = max(err, e.max().item())
+    agg = {"ms": time_ms(lambda: weighted_agg_leaves(xs, w, denom)),
+           "plain": time_ms(lambda: [weighted_agg_ref(x, w, denom)
+                                     for x in xs]),
+           "lib": time_ms(lambda: [torch.bmm(w[:, None, :], x) for x in xs]),
+           "err": err, "shape": [k_arr, k_cl, sum(sizes)]}
+    nbytes = sum(k_arr * (k_cl * n + k_cl + n) * 4 for n in sizes)
+    agg["bound"], agg["by"] = bound(nbytes, 2 * k_arr * k_cl * sum(sizes))
+    say(f"weighted_agg ({k_arr} arrivals, {k_cl} clients each, "
+        f"{sum(sizes)} columns): max abs err {err:.3e}; kernel "
+        f"{agg['ms']:.4f} ms, bound {agg['bound']:.4f} ms ({agg['by']}, "
+        f"{nbytes / 1e6:.1f} MB), plain {agg['plain']:.4f} ms, bmm a leaf "
+        f"{agg['lib']:.4f} ms")
+    return {"label_hist": hist, "weighted_agg": agg}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1806,6 +2162,10 @@ def main() -> int:
     phase14c_vs_host(dev)
     p14d = phase14d_card_vs_cpu(dev, p14["trials"])
     clus = p14["clustered"]
+    p15 = phase15ab_engines(dev)
+    p15c = phase15c_population(dev)
+    p15d = phase15d_kernels(dev)
+    pop_hist, pop_agg = p15d["label_hist"], p15d["weighted_agg"]
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1821,7 +2181,16 @@ def main() -> int:
          "engine_grid_shape": eh["shape"], "engine_grid_ms": eh["ms"],
          "engine_grid_plain_ms": eh["plain"],
          "engine_grid_bound_ms": eh["bound"],
-         "engine_grid_library_ms": eh["lib"]},
+         "engine_grid_library_ms": eh["lib"],
+         "hier_launches": p15["hier"]["launches"]["label_hist"],
+         "async_launches": p15["async"]["launches"]["label_hist"],
+         "population_launches": {str(n): r["launches"]
+                                 for n, r in p15c["rows"].items()},
+         "population_shapes": [[r, POP_SPC, 10] for r in pop_hist],
+         "population_ms": [h["ms"] for h in pop_hist.values()],
+         "population_plain_ms": [h["plain"] for h in pop_hist.values()],
+         "population_bound_ms": [h["bound"] for h in pop_hist.values()],
+         "population_library_ms": [h["lib"] for h in pop_hist.values()]},
         {"name": "weighted_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
          "replaces": "src/repro/kernels/weighted_agg/weighted_agg.py:28",
@@ -1836,7 +2205,13 @@ def main() -> int:
          "clustered_launches": clus["launches"]["weighted_agg"],
          "clustered_ms": p14d["clustered_ms"],
          "clustered_bound_ms": p14d["clustered_bound_ms"],
-         "clustered_design_traffic_ms": p14d["clustered_design_traffic_ms"]},
+         "clustered_design_traffic_ms": p14d["clustered_design_traffic_ms"],
+         "async_launches": p15["async"]["launches"]["weighted_agg"],
+         "async_shape": pop_agg["shape"], "async_ms": pop_agg["ms"],
+         "async_max_abs_err": pop_agg["err"],
+         "async_plain_ms": pop_agg["plain"],
+         "async_bound_ms": pop_agg["bound"],
+         "async_library_ms": pop_agg["lib"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",

@@ -6,6 +6,8 @@
     python3 scripts/torch_fl_profile.py --grid [--seeds 5] [--top 16]
                                         [--aggregation NAME] [--attack]
                                         [--out build/fl_grid_profile.json]
+    python3 scripts/torch_fl_profile.py --population 1048576 [--top 12]
+                                        [--out build/fl_population_profile.json]
 
 Runs ``run_fl_host`` at the paper's width (``configs.FLConfig()``: 100
 clients, 30 a round, 4 local epochs of batch 32, Adam; case1b, labelwise,
@@ -33,6 +35,17 @@ adds the ``grid/kmeans`` phase and M ``weighted_agg`` launches a round, a
 robust one runs its reducer in ``grid/aggregate``), and ``--attack`` turns
 on ``chip_smoke.py`` phase 14's adversary (a quarter of the clients poison
 at scale −4 and train from the previous round's global).
+
+With ``--population N`` it profiles one warm ``make_population_round``
+at N clients with ``benchmarks/population.py``'s settings (blocks of 256,
+32 selected, 8 samples a client, SGD, batch 8, 1 local epoch, the
+procedural plan; ``chip_smoke.py`` phase 15c): the round's wall time, busy
+share, launches, peak memory, the device time by kernel and by step
+(``select/labels``: the procedural plan's threefry draws; ``select/hists``,
+``select/score``, ``select/merge``: a chunk's histograms, scores and top-k
+merge; ``population/draw``, ``population/train``,
+``population/aggregate``: the selected clients' payload, training and
+two-tier sum).
 
 Needs a CUDA device; writes the numbers as JSON to ``--out``.
 """
@@ -128,12 +141,16 @@ def _launches_under(ev) -> int:
                for c in ev.cpu_children) if ev.cpu_children else 0
 
 
+# Prefixes of the profiler ranges the engines open.
+RANGES = ("grid/", "host/", "select/", "population/")
+
+
 def _device_times(prof):
     """(kernel device µs by name, copies µs, kernel launches, [device µs,
-    launches] by ``grid/`` or ``host/`` range) from a finished profiler."""
+    launches] by range of ``RANGES``) from a finished profiler."""
     device, ranges, launches, copies_us = {}, {}, 0, 0.0
     for ev in prof.events():
-        if ev.name.startswith(("grid/", "host/")):
+        if ev.name.startswith(RANGES):
             if ev.device_type.name == "CPU":      # kernels launched inside
                 us, n = ranges.get(ev.name, (0.0, 0))
                 ranges[ev.name] = (us + ev.device_time_total,
@@ -261,6 +278,82 @@ def main_grid(args, card: str) -> int:
     return 0
 
 
+def profile_population(n: int, top: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import make_population_round, synthetic_population_plan
+    from repro_torch.models import cnn_init
+    from repro_torch.rng import PRNGKey
+
+    dev = torch.device("cuda")
+    cfg = {"num_clients": n, "block_size": 256, "budget": 32,
+           "samples_per_client": 8, "batch_size": 8, "local_epochs": 1,
+           "optimizer": "sgd", "strategy": "labelwise"}
+    rnd = make_population_round(
+        plan_fn=synthetic_population_plan(
+            samples_per_client=cfg["samples_per_client"]),
+        num_clients=n, block_size=cfg["block_size"],
+        strategy=cfg["strategy"], budget=cfg["budget"],
+        ds=ImageDataset(device=dev), batch_size=cfg["batch_size"],
+        local_epochs=cfg["local_epochs"], optimizer=cfg["optimizer"])
+    params = cnn_init(PRNGKey(0), device=dev)
+    t0 = time.perf_counter()
+    rnd(params, PRNGKey(6))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, info = rnd(params, PRNGKey(7))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    device, copies_us, launches, ranges = _device_times(prof)
+    kernel_us = sum(device.values())
+    ranked = sorted(device.items(), key=lambda kv: -kv[1])
+    return {"config": {**cfg, "num_blocks": rnd.num_blocks},
+            "warm_round_s": warm_s, "round_wall_ms": wall * 1e3,
+            "kernel_device_ms": kernel_us / 1e3,
+            "copy_device_ms": copies_us / 1e3,
+            "busy_share": (kernel_us + copies_us) / 1e3 / (wall * 1e3),
+            "kernel_launches": launches, "distinct_kernels": len(device),
+            "fl_kernel_launches": {k: counts[k] for k in FL_KERNELS},
+            "phases": {k: {"device_ms": us / 1e3, "launches": n_}
+                       for k, (us, n_) in sorted(ranges.items())},
+            "peak_bytes_over_held": torch.cuda.max_memory_allocated() - base,
+            "top": [(name[:90], us / 1e3) for name, us in ranked[:top]],
+            "num_selected": float(info["num_selected"])}
+
+
+def main_population(args, card: str) -> int:
+    r = profile_population(args.population, args.top)
+    r["card"] = card
+    c = r["config"]
+    print(f"one warm make_population_round on {card}: {c}")
+    print(f"  wall {r['round_wall_ms']:.1f} ms (the warm-up round "
+          f"{r['warm_round_s']:.2f} s); device: kernels "
+          f"{r['kernel_device_ms']:.2f} ms, copies {r['copy_device_ms']:.2f}"
+          f" ms, busy {r['busy_share']:.1%}; {r['kernel_launches']} kernel "
+          f"launches of {r['distinct_kernels']} kernels; FL kernels "
+          f"{r['fl_kernel_launches']}; peak "
+          f"{r['peak_bytes_over_held'] / 1e6:.1f} MB over the params")
+    for name, ph in r["phases"].items():
+        print(f"  {name}: {ph['device_ms']:9.3f} ms device, "
+              f"{ph['device_ms'] / r['kernel_device_ms']:.2%} of the kernels' "
+              f"time, {ph['launches']} launches")
+    for name, ms in r["top"]:
+        print(f"    {ms:9.3f} ms  {name}")
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(r, indent=1))
+    print(f"wrote {args.out}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds-warm", type=int, default=2)
@@ -276,10 +369,14 @@ def main(argv=None) -> int:
     ap.add_argument("--attack", action="store_true",
                     help="run the --grid round under chip_smoke.py phase "
                          "14's adversary")
+    ap.add_argument("--population", type=int, default=None,
+                    help="profile a warm make_population_round at this "
+                         "many clients")
     args = ap.parse_args(argv)
     if args.out is None:
-        args.out = str(ROOT / "build" / ("fl_grid_profile.json" if args.grid
-                                         else "fl_profile.json"))
+        args.out = str(ROOT / "build" / (
+            "fl_population_profile.json" if args.population
+            else "fl_grid_profile.json" if args.grid else "fl_profile.json"))
     import torch
     if not torch.cuda.is_available():
         print("torch_fl_profile: no CUDA device is available", file=sys.stderr)
@@ -289,6 +386,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.population:
+        return main_population(args, card)
     if args.grid:
         return main_grid(args, card)
     r = profile_round(args.rounds_warm, args.top)

@@ -230,6 +230,42 @@ def make_trimmed_mean(trim_frac: float = 0.25) -> AggregateFn:
     return reduce
 
 
+# Two-tier (hierarchical) reduction: edge partial sums, then the global
+# combine, the ``hier`` engine's and the population round's aggregation rule.
+
+def block_partial_sums(stacked: Params, weights: torch.Tensor,
+                       block_ids: torch.Tensor, num_blocks: int
+                       ) -> Tuple[Params, torch.Tensor]:
+    """Each edge's Σ_{i∈b} w_i·x_i and Σ_{i∈b} w_i: leaves (S, …) with
+    ``block_ids`` (S,) in [0, num_blocks) -> the (num_blocks, …) partial
+    tree and the (num_blocks,) weight sums, float32.  The products are taken
+    in float64 and rounded once to float32, so no TF32 reaches them
+    whatever ``torch.backends`` says."""
+    ids = block_ids.to(torch.int64)
+    member = ids[None, :] == torch.arange(num_blocks, device=ids.device)[:, None]
+    w_eb = member.to(torch.float32) * weights.to(torch.float32)[None, :]
+    w64 = w_eb.to(torch.float64)
+    num = {k: (w64 @ x.reshape(x.shape[0], -1).to(torch.float64))
+           .to(torch.float32).reshape((num_blocks,) + x.shape[1:])
+           for k, x in stacked.items()}
+    return num, w_eb.sum(-1)
+
+
+def two_tier_weighted_mean(stacked: Params, mask: torch.Tensor,
+                           weights: Optional[torch.Tensor],
+                           block_ids: torch.Tensor, num_blocks: int) -> Params:
+    """Σ_e (Σ_{i∈e} w·x) / Σ_e (Σ_{i∈e} w) with w = mask·weights: the flat
+    FedAvg mean reassociated over edges, with :func:`masked_mean`'s
+    ε-denominator (an empty selection gives zeros; the engines guard it)."""
+    w = mask.to(torch.float32)
+    if weights is not None:
+        w = w * weights.to(torch.float32)
+    num, den = block_partial_sums(stacked, w, block_ids, num_blocks)
+    denom = torch.clamp(den.sum(), min=1e-12)
+    return {k: (num[k].sum(0) / denom).to(x.dtype)
+            for k, x in stacked.items()}
+
+
 # Krum's finite sentinels: an excluded pair stays summable, so a round with
 # one live client still scores it below every dead slot.
 _KRUM_EXCLUDED, _KRUM_DEAD = 1e30, 1e35

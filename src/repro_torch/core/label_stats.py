@@ -72,3 +72,26 @@ def empirical_pdf(hist: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     """p(L_i): normalized histogram with ε-smoothing (KL needs full support)."""
     hist = hist.to(torch.float32) + eps
     return hist / class_sum(hist)[..., None]
+
+
+# Block-reducible statistics: a merge of the values over any disjoint block
+# partition equals the value over all clients.  Counts are integers in
+# float32, so the sums are exact, in any order and any grouping of blocks,
+# while the totals stay below 2^24.
+
+def partial_label_statistics(hists: torch.Tensor) -> dict:
+    """One block's (B, C) histograms -> ``hist_sum`` (C,) float32, the
+    class counts summed over clients; ``n_valid`` float32, the clients with
+    a non-empty histogram; ``present`` (C,) bool, the union of the classes
+    present (its sum is §III-B's n(∪ℒ))."""
+    hists = hists.to(torch.float32)
+    return {"hist_sum": hists.sum(-2),
+            "n_valid": (hists.sum(-1) > 0).sum(-1).to(torch.float32),
+            "present": (hists > 0).any(-2)}
+
+
+def merge_label_statistics(a: dict, b: dict) -> dict:
+    """Merge two :func:`partial_label_statistics` dicts: sum, sum, union."""
+    return {"hist_sum": a["hist_sum"] + b["hist_sum"],
+            "n_valid": a["n_valid"] + b["n_valid"],
+            "present": a["present"] | b["present"]}

@@ -72,6 +72,31 @@ def topn_mask(scores: torch.Tensor, valid: torch.Tensor,
     return chosen.to(torch.float32), order.to(torch.int32)
 
 
+def topk_by_score(scores: torch.Tensor, ids: torch.Tensor,
+                  valid: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``k`` best of a candidate set of (score, global client id,
+    validity) triples along the last axis, in :func:`topn_mask`'s order:
+    descending masked score, then ascending id, invalid entries masked to
+    ``NEG_INF``.  The pair is a total order over distinct ids, so merging
+    candidate sets through this function in any grouping gives the dense
+    ``order[:k]`` over all of them.
+
+    The reference's two-key sort is two stable sorts here, by id and then by
+    −masked score; −0.0 and +0.0 compare equal in both and resolve by id.
+    Returns (masked scores, ids int32, valid bool), each (…, k).  Carries
+    are padded with (NEG_INF, num_clients, False) sentinels, whose id sorts
+    after every real client."""
+    masked = torch.where(valid, scores, NEG_INF).to(torch.float32)
+    ids = ids.to(torch.int32)
+    by_id = torch.sort(ids, dim=-1, stable=True).indices
+    neg = torch.gather(-masked, -1, by_id)
+    perm = torch.gather(by_id, -1,
+                        torch.sort(neg, dim=-1, stable=True).indices)[..., :k]
+    return (torch.gather(masked, -1, perm), torch.gather(ids, -1, perm),
+            torch.gather(valid.to(torch.bool), -1, perm))
+
+
 def _clamped(n_select: int, hists: torch.Tensor) -> int:
     """A top-n strategy's budget: n_select clamped to the population."""
     return min(int(n_select), hists.shape[-2])

@@ -22,11 +22,15 @@ in one round loop, one ``label_hist`` launch a round and one ``weighted_agg``
 launch a round, or one a cluster for a clustered family); ``"host"`` runs
 :func:`~repro_torch.fl.loop.run_fl_host` per grid cell, the parity oracle.
 Both run every aggregation family of the registry (clustered and robust),
-the engine-level adversary behaviors and round telemetry; ``run`` folds the
-metric series, the engines' side facts, the trace spans and the peak device
-memory into the reference's ``meta["telemetry"]`` envelope.  Not ported yet,
-and raising with their ROADMAP item: the ``sharded`` engine (Queue 1 item
-12), ``hier`` and ``async`` (item 13) and ``validate(deep=True)`` (item 16).
+the engine-level adversary behaviors and round telemetry.  ``"hier"`` (the
+two-tier block rounds) and ``"async"`` (FedBuff windows) are the population
+engines of ``fl.population``, a trial at a time, with single-model,
+block-separable selection and round telemetry (``async`` also
+``staleness_hist``); ``meta["population"]`` holds their side facts.
+``run`` folds the metric series, the engines' side facts, the trace spans
+and the peak device memory into the reference's ``meta["telemetry"]``
+envelope.  Not ported yet, and raising with their ROADMAP item: the
+``sharded`` engine (Queue 1 item 12) and ``validate(deep=True)`` (item 16).
 """
 from __future__ import annotations
 
@@ -761,19 +765,30 @@ def _engine_host(spec: ExperimentSpec, lowered: Sequence[LoweredScenario], ds,
     return acc, loss, nsel, wall, compile_s, meta
 
 
-def _unported_engine(name: str, item: int) -> EngineFn:
-    def engine(*args, **kwargs):
-        raise NotImplementedError(f"engine {name!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item {item})")
-    return engine
+def _engine_hier(spec: ExperimentSpec, lowered: Sequence[LoweredScenario],
+                 ds, device):
+    """Hierarchical two-tier rounds (``fl.population``)."""
+    from .population import run_engine_hier
+    return run_engine_hier(spec, lowered, ds, device)
+
+
+def _engine_async(spec: ExperimentSpec, lowered: Sequence[LoweredScenario],
+                  ds, device):
+    """Async FedBuff windows (``fl.population``)."""
+    from .population import run_engine_async
+    return run_engine_async(spec, lowered, ds, device)
+
+
+def _engine_sharded(*args, **kwargs):
+    raise NotImplementedError("engine 'sharded' is not ported yet (ROADMAP "
+                              "Queue 1 item 12)")
 
 
 register_engine("sim", _engine_sim, option_keys=())
 register_engine("host", _engine_host, option_keys=())
-register_engine("sharded", _unported_engine("sharded", 12), option_keys=())
-register_engine("hier", _unported_engine("hier", 13),
-                option_keys=("num_blocks",))
-register_engine("async", _unported_engine("async", 13),
+register_engine("sharded", _engine_sharded, option_keys=())
+register_engine("hier", _engine_hier, option_keys=("num_blocks",))
+register_engine("async", _engine_async,
                 option_keys=("num_blocks", "buffer_k", "alpha", "tau_max"))
 
 

@@ -109,18 +109,22 @@ class RoundTelemetry:
     """The requested round metrics of T trials, shared by both engines.
 
     ``telemetry`` names metrics (or ``("auto",)``), resolved against the
-    round state the engines offer (:func:`telemetry_keys`).  :meth:`add`
+    round state the engines offer (:func:`telemetry_keys`, or ``keys``
+    for another engine, with its static ints in ``statics``).  :meth:`add`
     takes one round's state with a leading trial axis and collects it one
     trial at a time (a metric's contract has no trial axis); the previous
     round's centroids (zeros in round 0) are kept here.  ``needs_norms``
     says whether the engine must compute the per-client update norms."""
 
-    def __init__(self, telemetry: Sequence[str], agg):
-        self.metrics = resolve_metrics(resolve_telemetry_request(telemetry),
-                                       telemetry_keys(agg.clustered))
+    def __init__(self, telemetry: Sequence[str], agg,
+                 keys: Optional[Sequence[str]] = None,
+                 statics: Optional[Dict[str, int]] = None):
+        self.metrics = resolve_metrics(
+            resolve_telemetry_request(telemetry),
+            telemetry_keys(agg.clustered) if keys is None else keys)
         self.needs_norms = not agg.clustered and any(
             "client_update_norms" in m.requires for m in self.metrics)
-        self.n_clusters = agg.n_clusters
+        self.statics = {"n_clusters": agg.n_clusters, **(statics or {})}
         self.collector = self.prev_cent = None
         self.series: Dict[str, List[np.ndarray]] = {}
 
@@ -129,14 +133,15 @@ class RoundTelemetry:
             params_new: Dict[str, torch.Tensor], *,
             norms: Optional[torch.Tensor] = None,
             assign: Optional[torch.Tensor] = None,
-            centroids: Optional[torch.Tensor] = None) -> None:
+            centroids: Optional[torch.Tensor] = None,
+            extra: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """One round: hists (T, N, C), mask (T, N), params leaves (T, …),
         norms (T, N) when ``needs_norms``, a clustered family's assign
-        (T, N) and centroids (T, M, C)."""
+        (T, N) and centroids (T, M, C), and any other state key the engine
+        offers in ``extra``, each (T, …)."""
         if self.collector is None:
             self.collector = make_collector(self.metrics, {
-                "num_classes": int(hists.shape[-1]),
-                "n_clusters": self.n_clusters})
+                "num_classes": int(hists.shape[-1]), **self.statics})
             if centroids is not None:
                 self.prev_cent = torch.zeros_like(centroids)
         rows = []
@@ -146,6 +151,7 @@ class RoundTelemetry:
                    "params_new": {k: p[i] for k, p in params_new.items()}}
             if norms is not None:
                 dyn["client_update_norms"] = norms[i]
+            dyn.update({k: v[i] for k, v in (extra or {}).items()})
             if centroids is not None:
                 dyn.update(assign=assign[i], centroids=centroids[i],
                            prev_centroids=self.prev_cent[i])

@@ -159,10 +159,12 @@ def _reduce(agg: Aggregator, updates: Params, live: torch.Tensor,
     return {k: torch.stack([o[k] for o in outs]) for k in updates}
 
 
-def _step(global_params: Params, red: Params, live: torch.Tensor, fl_cfg,
-          agg: Aggregator) -> Params:
-    """Server step of T models from their reductions; a model whose
-    ``live`` (T, S) row is empty keeps its params."""
+def server_step(global_params: Params, red: Params, live: torch.Tensor,
+                fl_cfg, agg: Aggregator) -> Params:
+    """Server step of T models from their reductions (leaves (T, …)): a
+    −lr step on the mean gradient (FedSGD) or the interpolation toward the
+    mean (FedAvg); a model whose ``live`` (T, S) row is empty keeps its
+    params."""
     if agg.base == "fedsgd":
         new = apply_updates(global_params,
                             {k: -fl_cfg.lr * g for k, g in red.items()})
@@ -188,14 +190,15 @@ def server_update(global_params: Params, updates: Params, live: torch.Tensor,
     client keeps its params (Algorithm 1's count = 0 case: the
     ε-denominator mean would zero them)."""
     if not agg.clustered:
-        return _step(global_params, _reduce(agg, updates, live, sizes), live,
-                     fl_cfg, agg)
+        return server_step(global_params,
+                           _reduce(agg, updates, live, sizes), live,
+                           fl_cfg, agg)
     models = []
     for c in range(agg.n_clusters):
         live_c = live * (assign == c).to(live.dtype)
-        models.append(_step({k: p[:, c] for k, p in global_params.items()},
-                            _reduce(agg, updates, live_c, sizes), live_c,
-                            fl_cfg, agg))
+        models.append(server_step(
+            {k: p[:, c] for k, p in global_params.items()},
+            _reduce(agg, updates, live_c, sizes), live_c, fl_cfg, agg))
     return {k: torch.stack([m[k] for m in models], 1) for k in global_params}
 
 

@@ -12,6 +12,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from .. import rng
 from ..data import ImageDataset, materialize_round, round_histograms
 from ..models import cnn_init, cnn_loss
 
@@ -51,6 +52,22 @@ class Workload:
     num_classes: Callable[[Any], int]
     hists: Callable[[Any, Any], Batch]
     sample: Callable[[Any, Any, torch.Tensor, torch.Tensor], Batch]
+
+
+def materialize_rows(wl: Workload, ds: Any, plan_rows, key,
+                     row_ids: torch.Tensor) -> Batch:
+    """The round batch of a client subset: ``plan_rows`` (B, n_max) labels
+    of the clients with global ids ``row_ids`` (B,), each row drawn as
+    ``wl.materialize`` draws a one-client round under ``fold_in(key,
+    row_ids[i])`` (the reference's per-row fallback, which its ``cnn``
+    workload takes), so a client's data depends on (key, id) alone and any
+    grouping of the rows gives the same data.  All rows' histograms take
+    one ``label_hist`` launch and all rows' payloads one ``sample`` call."""
+    row_ids = torch.as_tensor(row_ids, device=ds.device)
+    data = wl.hists(ds, plan_rows)
+    keys = rng.fold_in(rng.as_key(key, ds.device), row_ids)
+    payload = wl.sample(ds, keys, data["labels"][:, None], None)
+    return {**{k: v[:, 0] for k, v in payload.items()}, **data}
 
 
 _WORKLOADS: Dict[str, Workload] = {}

@@ -16,8 +16,8 @@ engine assembles per round; every entry is a tensor or a static int:
 ``n_clusters``      static int M                         (clustered only)
 ``centroids``       (M, C) round k-means centroids       (clustered only)
 ``prev_centroids``  (M, C) the previous round's centroids, zeros in round 0
-``staleness_delays`` (K,) int32 staleness of each buffered arrival (the
-                    ``async`` engine, not ported: no engine here offers it)
+``staleness_delays`` (K,) int32 staleness of each buffered arrival
+                    (async only)
 ``tau_max``         static int                           (async only)
 ``client_update_norms`` (N,) float32 ℓ₂ norm of each client's as-reported
                     update (post-poison), zero for clients that did not

@@ -111,6 +111,38 @@ def random_bits(key: KeyLike, shape: Sequence[int]) -> torch.Tensor:
     return bits_at(key[..., None, :], idx).reshape(key.shape[:-1] + shape)
 
 
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint(key: KeyLike, shape: Sequence[int], minval, maxval
+            ) -> torch.Tensor:
+    """``jax.random.randint`` with int32 output: keys (B..., 2) and bounds
+    (ints, or int tensors broadcast against ``shape``) -> (B..., *shape)
+    int32 in [minval, maxval).
+
+    JAX's algorithm: 32 higher and 32 lower bits from the two halves of
+    ``split(key)``, span = maxval − minval as uint32 (1 where maxval ≤
+    minval), multiplier = (2^16 mod span)² mod span, and the offset
+    ((hi mod span)·multiplier + lo mod span) mod span, every step wrapping
+    at 2^32 as uint32 does.  Bounds must lie in int32."""
+    key = as_key(key)
+    lo_b = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
+    hi_b = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    for b in (lo_b, hi_b):
+        if bool(((b < _INT32_MIN) | (b > _INT32_MAX)).any()):
+            raise ValueError("randint bounds must lie in int32")
+    k = split(key, 2)
+    hi = random_bits(k[..., 0, :], shape)
+    lo = random_bits(k[..., 1, :], shape)
+    span = (hi_b - lo_b) & _MASK
+    span = torch.where(hi_b <= lo_b, torch.ones_like(span), span)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    offset = ((((hi % span) * mult) & _MASK) + lo % span) & _MASK
+    out = (lo_b + offset % span) & _MASK
+    return torch.where(out > _INT32_MAX, out - (1 << 32), out).to(torch.int32)
+
+
 def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     """32-bit words -> float32 in [0, 1): the top 23 bits as the mantissa of a
     number in [1, 2), minus one (JAX's ``uniform``)."""

@@ -379,10 +379,20 @@ def test_weighted_agg_trial_axis_plain_equals_one_trial_calls():
     ("deep", "item 16"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(change, item):
+    """Items 12 and 16 still raise, naming their item.  Item 13's engines
+    have landed: they run this grid spec (both scenarios, strategies and
+    seeds) and report their ``meta["population"]``; their parity with the
+    reference is tests/test_torch_population.py's."""
     spec = _grid_spec(tx, FLConfig, "sim")
+    ds = ImageDataset(image_size=HW, device="cpu")
+    if item == "item 13":
+        res = tx.run(dataclasses.replace(spec, **change), device="cpu", ds=ds)
+        assert res.meta["population"]["mode"] == change["engine"]
+        assert res.accuracy.shape == (2, 2, 2, 2)
+        assert np.isfinite(res.loss).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
         if change == "deep":
             spec.validate(deep=True)
         else:
-            tx.run(dataclasses.replace(spec, **change), device="cpu",
-                   ds=ImageDataset(image_size=HW, device="cpu"))
+            tx.run(dataclasses.replace(spec, **change), device="cpu", ds=ds)

@@ -211,6 +211,50 @@ def test_masked_weighted_mean_trial_axis_is_one_launch(cuda):
             assert torch.equal(got[k][t], one[k]), (t, k)
 
 
+@pytest.mark.parametrize("rows", [32, 256, 1 << 16])
+def test_label_hist_kernel_bit_equal_at_population_shapes(cuda, rows):
+    """The population round's histograms, 8 samples a client: the selected
+    rows (32), one block (256) and a chunk of 256 blocks (65536), on the
+    procedural plan's labels and on random labels with padding."""
+    from repro_torch.fl import synthetic_population_plan
+    from repro_torch.rng import PRNGKey
+    plan = synthetic_population_plan(samples_per_client=8)(
+        PRNGKey(rows, cuda), torch.arange(rows, device=cuda))
+    cases = [(plan, plan >= 0), _hist_inputs(rows, 8, 10, rows, cuda)]
+    for labels, valid in cases:
+        kernels.reset_launch_counts()
+        got = label_hist_kernel(labels, valid, 10)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["label_hist"] == 1
+        assert torch.equal(got, label_hist_ref(labels, valid, 10))
+
+
+def test_weighted_agg_async_window_bit_equal_to_per_arrival_launches(cuda):
+    """The async engine's window: K = 10 arrivals on the trial axis, 10
+    clients each, over the paper CNN's leaves, one arrival with no live
+    client; one launch, each arrival bit-equal to its own launch and within
+    the float32 bound of the plain version."""
+    from repro_torch.models import cnn_init
+    sizes = [v.numel() for v in cnn_init(device=cuda).values()]
+    xs = [_randn((10, 10, n), n, cuda) for n in sizes]
+    w = _randn((10, 10), 7, cuda).abs() * 100
+    w[3] = 0.0
+    denom = torch.clamp(w.sum(-1), min=1e-12)
+    kernels.reset_launch_counts()
+    got = weighted_agg_leaves(xs, w, denom)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["weighted_agg"] == 1
+    for t in range(10):
+        one = weighted_agg_leaves([x[t] for x in xs], w[t], denom[t:t + 1])
+        assert all(torch.equal(y[t], y1) for y, y1 in zip(got, one))
+    for x, y in zip(xs, got):
+        want = weighted_agg_ref(x, w, denom)
+        tol = (2 * 10 * 2.0 ** -24 * torch.einsum("tk,tkn->tn", w, x.abs())
+               / denom[:, None] + 2.0 ** -23 * want.abs())
+        assert bool(((y - want).abs() <= tol).all())
+        assert not bool(y[3].any())
+
+
 def test_weighted_agg_splits_past_the_table(cuda):
     # 200 leaves, 190 of them non-empty: three tables of at most 64, block
     # starts from 0 in each; odd sizes take scalar loads.
