@@ -120,6 +120,7 @@ def mamba2_patches() -> dict:
 def drift_arch(arch: str) -> dict:
     import torch
     from chip_smoke import self_consistency_inputs, serve_gaps
+    from repro_torch import rng
     from repro_torch.configs import get_config
     from repro_torch.models import init_model, layers
 
@@ -136,8 +137,7 @@ def drift_arch(arch: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
-                        device=dev)
+    params = init_model(rng.PRNGKey(0, dev), cfg, device=dev)
     readings["sound_seed0"] = serve_gaps(params, cfg, toks)
     del params
     gc.collect()

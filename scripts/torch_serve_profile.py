@@ -60,18 +60,18 @@ def _profile(fn, top: int = 8) -> dict:
 
 def profile_arch(arch: str) -> dict:
     import torch
+    from repro_torch import rng
     from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset
     from repro_torch.models import decode_step, init_model, prefill
 
     dev = torch.device("cuda")
     cfg = get_config(arch)
-    gen = torch.Generator(device=dev)
-    params = init_model(gen.manual_seed(0), cfg, device=dev)
+    params = init_model(rng.PRNGKey(0, dev), cfg, device=dev)
     batch, prompt_len = 4, 1024
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       device=dev)
-    prompts = ds.sample(gen.manual_seed(0),
+    prompts = ds.sample(rng.PRNGKey(0, dev),
                         torch.arange(batch, device=dev) % ds.num_domains)
     res = {"arch": arch, "batch": batch, "prompt_len": prompt_len}
     with torch.inference_mode():

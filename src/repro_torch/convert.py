@@ -14,7 +14,9 @@ neither needs JAX.  The layout rule belongs to the model:
   reference's layout; the reference's stacked blocks (``scan_layers``: each
   leaf of block j carries a leading repeat axis, ``transformer.stack_plan``)
   become the port's per-layer list, layer ``r * period + j`` = repeat r of
-  block j, and back.
+  block j, and back.  ``flat=True`` gives the flat dotted form the ``lm``
+  FL workload carries (``transformer.flatten_params``), which
+  ``lm_params_to_jax`` also takes.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from .device import resolve_device
 from .models.cnn import REFERENCE_LAYOUT as CNN_LAYOUT
 from .models.config import ModelConfig
-from .models.transformer import stack_plan
+from .models.transformer import flatten_params, stack_plan, unflatten_params
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -108,11 +110,11 @@ def _stack(nodes: List[Any]) -> Any:
 
 
 def lm_params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
-                       device: "str | torch.device | None" = None
-                       ) -> Dict[str, Any]:
+                       device: "str | torch.device | None" = None,
+                       flat: bool = False) -> Dict[str, Any]:
     """Reference LM params (``repro.models.init_model``'s tree as array-likes)
     -> the port's params on ``device``, with ``stack.blocks`` a per-layer
-    list."""
+    list (or, with ``flat``, the ``lm`` workload's flat dotted form)."""
     device = resolve_device(device)
     _, period, reps = stack_plan(cfg)
     blocks = tree["stack"]["blocks"]
@@ -123,13 +125,16 @@ def lm_params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
               for r in range(reps) for j in range(period)]
     out = {k: _to_torch(v, device) for k, v in tree.items() if k != "stack"}
     out["stack"] = {"blocks": [_to_torch(b, device) for b in layers]}
-    return out
+    return flatten_params(out) if flat else out
 
 
 def lm_params_to_jax(params: Mapping[str, Any], cfg: ModelConfig
                      ) -> Dict[str, Any]:
-    """The port's LM params -> NumPy params in the reference's layout, the
-    blocks restacked on their leading repeat axis as ``scan_layers`` asks."""
+    """The port's LM params (nested, or the ``lm`` workload's flat form) ->
+    NumPy params in the reference's layout, the blocks restacked on their
+    leading repeat axis as ``scan_layers`` asks."""
+    if "stack" not in params:
+        params = unflatten_params(dict(params))
     _, period, reps = stack_plan(cfg)
     layers = [_to_numpy(b) for b in params["stack"]["blocks"]]
     if len(layers) != period * reps:

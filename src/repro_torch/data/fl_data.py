@@ -12,15 +12,17 @@ import numpy as np
 import torch
 
 from ..kernels.dispatch import client_histograms
-from .synthetic import ImageDataset
+from .synthetic import ImageDataset, TokenDataset
 
 
-def round_histograms(ds: ImageDataset, plan_t: "np.ndarray | torch.Tensor"
+def round_histograms(ds: "ImageDataset | TokenDataset",
+                     plan_t: "np.ndarray | torch.Tensor"
                      ) -> Dict[str, torch.Tensor]:
     """plan_t (…, N, n_max) int32 labels with −1 padding -> ``labels``,
-    ``valid`` and ``hists`` (…, N, C) on the dataset's device, without the
-    images: every row of every leading index in one ``label_hist`` launch on
-    a CUDA device (its plain version on the CPU; bit-equal counts)."""
+    ``valid`` and ``hists`` (…, N, C) on the dataset's device (C its
+    ``num_classes``), without the payload: every row of every leading index
+    in one ``label_hist`` launch on a CUDA device (its plain version on the
+    CPU; bit-equal counts)."""
     labels = torch.as_tensor(plan_t, dtype=torch.int32, device=ds.device)
     valid = labels >= 0
     hists = client_histograms(torch.where(valid, labels, 0), ds.num_classes,

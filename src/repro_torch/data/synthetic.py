@@ -10,12 +10,14 @@ can draw a subset of rows and get exactly those rows of the whole draw.
 
 Tokens: domain k is a skewed unigram distribution over a vocab band.  Its
 log-probabilities come from NumPy (seed 77) and are bit-equal to the
-reference's; the draws come from a ``torch.Generator`` (the ``lm`` workload
-moves to keys with its own slice of the port).
+reference's; the draws are ``rng.categorical``'s under the caller's key,
+bit-equal to the reference's ``jax.random.categorical``, and each row of
+them, too, depends only on the key and its counter offset.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -134,13 +136,38 @@ class TokenDataset:
             self.num_domains, self.vocab_size, self.concentration,
             self.seed)).to(self.device)
 
-    def sample(self, generator: Optional[torch.Generator],
-               domains: torch.Tensor) -> torch.Tensor:
-        """domains (...,) int -> token sequences (..., seq_len) int64;
-        domain -1 draws from domain 0, as in the reference."""
-        domains = torch.as_tensor(domains, device=self.device)
-        probs = torch.exp(self.log_probs[torch.clamp(domains, min=0)])
-        flat = probs.reshape(-1, self.vocab_size)
-        toks = torch.multinomial(flat, self.seq_len, replacement=True,
-                                 generator=generator)
-        return toks.reshape(domains.shape + (self.seq_len,))
+    @property
+    def num_classes(self) -> int:
+        """The label space an FL round counts: the domain ids."""
+        return self.num_domains
+
+    def sample(self, key: "rng.KeyLike", domains: torch.Tensor,
+               rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """domains (…, n) int -> token sequences (…, n, seq_len) int64, the
+        reference's ``categorical(key, log_probs[domains], shape=(…, n,
+        seq_len))``; domain −1 draws from domain 0, as in the reference.
+
+        ``key`` is one key (2,) or one per leading index (…, 2) of
+        ``domains``.  With ``rows`` (…, S) int and domains (…, R, n), only
+        those rows of the last-but-one axis are drawn -> (…, S, n,
+        seq_len), bit-equal to the whole draw gathered at ``rows`` (each
+        sequence's gumbels sit at their own counter offset)."""
+        domains = torch.as_tensor(domains, dtype=torch.int64,
+                                  device=self.device)
+        key = rng.as_key(key, self.device)
+        per_seq = self.seq_len * self.vocab_size
+        if rows is not None:
+            rows = torch.as_tensor(rows, dtype=torch.int64,
+                                   device=self.device)
+            n = domains.shape[-1]
+            domains = torch.gather(domains, -2, rows[..., None].expand(
+                rows.shape + (n,)))
+            seq = rows[..., None] * n + torch.arange(n, device=self.device)
+        else:
+            own = domains.shape[key.dim() - 1:]
+            seq = torch.arange(math.prod(own),
+                               device=self.device).reshape(own)
+        keys = key.reshape(key.shape[:-1] + (1,) * (domains.dim()
+                                                    - key.dim() + 1) + (2,))
+        lp = self.log_probs[torch.clamp(domains, min=0)]
+        return rng.categorical_rows(keys, seq * per_seq, lp, self.seq_len)

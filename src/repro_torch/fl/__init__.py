@@ -13,16 +13,16 @@ from .round import (client_update_step, clustered_update_step,
                     stack_global_params)
 from .sim import (GridResult, GridRun, grid_arrays, run_grid, simulate,
                   stack_case_plans)
-from .workloads import (CNN_WORKLOAD, Workload, get_workload,
-                        materialize_rows, register_workload,
-                        registered_workloads)
+from .workloads import (CNN_WORKLOAD, LM_WORKLOAD, MICRO_LM_CONFIG, Workload,
+                        get_workload, lm_workload, materialize_rows,
+                        register_workload, registered_workloads)
 
 __all__ = ["CNN_WORKLOAD", "ExperimentResult", "ExperimentSpec", "FLHistory",
-           "GridResult", "GridRun", "LoweredScenario", "ScenarioSpec", "TransformSpec",
-           "Workload", "availability", "client_update_step",
+           "GridResult", "GridRun", "LM_WORKLOAD", "LoweredScenario",
+           "MICRO_LM_CONFIG", "ScenarioSpec", "TransformSpec", "Workload", "availability", "client_update_step",
            "clustered_update_step", "default_num_blocks",
            "derive_arrival_schedule", "engines", "get_workload",
-           "grid_arrays", "label_flip", "local_gradient", "local_train",
+           "grid_arrays", "label_flip", "lm_workload", "local_gradient", "local_train",
            "make_async_trial_fn", "make_fl_round", "make_hier_trial_fn",
            "make_population_round", "materialize_rows", "quantity",
            "register_engine",

@@ -5,7 +5,8 @@ Each kernel sits in its own package beside its plain PyTorch version
 (``ref.py``); its wrapper launches the CUDA kernel for a CUDA tensor and takes
 the plain version for a CPU tensor.  ``dispatch`` is what the FL round calls;
 the LM layers call ``flash_attention.gqa_flash_attention`` and
-``ssd_scan.ssd_apply``.
+``ssd_scan.ssd_apply``, both differentiable (``flash_attention_bwd`` counts
+the backward kernel pair's launches).
 Nothing here imports a compiler or builds a kernel until a CUDA tensor arrives
 (``build.library``).
 """
@@ -24,6 +25,8 @@ _MODULES = {
     "weighted_agg": _weighted_agg,
     "flash_attention": importlib.import_module(
         f"{__name__}.flash_attention.flash_attention"),
+    "flash_attention_bwd": importlib.import_module(
+        f"{__name__}.flash_attention.backward"),
     "ssd_scan": importlib.import_module(f"{__name__}.ssd_scan.ssd_scan"),
 }
 

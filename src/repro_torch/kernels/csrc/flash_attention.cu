@@ -3,7 +3,7 @@
 // over the keys j that query i may see (j <= i when causal, j > i - window
 // when window > 0, j < S always), kh = h / (H / KV).  q (B, S, H, D),
 // k/v (B, S, KV, D), o like q; float32 or bfloat16 in, o in q's dtype; the
-// scores, softmax and accumulators are float32.  D is 64 or 128.
+// scores, softmax and accumulators are float32.
 //
 // Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention
 // (body _flash_kernel).  The TPU kernel walks a grid (BH, Sq/BQ, Sk/BK) whose
@@ -60,10 +60,13 @@
 // * Epilogue: acc / max(l, 1e-30), rounded to bf16 and stored from the
 //   fragment; rows at or past S are not written.
 //
-// float32, the check dtype (tests and the self-checks), not the serving
-// dtype, stays on a CUDA-core kernel by design (flash_attention_f32_kernel):
-// 256 threads own 64 query rows, 32-key tiles, float32 FMAs, Q/K transposed
-// and V in shared memory.
+// float32, the check dtype (tests and the self-checks) and the dtype of the
+// FL LM workloads (head_dim 16 to 128), not the serving dtype, stays on a
+// CUDA-core kernel by design (flash_attention_f32_kernel): 256 threads own
+// 64 query rows, 32-key tiles, float32 FMAs, Q/K transposed and V in shared
+// memory.  D is 16, 32, 64 or 128 in float32, 64 or 128 in bfloat16.
+//
+// The backward pair for both dtypes is at the end of the file.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,7 +86,7 @@ constexpr int BK = 32;          // keys a tile
 constexpr int QS = BQ + 4;      // row stride of Qs/Ps (float4-aligned)
 constexpr int KS = BK + 1;      // row stride of Ks (odd: conflict-free)
 
-__device__ __forceinline__ void load4(const float* p, float out[4]) {
+__device__ __forceinline__ void load4_f32(const float* p, float out[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
@@ -100,7 +103,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ v, float* __restrict__ o,
                            int seq, int heads, int kv_heads, int causal,
                            int window, float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "D is 64 or 128");
+  static_assert(D % 16 == 0 && D <= 128, "D is 16, 32, 64 or 128");
   constexpr int DC = D / 16;      // output columns a thread
   constexpr int D4 = D / 4;       // float4 groups in a row
   extern __shared__ float smem[];
@@ -124,7 +127,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int idx = tid; idx < BQ * D4; idx += kThreads) {
     const int r = idx / D4, d = (idx % D4) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < seq) load4(qb + (q0 + r) * q_row + d, x);
+    if (q0 + r < seq) load4_f32(qb + (q0 + r) * q_row + d, x);
 #pragma unroll
     for (int e = 0; e < 4; ++e) Qs[(d + e) * QS + r] = x[e];
   }
@@ -147,8 +150,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const int j = idx / D4, d = (idx % D4) * 4;
       float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
       if (k0 + j < seq) {
-        load4(kb + (k0 + j) * k_row + d, kx);
-        load4(vb + (k0 + j) * k_row + d, vx);
+        load4_f32(kb + (k0 + j) * k_row + d, kx);
+        load4_f32(vb + (k0 + j) * k_row + d, vx);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) Ks[(d + e) * KS + j] = kx[e];
@@ -878,27 +881,550 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Backward, both dtypes: CUDA cores, float32 accumulation, no atomics
+// ---------------------------------------------------------------------------
+//
+// dQ, dK and dV of the function above: with P = exp(scale * Q.K^T - L) on
+// the visible pairs (L the row's logsumexp), dP = dO.V^T,
+// delta = rowsum(dO o O) and dS = P o (dP - delta):
+//   dQ = scale * dS.K,  dK = scale * dS^T.Q,  dV = P^T.dO,
+// dK and dV summed over the H / KV q-heads that read a kv-head.  Two
+// kernels, in order on one stream:
+// (a) flash_bwd_dq_kernel: one block a (b, h, 64-row q-tile).  A first pass
+//     over the live key tiles recomputes each row's L (online max and sum,
+//     the forward's masking and scale; the forward does not write L); it
+//     forms delta from O and dO, writes L and delta to the scratch, and a
+//     second pass accumulates dQ in registers.
+// (b) flash_bwd_dkv_kernel: one block a (b, kv-head, 64-key tile).  It loops
+//     over its group's q-heads and their live 32-row q-tiles, recomputes P
+//     and dS from L and delta, and accumulates dK and dV in registers.
+// Every output element is written by one thread of one block, so the result
+// does not depend on the schedule.  Tiles live in shared memory in float32
+// (bfloat16 inputs are widened on load); outputs are rounded once to the
+// input dtype.  Bound on the card: operations.  The five S x S x D products
+// of the live pairs (Q.K^T, dO.V^T, dS.K, dS^T.Q, P^T.dO) are 2.5x the
+// forward's; at qwen3-14b's (4, 1024, 40, 128) bf16 that is 107.5 GFLOP,
+// 108.7 us at the tensor cores' 989 TFLOP/s.  This first version runs on
+// the CUDA cores (67 TFLOP/s float32 FMA peak) and recomputes Q.K^T three
+// times and dO.V^T twice (8 products): a wgmma/TMA version is later work.
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  static __device__ __forceinline__ void load4(const float* p, float out[4]) {
+    load4_f32(p, out);
+  }
+  static __device__ __forceinline__ float load1(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  // Four bf16 (8 bytes) widened exactly: a bf16 is the top half of a float.
+  static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                               float out[4]) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    out[0] = __uint_as_float(raw.x << 16);
+    out[1] = __uint_as_float(raw.x & 0xffff0000u);
+    out[2] = __uint_as_float(raw.y << 16);
+    out[3] = __uint_as_float(raw.y & 0xffff0000u);
+  }
+  static __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16(x);
+  }
+};
+
+constexpr int BKB = 64;          // keys a dK/dV block
+constexpr int BQB = 32;          // q rows a dK/dV tile
+constexpr int KT = BKB + 4;      // row stride of Kt/Vt/Ps/dSs (float4 reads)
+constexpr int QT = BQB + 1;      // row stride of Qt/dOt (odd)
+
+template <int D>
+constexpr int dq_smem_floats() {
+  return 2 * D * QS + 2 * D * KS + BK * QS;
+}
+
+template <int D>
+constexpr int dkv_smem_floats() {
+  return 2 * D * KT + 2 * D * QT + 2 * BQB * KT + 2 * BQB;
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int seq,
+                                        int causal, int window) {
+  return kpos < seq && qpos < seq && (!causal || kpos <= qpos) &&
+         (!window || kpos > qpos - window);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, T* __restrict__ dq,
+                    float* __restrict__ lse, float* __restrict__ delta,
+                    int seq, int heads, int kv_heads, int causal, int window,
+                    float scale) {
+  constexpr int DC = D / 16;
+  constexpr int D4 = D / 4;
+  extern __shared__ float smem[];
+  float* Qs = smem;                // [D][QS]  Q transposed
+  float* dOs = Qs + D * QS;        // [D][QS]  dO transposed
+  float* Ks = dOs + D * QS;        // [D][KS]  K transposed
+  float* Vs = Ks + D * KS;         // [D][KS]  V transposed
+  float* dSs = Vs + D * KS;        // [BK][QS] dS transposed
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int kh = h / (heads / kv_heads);
+  const int q0 = blockIdx.y * BQ;
+  const long long q_row = static_cast<long long>(heads) * D;
+  const long long k_row = static_cast<long long>(kv_heads) * D;
+  const long long q_base = (static_cast<long long>(b) * seq * heads + h) * D;
+  const long long k_base =
+      (static_cast<long long>(b) * seq * kv_heads + kh) * D;
+
+  for (int idx = tid; idx < BQ * D4; idx += kThreads) {
+    const int r = idx / D4, d = (idx % D4) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, g[4] = {0.f, 0.f, 0.f, 0.f};
+    if (q0 + r < seq) {
+      Io<T>::load4(q + q_base + (q0 + r) * q_row + d, x);
+      Io<T>::load4(dout + q_base + (q0 + r) * q_row + d, g);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      Qs[(d + e) * QS + r] = x[e];
+      dOs[(d + e) * QS + r] = g[e];
+    }
+  }
+  __syncthreads();
+
+  // delta = rowsum(dO o O): 16 threads a row, D / 16 columns each.
+  float dlt[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    float acc = 0.f;
+    if (q0 + r < seq) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int d = tx + 16 * c;
+        acc = fmaf(dOs[d * QS + r],
+                   Io<T>::load1(o + q_base + (q0 + r) * q_row + d), acc);
+      }
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    dlt[i] = acc;
+  }
+
+  const int k_lo = window ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(seq, q0 + BQ) : seq;
+  const int k_first = (k_lo / BK) * BK;
+
+  // Pass 1: each row's logsumexp over its visible keys.
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  for (int k0 = k_first; k0 < k_hi; k0 += BK) {
+    __syncthreads();
+    for (int idx = tid; idx < BK * D4; idx += kThreads) {
+      const int j = idx / D4, d = (idx % D4) * 4;
+      float kx[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k0 + j < seq) Io<T>::load4(k + k_base + (k0 + j) * k_row + d, kx);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) Ks[(d + e) * KS + j] = kx[e];
+    }
+    __syncthreads();
+    float s[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(Qs + d * QS + 4 * ty);
+      const float k0v = Ks[d * KS + tx], k1v = Ks[d * KS + tx + 16];
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][0] = fmaf(qa[i], k0v, s[i][0]);
+        s[i][1] = fmaf(qa[i], k1v, s[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + 4 * ty + i;
+      bool ok[2];
+      float rmax = kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        ok[jj] = visible(qpos, k0 + tx + 16 * jj, seq, causal, window);
+        s[i][jj] = ok[jj] ? s[i][jj] * scale : kNegInf;
+        rmax = fmaxf(rmax, s[i][jj]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+      const float m_new = fmaxf(m[i], rmax);
+      float rsum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        rsum += ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      l[i] = expf(m[i] - m_new) * l[i] + rsum;
+      m[i] = m_new;
+    }
+  }
+  float L[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + 4 * ty + i;
+    L[i] = l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
+    if (qpos < seq && tx == 0) {
+      const long long at = static_cast<long long>(bh) * seq + qpos;
+      lse[at] = L[i];
+      delta[at] = dlt[i];
+    }
+  }
+
+  // Pass 2: dQ.
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  for (int k0 = k_first; k0 < k_hi; k0 += BK) {
+    __syncthreads();
+    for (int idx = tid; idx < BK * D4; idx += kThreads) {
+      const int j = idx / D4, d = (idx % D4) * 4;
+      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k0 + j < seq) {
+        Io<T>::load4(k + k_base + (k0 + j) * k_row + d, kx);
+        Io<T>::load4(v + k_base + (k0 + j) * k_row + d, vx);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        Ks[(d + e) * KS + j] = kx[e];
+        Vs[(d + e) * KS + j] = vx[e];
+      }
+    }
+    __syncthreads();
+    float s[4][2], dp[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(Qs + d * QS + 4 * ty);
+      const float4 gv = *reinterpret_cast<const float4*>(dOs + d * QS + 4 * ty);
+      const float k0v = Ks[d * KS + tx], k1v = Ks[d * KS + tx + 16];
+      const float v0v = Vs[d * KS + tx], v1v = Vs[d * KS + tx + 16];
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][0] = fmaf(qa[i], k0v, s[i][0]);
+        s[i][1] = fmaf(qa[i], k1v, s[i][1]);
+        dp[i][0] = fmaf(ga[i], v0v, dp[i][0]);
+        dp[i][1] = fmaf(ga[i], v1v, dp[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + 4 * ty + i;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = tx + 16 * jj;
+        const bool ok = visible(qpos, k0 + j, seq, causal, window);
+        const float p = ok ? expf(s[i][jj] * scale - L[i]) : 0.f;
+        dSs[j * QS + 4 * ty + i] = p * (dp[i][jj] - dlt[i]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float4 dv4 = *reinterpret_cast<const float4*>(dSs + j * QS + 4 * ty);
+      const float da[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float kv = Ks[(tx + 16 * c) * KS + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(da[i], kv, acc[i][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + 4 * ty + i;
+    if (qpos >= seq) continue;
+    T* row = dq + q_base + qpos * q_row;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) Io<T>::store(row + tx + 16 * c,
+                                              acc[i][c] * scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int seq, int heads, int kv_heads,
+                     int causal, int window, float scale) {
+  constexpr int DC = D / 16;
+  constexpr int D4 = D / 4;
+  extern __shared__ float smem[];
+  float* Kt = smem;                // [D][KT]  K transposed
+  float* Vt = Kt + D * KT;         // [D][KT]  V transposed
+  float* Qt = Vt + D * KT;         // [D][QT]  Q transposed
+  float* dOt = Qt + D * QT;        // [D][QT]  dO transposed
+  float* Ps = dOt + D * QT;        // [BQB][KT]
+  float* dSs = Ps + BQB * KT;      // [BQB][KT]
+  float* Ls = dSs + BQB * KT;      // [BQB]
+  float* Ds = Ls + BQB;            // [BQB]
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;   // keys 4ty.., q rows tx, tx+16
+  const int bkh = blockIdx.x;
+  const int b = bkh / kv_heads, kh = bkh % kv_heads;
+  const int group = heads / kv_heads;
+  const int k0 = blockIdx.y * BKB;
+  const long long q_row = static_cast<long long>(heads) * D;
+  const long long k_row = static_cast<long long>(kv_heads) * D;
+  const long long k_base =
+      (static_cast<long long>(b) * seq * kv_heads + kh) * D;
+
+  for (int idx = tid; idx < BKB * D4; idx += kThreads) {
+    const int j = idx / D4, d = (idx % D4) * 4;
+    float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
+    if (k0 + j < seq) {
+      Io<T>::load4(k + k_base + (k0 + j) * k_row + d, kx);
+      Io<T>::load4(v + k_base + (k0 + j) * k_row + d, vx);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      Kt[(d + e) * KT + j] = kx[e];
+      Vt[(d + e) * KT + j] = vx[e];
+    }
+  }
+
+  float adk[4][DC], adv[4][DC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) adk[r][c] = adv[r][c] = 0.f;
+
+  // q rows that see a key of [k0, k0 + BKB): from k0 when causal, below
+  // k0 + BKB - 1 + window with a window.
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(seq, k0 + BKB - 1 + window) : seq;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = kh * group + hh;
+    const long long q_base =
+        (static_cast<long long>(b) * seq * heads + h) * D;
+    const long long stat = (static_cast<long long>(b) * heads + h) * seq;
+    for (int q0 = (q_lo / BQB) * BQB; q0 < q_hi; q0 += BQB) {
+      __syncthreads();  // the previous tile is done with Qt, dOt, Ps, dSs
+      for (int idx = tid; idx < BQB * D4; idx += kThreads) {
+        const int r = idx / D4, d = (idx % D4) * 4;
+        float x[4] = {0.f, 0.f, 0.f, 0.f}, g[4] = {0.f, 0.f, 0.f, 0.f};
+        if (q0 + r < seq) {
+          Io<T>::load4(q + q_base + (q0 + r) * q_row + d, x);
+          Io<T>::load4(dout + q_base + (q0 + r) * q_row + d, g);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          Qt[(d + e) * QT + r] = x[e];
+          dOt[(d + e) * QT + r] = g[e];
+        }
+      }
+      if (tid < BQB) {
+        const bool in = q0 + tid < seq;
+        Ls[tid] = in ? lse[stat + q0 + tid] : 0.f;
+        Ds[tid] = in ? delta[stat + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float s[4][2], dp[4][2];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float4 kv = *reinterpret_cast<const float4*>(Kt + d * KT + 4 * ty);
+        const float4 vv = *reinterpret_cast<const float4*>(Vt + d * KT + 4 * ty);
+        const float q0v = Qt[d * QT + tx], q1v = Qt[d * QT + tx + 16];
+        const float g0v = dOt[d * QT + tx], g1v = dOt[d * QT + tx + 16];
+        const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          s[r][0] = fmaf(ka[r], q0v, s[r][0]);
+          s[r][1] = fmaf(ka[r], q1v, s[r][1]);
+          dp[r][0] = fmaf(va[r], g0v, dp[r][0]);
+          dp[r][1] = fmaf(va[r], g1v, dp[r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kpos = k0 + 4 * ty + r;
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int i = tx + 16 * ii;
+          const bool ok = visible(q0 + i, kpos, seq, causal, window);
+          const float p = ok ? expf(s[r][ii] * scale - Ls[i]) : 0.f;
+          Ps[i * KT + 4 * ty + r] = p;
+          dSs[i * KT + 4 * ty + r] = p * (dp[r][ii] - Ds[i]);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int i = 0; i < BQB; ++i) {
+        const float4 pv = *reinterpret_cast<const float4*>(Ps + i * KT + 4 * ty);
+        const float4 sv = *reinterpret_cast<const float4*>(dSs + i * KT + 4 * ty);
+        const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+        const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const float gv = dOt[(tx + 16 * c) * QT + i];
+          const float qv = Qt[(tx + 16 * c) * QT + i];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            adv[r][c] = fmaf(pa[r], gv, adv[r][c]);
+            adk[r][c] = fmaf(sa[r], qv, adk[r][c]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int kpos = k0 + 4 * ty + r;
+    if (kpos >= seq) continue;
+    const long long at = k_base + kpos * k_row;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      Io<T>::store(dk + at + tx + 16 * c, adk[r][c] * scale);
+      Io<T>::store(dv + at + tx + 16 * c, adv[r][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, void* dq, void* dk, void* dv,
+                 void* scratch, int batch, int seq, int heads, int kv_heads,
+                 int causal, int window, cudaStream_t stream) {
+  const int q_tiles = (seq + BQ - 1) / BQ, k_tiles = (seq + BKB - 1) / BKB;
+  if (q_tiles > 65535 || k_tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int dq_bytes = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
+  constexpr int dkv_bytes =
+      dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
+  auto kdq = flash_bwd_dq_kernel<T, D>;
+  auto kdkv = flash_bwd_dkv_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  float* lse = static_cast<float*>(scratch);
+  float* delta = lse + static_cast<long long>(batch) * heads * seq;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  kdq<<<dim3(batch * heads, q_tiles), kThreads, dq_bytes, stream>>>(
+      tq, tk, tv, static_cast<const T*>(o), tdo, static_cast<T*>(dq), lse,
+      delta, seq, heads, kv_heads, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdkv<<<dim3(batch * kv_heads, k_tiles), kThreads, dkv_bytes, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      seq, heads, kv_heads, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, void* dq, void* dk, void* dv, void* scratch,
+               int batch, int seq, int heads, int kv_heads, int head_dim,
+               int causal, int window, void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (kv_heads <= 0 || heads % kv_heads != 0 || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_BWD(D)                                                        \
+  return launch_bwd_d<T, D>(q, k, v, o, dout, dq, dk, dv, scratch, batch,  \
+                            seq, heads, kv_heads, causal, window, s)
+  constexpr bool kF32 = sizeof(T) == 4;
+  switch (head_dim) {
+    case 16:
+      if constexpr (kF32) REPRO_BWD(16);
+      break;
+    case 32:
+      if constexpr (kF32) REPRO_BWD(32);
+      break;
+    case 64:
+      REPRO_BWD(64);
+    case 128:
+      REPRO_BWD(128);
+    default:
+      break;
+  }
+#undef REPRO_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int seq, int heads, int kv_heads, int head_dim, int causal,
            int window, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0)
     return static_cast<int>(cudaGetLastError());
-  if (kv_heads <= 0 || heads % kv_heads != 0 || window < 0 ||
-      (head_dim != 64 && head_dim != 128))
+  if (kv_heads <= 0 || heads % kv_heads != 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (kBf16) {
-    return head_dim == 64 ? launch_bf16<64>(q, k, v, o, batch, seq, heads,
-                                            kv_heads, causal, window, s)
-                          : launch_bf16<128>(q, k, v, o, batch, seq, heads,
-                                             kv_heads, causal, window, s);
+    if (head_dim == 64)
+      return launch_bf16<64>(q, k, v, o, batch, seq, heads, kv_heads, causal,
+                             window, s);
+    if (head_dim == 128)
+      return launch_bf16<128>(q, k, v, o, batch, seq, heads, kv_heads,
+                              causal, window, s);
   } else {
-    return head_dim == 64 ? launch_f32<64>(q, k, v, o, batch, seq, heads,
-                                           kv_heads, causal, window, s)
-                          : launch_f32<128>(q, k, v, o, batch, seq, heads,
-                                            kv_heads, causal, window, s);
+    switch (head_dim) {
+      case 16:
+        return launch_f32<16>(q, k, v, o, batch, seq, heads, kv_heads,
+                              causal, window, s);
+      case 32:
+        return launch_f32<32>(q, k, v, o, batch, seq, heads, kv_heads,
+                              causal, window, s);
+      case 64:
+        return launch_f32<64>(q, k, v, o, batch, seq, heads, kv_heads,
+                              causal, window, s);
+      case 128:
+        return launch_f32<128>(q, k, v, o, batch, seq, heads, kv_heads,
+                               causal, window, s);
+      default:
+        break;
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -921,4 +1447,25 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           void* stream) {
   return launch<true>(q, k, v, o, batch, seq, heads, kv_heads, head_dim,
                       causal, window, stream);
+}
+
+// The backward pair (two launches on the stream); scratch holds 2 x B x H x
+// S floats (each row's logsumexp, then delta).  Returns as above.
+extern "C" int repro_flash_attention_f32_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* scratch, int batch,
+    int seq, int heads, int kv_heads, int head_dim, int causal, int window,
+    void* stream) {
+  return launch_bwd<float>(q, k, v, o, dout, dq, dk, dv, scratch, batch, seq,
+                           heads, kv_heads, head_dim, causal, window, stream);
+}
+
+extern "C" int repro_flash_attention_bf16_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* scratch, int batch,
+    int seq, int heads, int kv_heads, int head_dim, int causal, int window,
+    void* stream) {
+  return launch_bwd<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, scratch,
+                                   batch, seq, heads, kv_heads, head_dim,
+                                   causal, window, stream);
 }

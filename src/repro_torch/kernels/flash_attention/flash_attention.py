@@ -2,8 +2,9 @@
 wrapper of ``csrc/flash_attention.cu``.
 
 Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention
-(body ``_flash_kernel``).  bfloat16 runs on the tensor cores (wgmma, TMA),
-float32 on the CUDA cores.  The source note in the .cu file says what bounds
+(body ``_flash_kernel``).  bfloat16 runs on the tensor cores (wgmma, TMA) at
+head_dim 64 and 128, float32 on the CUDA cores at head_dim 16, 32, 64 and
+128.  The source note in the .cu file says what bounds
 the kernel on the card, how the TPU's sequential key-block grid axis became
 a loop inside one CUDA block, and why the bf16 kernel splits P in two.
 """
@@ -16,7 +17,7 @@ from .ref import attention_ref
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 
 # Launches of the CUDA kernel since the last reset (repro_torch.kernels).
 launches = 0
@@ -39,14 +40,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{q.dtype}, {k.dtype} and {v.dtype}")
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}; got {d}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_attention needs contiguous q/k/v starting "
-                         "on 16-byte boundaries (it loads 16 bytes at once)")
-    if window < 0:
-        raise ValueError(f"window must be >= 0; got {window}")
+    check_operands("flash_attention", (q, k, v), d, window)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -57,6 +51,21 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     launches += 1
     return out
+
+
+def check_operands(name: str, ts, d: int, window: int) -> None:
+    """Raise on what the kernels do not take: head_dim outside
+    ``HEAD_DIMS`` of the dtype, tensors not contiguous or not starting on a
+    16-byte boundary (they load 16 bytes at once), a negative window."""
+    if d not in HEAD_DIMS[ts[0].dtype]:
+        raise ValueError(f"{name} takes head_dim in "
+                         f"{HEAD_DIMS[ts[0].dtype]} for {ts[0].dtype}; "
+                         f"got {d}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
+        raise ValueError(f"{name} needs contiguous tensors starting on "
+                         "16-byte boundaries (it loads 16 bytes at once)")
+    if window < 0:
+        raise ValueError(f"window must be >= 0; got {window}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,23 +1,112 @@
 """The model-layer attention signature, (B, S, H, D) x (B, S, KV, D) with
-grouped-query heads, in front of the flash-attention kernel.
+grouped-query heads, in front of the flash-attention kernels, forward and
+backward.
 
 Replaces src/repro/kernels/flash_attention/ops.py:gqa_flash_attention.  The
-reference repeats K/V per q-head before flattening; the kernel reads kv-head
+reference repeats K/V per q-head before flattening; the kernels read kv-head
 ``h // (H // KV)`` directly, which is the same mapping without the copy.
+
+``FlashAttention`` is a ``torch.autograd.Function`` (``setup_context``
+style) whose backward is ``FlashAttentionBackward``, the backward kernel
+pair.  Each is the one code path on both devices: inside ``forward`` a CPU
+tensor takes the plain version and a CUDA tensor the kernel (or raises).
+Each has a ``vmap`` rule that folds the mapped dimension into B and calls
+``apply`` once, so ``torch.func.vmap`` over clients or trials makes one
+launch for all of them, and ``vmap(grad(...))`` and ``grad(vmap(...))``
+both work.  The backward is not differentiable again.
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
+from .backward import launch_backward
 from .flash_attention import _on_cpu, launch
-from .ref import gqa_attention_ref
+from .ref import gqa_attention_bwd_ref, gqa_attention_ref
+
+
+def fold(xs: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
+         n: int):
+    """vmap's operands with their mapped dim ``dims[i]`` (None: unmapped,
+    broadcast) moved to the front and merged into the leading (batch) dim:
+    (…, B, …) -> (n·B, …)."""
+    out = []
+    for x, d in zip(xs, dims):
+        x = x.expand((n,) + x.shape) if d is None else x.movedim(d, 0)
+        out.append(x.reshape((n * x.shape[1],) + x.shape[2:]))
+    return out
+
+
+def unfold(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(n·B, …) -> (n, B, …)."""
+    return x.reshape((n, x.shape[0] // n) + x.shape[1:])
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v); q (B, S, H, D), k/v (B, S, KV, D)."""
+
+    @staticmethod
+    def forward(q, k, v, causal: bool, window: int):
+        if _on_cpu(q, k, v):
+            return gqa_attention_ref(q, k, v, causal, window)
+        return launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                      causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v, output)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, o, do,
+                                                  ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        n = info.batch_size
+        q, k, v = fold((q, k, v), in_dims[:3], n)
+        return unfold(FlashAttention.apply(q, k, v, causal, window), n), 0
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """(dq, dk, dv) of :class:`FlashAttention` at (q, k, v) with output o
+    and output gradient do."""
+
+    @staticmethod
+    def forward(q, k, v, o, do, causal: bool, window: int):
+        if _on_cpu(q, k, v, o, do):
+            return gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
+        return launch_backward(*(t.contiguous() for t in (q, k, v, o, do)),
+                               causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the flash-attention backward is not "
+                                  "differentiable (no double backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, do, causal, window):
+        n = info.batch_size
+        args = fold((q, k, v, o, do), in_dims[:5], n)
+        grads = FlashAttentionBackward.apply(*args, causal, window)
+        return tuple(unfold(g, n) for g in grads), (0, 0, 0)
 
 
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, S, H, D); k/v (B, S, KV, D) with KV dividing H -> (B, S, H, D).
+    """q (B, S, H, D); k/v (B, S, KV, D) with KV dividing H -> (B, S, H, D),
+    differentiable in q, k and v.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    CPU tensors take the plain version; CUDA tensors launch the kernels or
     raise."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
@@ -25,6 +114,4 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"need q (B, S, H, D) and k/v (B, S, KV, D) with KV "
                          f"dividing H; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if _on_cpu(q, k, v):
-        return gqa_attention_ref(q, k, v, causal, window)
-    return launch(q, k, v, causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, causal, int(window))

@@ -4,11 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-Mirrors ``repro/launch/serve.py``.  Weights are random, drawn from a seed
-(``torch.Generator`` seeded 0), and prompts come from ``TokenDataset``; no
-checkpoint or tokenizer is involved.  The CLI keeps the reference's flags,
-whose ``--reduced`` is always on; ``run_serve(..., reduced=False)`` serves
-the full-width config.
+Mirrors ``repro/launch/serve.py``.  Weights are random and prompts come
+from ``TokenDataset``, both drawn from ``PRNGKey(0)`` as the reference draws
+them; no checkpoint or tokenizer is involved.  The CLI keeps the
+reference's flags, whose ``--reduced`` is always on; ``run_serve(...,
+reduced=False)`` serves the full-width config.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import rng
 from ..configs import ARCH_IDS, get_config
 from ..data import TokenDataset
 from ..device import resolve_device
@@ -45,12 +46,12 @@ def run_serve(arch: str, batch: int, prompt_len: int, gen: int,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(vocab_size=512)
-    gen_ = torch.Generator(device=device)
-    params = init_model(gen_.manual_seed(0), cfg, device=device)
+    key = rng.PRNGKey(0, device)
+    params = init_model(key, cfg, device=device)
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       device=device)
     domains = torch.arange(batch, device=device) % ds.num_domains
-    prompts = ds.sample(gen_.manual_seed(0), domains)
+    prompts = ds.sample(key, domains)
     max_len = prompt_len + gen
 
     with torch.inference_mode():

@@ -6,6 +6,9 @@ Mirrors ``repro/models/layers.py`` function for function.  Parameters are
 plain dicts of tensors in the reference's layouts (``wq`` (d, H, hd), ``wo``
 (H, hd, d), dense weights (in, out), the embedding table (V, d)), so the
 reference's weights carry over unchanged (``repro_torch.convert``).  The
+``*_init`` functions draw from ``repro_torch.rng`` keys with the reference's
+split tree, so they give the reference's weights (to the ulp level ``rng``
+states for normals); a batch of keys (…, 2) gives a batch of models.  The
 reference's ``*_init`` also return logical sharding specs; the port runs on
 one card and returns the params alone.
 
@@ -13,10 +16,13 @@ Where the reference runs plain XLA, the port runs the hand-written kernels:
 attention in the ``train`` and ``prefill`` modes goes through
 ``gqa_flash_attention`` for both ``attention_impl`` values (``dense`` and
 ``chunked`` compute the same function), and the Mamba mixer's scan through
-``ssd_apply``.  Decode stays plain PyTorch, as the reference computes it
-outside any Pallas kernel.  Caches are updated in place (the reference
-returns new arrays): a decode step writes one slot instead of copying the
-whole cache.  A cache's ``idx`` is a Python int.
+``ssd_apply``.  Both are differentiable (``torch.autograd.Function``s whose
+backward is the flash backward kernel pair, and the plain chunked SSD's
+vjp) and batch under ``torch.func.vmap`` into one launch.  Decode stays
+plain PyTorch, as the reference computes it outside any Pallas kernel.
+Caches are updated in place (the reference returns new arrays): a decode
+step writes one slot instead of copying the whole cache.  A cache's ``idx``
+is a Python int.
 
 Conventions: params in ``cfg.dtype``; softmax, norms and the SSD accumulate
 in float32; attention caches hold RoPE'd keys at absolute positions.
@@ -29,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import rng
 from ..kernels.flash_attention import gqa_flash_attention
 from ..kernels.ssd_scan import ssd_apply
 from .config import ModelConfig
@@ -43,24 +50,39 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
+def _lead(key: torch.Tensor) -> Tuple[int, ...]:
+    """The batch shape of a key (…, 2)."""
+    return tuple(key.shape[:-1])
+
+
+def dense_init(key: torch.Tensor, shape: Tuple[int, ...],
                dtype: torch.dtype, in_axis: int = 0,
                scale: float = 1.0) -> torch.Tensor:
-    """Normal(0, scale / sqrt(shape[in_axis])) drawn in float32 from
-    ``generator`` on the generator's device, then cast to ``dtype``."""
-    std = scale / math.sqrt(shape[in_axis])
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (w * std).to(dtype)
+    """Normal(0, scale / sqrt(shape[in_axis])) drawn in float32 from ``key``
+    on the key's device, then cast to ``dtype``; keys (…, 2) -> (…,
+    *shape)."""
+    if key.device.type == "meta":     # shapes only (``param_count``)
+        return torch.empty(_lead(key) + tuple(shape), dtype=dtype,
+                           device="meta")
+    std = float(torch.tensor(scale / math.sqrt(shape[in_axis]),
+                             dtype=torch.float32))
+    return (rng.normal(key, shape) * std).to(dtype)
+
+
+def _full(key: torch.Tensor, shape: Tuple[int, ...], value: float,
+          dtype: torch.dtype) -> torch.Tensor:
+    return torch.full(_lead(key) + tuple(shape), value, dtype=dtype,
+                      device=key.device)
 
 
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm_init(d: int, dtype: torch.dtype,
-                 device: torch.device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def rmsnorm_init(key: torch.Tensor, d: int, dtype: torch.dtype) -> Params:
+    """Ones (d,), batched like ``key`` (only its shape and device are
+    read)."""
+    return {"scale": _full(key, (d,), 1.0, dtype)}
 
 
 def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5
@@ -98,24 +120,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def attention_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def attention_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    dt, dev = _dtype(cfg), generator.device
+    dt = _dtype(cfg)
+    ks = rng.split(key, 4)
     params: Params = {
-        "wq": dense_init(generator, (d, h, hd), dt),
-        "wk": dense_init(generator, (d, kv, hd), dt),
-        "wv": dense_init(generator, (d, kv, hd), dt),
-        "wo": dense_init(generator, (h, hd, d), dt, in_axis=0,
+        "wq": dense_init(ks[..., 0, :], (d, h, hd), dt),
+        "wk": dense_init(ks[..., 1, :], (d, kv, hd), dt),
+        "wv": dense_init(ks[..., 2, :], (d, kv, hd), dt),
+        "wo": dense_init(ks[..., 3, :], (h, hd, d), dt, in_axis=0,
                          scale=1.0 / math.sqrt(2 * cfg.num_layers)),
     }
     if cfg.qkv_bias:
-        params["bq"] = torch.zeros((h, hd), dtype=dt, device=dev)
-        params["bk"] = torch.zeros((kv, hd), dtype=dt, device=dev)
-        params["bv"] = torch.zeros((kv, hd), dtype=dt, device=dev)
+        params["bq"] = _full(key, (h, hd), 0.0, dt)
+        params["bk"] = _full(key, (kv, hd), 0.0, dt)
+        params["bv"] = _full(key, (kv, hd), 0.0, dt)
     if cfg.qk_norm:
-        params["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
-        params["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+        params["q_norm"] = _full(key, (hd,), 1.0, dt)
+        params["k_norm"] = _full(key, (hd,), 1.0, dt)
     return params
 
 
@@ -250,16 +273,17 @@ def _activation(name: str):
     return lambda t: F.gelu(t, approximate="tanh")
 
 
-def mlp_init(generator: torch.Generator, cfg: ModelConfig,
-             d_ff: int) -> Params:
+def mlp_init(key: torch.Tensor, cfg: ModelConfig, d_ff: int) -> Params:
     d, dt = cfg.d_model, _dtype(cfg)
+    ks = rng.split(key, 3)
     out_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
     if cfg.activation == "relu2":
-        return {"w1": dense_init(generator, (d, d_ff), dt),
-                "w2": dense_init(generator, (d_ff, d), dt, scale=out_scale)}
-    return {"w_gate": dense_init(generator, (d, d_ff), dt),
-            "w_up": dense_init(generator, (d, d_ff), dt),
-            "w2": dense_init(generator, (d_ff, d), dt, scale=out_scale)}
+        return {"w1": dense_init(ks[..., 0, :], (d, d_ff), dt),
+                "w2": dense_init(ks[..., 1, :], (d_ff, d), dt,
+                                 scale=out_scale)}
+    return {"w_gate": dense_init(ks[..., 0, :], (d, d_ff), dt),
+            "w_up": dense_init(ks[..., 1, :], (d, d_ff), dt),
+            "w2": dense_init(ks[..., 2, :], (d_ff, d), dt, scale=out_scale)}
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -275,21 +299,25 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Mamba2 (SSD) mixer
 # ---------------------------------------------------------------------------
 
-def mamba_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
-    d, dt, dev = cfg.d_model, _dtype(cfg), generator.device
+def mamba_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    d, dt = cfg.d_model, _dtype(cfg)
     din, h, n, g = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
     conv_dim = din + 2 * g * n
-    f32 = dict(dtype=torch.float32, device=dev)
+    ks = rng.split(key, 5)
+    f32 = dict(dtype=torch.float32, device=key.device)
+    # The reference's float32 constants: log(linspace) and log(expm1(0.01)).
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, **f32))
+    dt_bias = torch.log(torch.expm1(torch.full((h,), 0.01, **f32)))
     return {
-        "in_proj": dense_init(generator, (d, 2 * din + 2 * g * n + h), dt),
-        "conv_w": dense_init(generator, (cfg.ssm_conv_width, conv_dim), dt,
-                             in_axis=0),
-        "conv_b": torch.zeros((conv_dim,), dtype=dt, device=dev),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, h, **f32)),
-        "D": torch.ones((h,), **f32),
-        "dt_bias": torch.log(torch.expm1(torch.full((h,), 0.01, **f32))),
-        "norm_scale": torch.ones((din,), dtype=dt, device=dev),
-        "out_proj": dense_init(generator, (din, d), dt,
+        "in_proj": dense_init(ks[..., 0, :], (d, 2 * din + 2 * g * n + h), dt),
+        "conv_w": dense_init(ks[..., 1, :], (cfg.ssm_conv_width, conv_dim),
+                             dt, in_axis=0),
+        "conv_b": _full(key, (conv_dim,), 0.0, dt),
+        "A_log": a_log.expand(_lead(key) + (h,)).clone(),
+        "D": _full(key, (h,), 1.0, torch.float32),
+        "dt_bias": dt_bias.expand(_lead(key) + (h,)).clone(),
+        "norm_scale": _full(key, (din,), 1.0, dt),
+        "out_proj": dense_init(ks[..., 4, :], (din, d), dt,
                                scale=1.0 / math.sqrt(2 * cfg.num_layers)),
     }
 
@@ -385,8 +413,8 @@ def mamba_apply(p: Params, u: torch.Tensor, cfg: ModelConfig, *,
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
-    return {"table": dense_init(generator, (cfg.vocab_size, cfg.d_model),
+def embed_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    return {"table": dense_init(key, (cfg.vocab_size, cfg.d_model),
                                 _dtype(cfg), in_axis=1)}
 
 

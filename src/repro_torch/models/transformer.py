@@ -10,7 +10,12 @@ of block params and a per-layer list of caches and runs a Python loop, so
 single-device no-ops and are dropped.  MoE, cross-attention, the VLM and the
 audio pathways raise ``NotImplementedError``: they come with later slices.
 
+Weights are drawn from ``repro_torch.rng`` keys with the reference's split
+tree (``init_model``: ``split(key, 6)``; the stack's blocks as
+``stack_plan`` lays them out), so a key gives the reference's model.
+
 Entry points:
+    loss_fn(params, cfg, batch)               — training loss (next-token CE)
     forward(params, cfg, batch)               — full-sequence logits
     prefill(params, cfg, batch, max_len)      — last logits and the caches
     decode_step(params, cfg, tokens, caches)  — one token, cache-resident
@@ -21,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import rng
 from ..device import resolve_device
 from . import layers as L
 from .config import ModelConfig
@@ -46,20 +52,22 @@ def _check_family(cfg: ModelConfig) -> None:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def block_init(generator: torch.Generator, cfg: ModelConfig,
-               kind: Kind) -> Params:
+def block_init(key: torch.Tensor, cfg: ModelConfig, kind: Kind) -> Params:
+    """One block from ``key``: ``split(key, 6)``, the mixer from slot 0 and
+    the MLP from slot 2, as the reference draws them."""
     mixer, ffn = kind
-    dt, dev = L._dtype(cfg), generator.device
-    params: Params = {"mixer_norm": L.rmsnorm_init(cfg.d_model, dt, dev)}
+    dt = L._dtype(cfg)
+    ks = rng.split(key, 6)
+    params: Params = {"mixer_norm": L.rmsnorm_init(key, cfg.d_model, dt)}
     if mixer == "attn":
-        params["attn"] = L.attention_init(generator, cfg)
+        params["attn"] = L.attention_init(ks[..., 0, :], cfg)
     else:
-        params["mamba"] = L.mamba_init(generator, cfg)
+        params["mamba"] = L.mamba_init(ks[..., 0, :], cfg)
     if ffn in ("moe", "moe+dense"):
         raise _unsupported("the MoE feed-forward", "the MoE slice")
     if ffn != "none":
-        params["ffn_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
-        params["mlp"] = L.mlp_init(generator, cfg, cfg.d_ff)
+        params["ffn_norm"] = L.rmsnorm_init(key, cfg.d_model, dt)
+        params["mlp"] = L.mlp_init(ks[..., 2, :], cfg, cfg.d_ff)
     return params
 
 
@@ -118,10 +126,19 @@ def stack_plan(cfg: ModelConfig) -> Tuple[List[Kind], int, int]:
     return kinds[:p], p, len(kinds) // p
 
 
-def stack_init(generator: torch.Generator, cfg: ModelConfig) -> Params:
-    """{"blocks": [block params of layer 0, 1, ...]}."""
-    return {"blocks": [block_init(generator, cfg, kind)
-                       for kind in cfg.layer_kinds()]}
+def stack_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    """{"blocks": [block params of layer 0, 1, ...]}, layer ``r * period +
+    j`` drawn from ``split(split(key, reps)[r], period)[j]`` (``split(key,
+    period)[j]`` when the reference does not stack repeats), the
+    reference's tree."""
+    kinds, period, reps = stack_plan(cfg)
+    supers = rng.split(key, reps) if reps > 1 else key[..., None, :]
+    blocks = []
+    for r in range(reps):
+        ks = rng.split(supers[..., r, :], period)
+        blocks += [block_init(ks[..., j, :], cfg, kind)
+                   for j, kind in enumerate(kinds)]
+    return {"blocks": blocks}
 
 
 def stack_apply_train(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -155,22 +172,57 @@ def stack_apply_cached(params: Params, x: torch.Tensor, cfg: ModelConfig,
 # Whole models
 # ---------------------------------------------------------------------------
 
-def init_model(generator: Optional[torch.Generator], cfg: ModelConfig,
+def init_model(key: "rng.KeyLike | None", cfg: ModelConfig,
                device: "str | torch.device | None" = None) -> Params:
-    """Random weights drawn from ``generator`` (seeded 0 on ``device`` when
-    None), which must live on ``device``.  Returns the params alone; the
-    reference also returns sharding specs."""
+    """The reference's random weights for ``key`` (``PRNGKey(0)`` when
+    None) on ``device``: ``split(key, 6)``, the embedding from slot 0 and
+    the stack from slot 1.  A batch of keys (…, 2) gives a batch of models,
+    every leaf (…, *shape).  Returns the params alone; the reference also
+    returns sharding specs."""
     _check_family(cfg)
     device = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    if generator.device.type != device.type:
-        raise ValueError(f"the generator lives on {generator.device}, the "
-                         f"model on {device}")
-    dt = L._dtype(cfg)
-    return {"embed": L.embed_init(generator, cfg),
-            "stack": stack_init(generator, cfg),
-            "final_norm": L.rmsnorm_init(cfg.d_model, dt, generator.device)}
+    key = rng.as_key(rng.PRNGKey(0) if key is None else key).to(device)
+    ks = rng.split(key, 6)
+    return {"embed": L.embed_init(ks[..., 0, :], cfg),
+            "stack": stack_init(ks[..., 1, :], cfg),
+            "final_norm": L.rmsnorm_init(key, cfg.d_model, L._dtype(cfg))}
+
+
+def flatten_params(params: Params, prefix: str = "") -> Dict[str, Any]:
+    """Nested LM params -> one flat dict keyed by dotted paths, a layer's
+    leaves under ``stack.blocks.<layer>.`` (the FL engines' and the
+    optimizers' flat form)."""
+    out: Dict[str, Any] = {}
+    items = (enumerate(params) if isinstance(params, list)
+             else params.items())
+    for key, value in items:
+        path = f"{prefix}{key}"
+        if isinstance(value, (dict, list)):
+            out.update(flatten_params(value, path + "."))
+        else:
+            out[path] = value
+    return out
+
+
+def unflatten_params(flat: Dict[str, Any]) -> Params:
+    """:func:`flatten_params` undone: ``stack.blocks`` becomes the per-layer
+    list again."""
+    tree: Dict[str, Any] = {}
+    for path, value in flat.items():
+        *parents, name = path.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
@@ -207,6 +259,16 @@ def token_ce(logits: torch.Tensor, targets: torch.Tensor, *,
     if with_accuracy:
         m["accuracy"] = ((logits.argmax(-1) == tsafe) * valid).sum() / denom
     return loss, m
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE over ``batch["targets"]`` (−1 = ignore) plus the MoE
+    aux loss (0 without MoE) -> (total, {"ce", "aux", "ntok"})."""
+    logits, aux = forward(params, cfg, batch)
+    loss, m = token_ce(logits, batch["targets"])
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"ce": loss, "aux": aux, "ntok": m["ntok"]}
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +308,6 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 __all__ = ["block_apply", "block_cache_init", "block_init", "decode_step",
-           "forward", "init_caches", "init_model", "prefill",
-           "stack_apply_cached", "stack_apply_train", "stack_init",
-           "stack_plan", "token_ce"]
+           "flatten_params", "forward", "init_caches", "init_model",
+           "loss_fn", "prefill", "stack_apply_cached", "stack_apply_train",
+           "stack_init", "stack_plan", "token_ce", "unflatten_params"]

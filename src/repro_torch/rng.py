@@ -16,7 +16,8 @@ of a larger array by passing its flat indices (:func:`bits_at`) and get the
 same numbers as the full draw.  Bits and uniforms are bit-equal to JAX's;
 ``normal`` is ``√2 · erf_inv(u)`` with a copy of XLA's float32 ``erf_inv``
 (``core.ordered`` rounding), equal to JAX's but for about one draw in
-50,000, which lands one or two ulp away.
+50,000, which lands one or two ulp away.  ``gumbel`` and ``categorical``
+take XLA's CPU ``log`` (``core.ordered.log``) and are bit-equal.
 
 Torch has no unsigned 32-bit arithmetic on every device, so words live in
 int64 and are masked back to 32 bits after each add and shift.
@@ -24,11 +25,11 @@ int64 and are masked back to 32 bits after each add and shift.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
-from .core.ordered import fma, log1p
+from .core.ordered import fma, log, log1p
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -39,24 +40,26 @@ _CHUNK = 1 << 24
 KeyLike = Union[torch.Tensor, Sequence[int]]
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & _MASK) | (x >> (32 - r))
-
-
 def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
                  x1: torch.Tensor):
     """The Threefry-2x32 hash (20 rounds) of the counter pair (x0, x1) under
     the key (k0, k1); every argument an int64 tensor of 32-bit words, all
-    broadcast together.  Returns the two output words."""
+    broadcast together.  Returns the two output words.  The rounds update
+    two buffers in place: a draw of millions of elements then makes no
+    new allocation a step."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _MASK
-    x1 = (x1 + ks[1]) & _MASK
+    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    x0 = ((x0 + ks[0]) & _MASK).expand(shape).contiguous()
+    x1 = ((x1 + ks[1]) & _MASK).expand(shape).contiguous()
+    tmp = torch.empty_like(x1)
     for i in range(5):
         for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & _MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+            x0.add_(x1).bitwise_and_(_MASK)
+            torch.bitwise_right_shift(x1, 32 - r, out=tmp)      # rotl(x1, r)
+            x1.bitwise_left_shift_(r).bitwise_and_(_MASK).bitwise_or_(tmp)
+            x1.bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK)
     return x0, x1
 
 
@@ -99,7 +102,7 @@ def bits_at(key: KeyLike, index: torch.Tensor) -> torch.Tensor:
     index = index.to(torch.int64)
     k0, k1 = key[..., 0], key[..., 1]
     y0, y1 = threefry2x32(k0, k1, index >> 32, index & _MASK)
-    return y0 ^ y1
+    return y0.bitwise_xor_(y1)
 
 
 def random_bits(key: KeyLike, shape: Sequence[int]) -> torch.Tensor:
@@ -227,9 +230,79 @@ def normal_rows(keys: KeyLike, offsets: torch.Tensor,
 
 
 def normal(key: KeyLike, shape: Sequence[int] = ()) -> torch.Tensor:
-    """``jax.random.normal`` in float32: keys (B..., 2) -> (B..., *shape)."""
+    """``jax.random.normal`` in float32: keys (B..., 2) -> (B..., *shape).
+    A draw larger than ``_CHUNK`` elements is hashed as rows of ``_CHUNK``,
+    so a full-width embedding table stays within the same temporaries."""
     key = as_key(key)
     shape = tuple(int(s) for s in shape)
-    zero = torch.zeros(key.shape[:-1], dtype=torch.int64, device=key.device)
-    return normal_rows(key, zero, math.prod(shape)).reshape(
+    n = math.prod(shape)
+    width = max(1, min(n, _CHUNK))
+    offsets = torch.arange(-(-n // width), dtype=torch.int64,
+                           device=key.device) * width
+    flat = normal_rows(key[..., None, :], offsets, width)
+    return flat.reshape(key.shape[:-1] + (-1,))[..., :n].reshape(
         key.shape[:-1] + shape)
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def _gumbel_at(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """JAX's low-range gumbel of the elements at flat ``idx`` of a draw
+    under ``keys``: ``−log(−log(u))`` with u uniform on [tiny, 1)."""
+    u = _scale(bits_to_unit(bits_at(keys, idx)), _TINY, 1.0)
+    return -log(-log(u))
+
+
+def gumbel(key: KeyLike, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32 (mode "low", JAX's default): keys
+    (B..., 2) -> (B..., *shape)."""
+    key = as_key(key)
+    shape = tuple(int(s) for s in shape)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    return _gumbel_at(key[..., None, :], idx).reshape(key.shape[:-1] + shape)
+
+
+def categorical_rows(keys: KeyLike, offsets: torch.Tensor,
+                     logits: torch.Tensor, num: int) -> torch.Tensor:
+    """Rows of categorical draws: row r holds ``num`` draws from
+    ``logits[r]`` (…, V), each the argmax over V of the logits plus the
+    gumbels at elements ``offsets[r] + i·V`` … ``+ V − 1`` of a draw under
+    ``keys[r]`` -> (…, num) int64.  That is ``jax.random.categorical(k,
+    logits[..., None, :], shape=(…, num))`` row by row, where row r sits at
+    counter offset ``offsets[r]`` of the whole draw; hashed a block of rows
+    at a time, as :func:`normal_rows` is."""
+    keys = as_key(keys)
+    offsets = torch.as_tensor(offsets, dtype=torch.int64, device=keys.device)
+    v = logits.shape[-1]
+    lead = torch.broadcast_shapes(keys.shape[:-1], offsets.shape,
+                                  logits.shape[:-1])
+    keys = keys.expand(lead + (2,)).reshape(-1, 2)
+    offsets = offsets.expand(lead).reshape(-1)
+    logits = logits.to(torch.float32).expand(lead + (v,)).reshape(-1, v)
+    cols = torch.arange(num * v, dtype=torch.int64, device=keys.device)
+    out = torch.empty((offsets.numel(), num), dtype=torch.int64,
+                      device=keys.device)
+    step = max(1, _CHUNK // max(num * v, 1))
+    for r in range(0, offsets.numel(), step):
+        sl = slice(r, r + step)
+        g = _gumbel_at(keys[sl, None, :], offsets[sl, None] + cols)
+        out[sl] = (g.reshape(-1, num, v) + logits[sl, None, :]).argmax(-1)
+    return out.reshape(lead + (num,))
+
+
+def categorical(key: KeyLike, logits: torch.Tensor,
+                shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1, shape)`` (with
+    replacement, the gumbel-max draw) for one key -> int64 of ``shape``
+    (default ``logits.shape[:-1]``): the argmax over the last axis of
+    ``gumbel(key, shape + (V,))`` plus the logits broadcast against it."""
+    key = as_key(key)
+    if key.dim() != 1:
+        raise ValueError("categorical takes one key; categorical_rows takes "
+                         "a key a row")
+    batch = tuple(logits.shape[:-1])
+    shape = batch if shape is None else tuple(int(s) for s in shape)
+    torch.broadcast_shapes(shape, batch)          # raises if incompatible
+    g = gumbel(key, shape + (logits.shape[-1],))
+    return (g + logits.to(torch.float32)).argmax(-1)

@@ -405,6 +405,8 @@ def test_cpu_tensors_launch_no_kernel():
     tdispatch.client_histograms(_t(labels), 3, _t(valid))
     tdispatch.masked_weighted_mean({"a": torch.ones(2, 5)}, torch.ones(2))
     assert tkernels.launch_counts() == {"label_hist": 0, "weighted_agg": 0,
-                                        "flash_attention": 0, "ssd_scan": 0}
+                                        "flash_attention": 0,
+                                        "flash_attention_bwd": 0,
+                                        "ssd_scan": 0}
     with pytest.raises(ValueError):
         tdispatch.client_histograms(_t(labels), 3, backend="pallas")

@@ -10,7 +10,14 @@ the reference, so it runs on a machine that has only PyTorch:
 Tolerances: histograms bit-equal; the weighted sum within one float32
 rounding per client term; float32 attention 2e-5 and the SSD scan 1e-4 (the
 reference's own pins, tests/test_kernels.py); bfloat16 attention one bf16 ulp
-(both sides round a float32 result once, 2^-7 of the value at most).
+(both sides round a float32 result once, 2^-7 of the value at most).  The
+flash backward pair against the plain backward within ``BWD_TOL`` of each
+gradient's largest magnitude: twice the plain backward's own error in the
+input dtype against a float64 plain backward, read by ``chip_smoke.py``
+phase 16a (PERF.md).  Gradients of the model on the card against the CPU
+within ``GRAD_TOL`` of each leaf's largest magnitude, the limit that holds
+the port's gradients to the reference's on the CPU
+(tests/test_torch_train.py).
 """
 import numpy as np
 import pytest
@@ -19,7 +26,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention, gqa_attention_ref, gqa_flash_attention)
+    FlashAttentionBackward, attention_ref, flash_attention,
+    gqa_attention_bwd_ref, gqa_attention_ref, gqa_flash_attention)
 from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref  # noqa: E402
 from repro_torch.kernels.dispatch import masked_weighted_mean  # noqa: E402
@@ -28,6 +36,9 @@ from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,  # noqa: E402
                                               weighted_agg_ref)
 
 pytestmark = pytest.mark.cuda
+
+BWD_TOL = {torch.float32: 2.5e-6, torch.bfloat16: 7e-3}
+GRAD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -378,3 +389,105 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     B = _randn((1, 32, 1, 12), 1, cuda)       # N = 12: no multiple of 8
     with pytest.raises(ValueError, match="N in"):
         ssd_apply(x, x[..., 0].abs(), -x[0, 0, :, 0].abs(), B, B, chunk=32)
+
+
+# (B, S, H, KV, D, dtype, causal, window): qwen3-14b's prefill shape in
+# bf16, causal and windowed; float32 at every head dim, GQA groups 1, 2 and
+# 5, ragged S (no multiple of the 64-row or 32-key tiles), a window shorter
+# than a tile and no causal mask.
+BWD_SHAPES = [
+    (4, 1024, 40, 8, 128, torch.bfloat16, True, 0),
+    (4, 1024, 40, 8, 128, torch.bfloat16, True, 256),
+    (2, 77, 10, 10, 16, torch.float32, True, 0),
+    (2, 77, 10, 5, 32, torch.float32, True, 5),
+    (2, 130, 10, 2, 64, torch.float32, True, 0),
+    (1, 130, 4, 2, 128, torch.float32, False, 0),
+    (2, 77, 10, 2, 16, torch.float32, False, 7),
+    (1, 333, 10, 2, 128, torch.bfloat16, True, 40),
+]
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,dtype,causal,window", BWD_SHAPES)
+def test_flash_backward_kernels_match_plain_backward(cuda, b, s, h, kv, d,
+                                                     dtype, causal, window):
+    q = _randn((b, s, h, d), 1, cuda).to(dtype)
+    k, v = (_randn((b, s, kv, d), i, cuda).to(dtype) for i in (2, 3))
+    do = _randn((b, s, h, d), 4, cuda).to(dtype)
+    o = gqa_flash_attention(q, k, v, causal=causal, window=window)
+    got = FlashAttentionBackward.apply(q, k, v, o, do, causal, window)
+    want = gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_TOL[dtype], name
+
+
+def _lm_grads(arch, device):
+    """Gradients of forward + token_ce of a reduced float32 model, weights
+    from PRNGKey(3) made on the CPU, at ``device``."""
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_model, token_ce
+    from repro_torch.models.transformer import (flatten_params,
+                                                unflatten_params)
+    cfg = get_config(arch).reduced(dtype="float32")
+    flat = flatten_params(init_model(rng.PRNGKey(3), cfg, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 40)))
+    targets = torch.roll(toks, -1, 1)
+    targets[:, -1] = -1
+
+    def loss(p):
+        logits, _ = forward(unflatten_params(p), cfg,
+                            {"tokens": toks.to(device)})
+        return token_ce(logits, targets.to(device))[0]
+
+    grads = torch.func.grad(loss)({k: v.to(device) for k, v in flat.items()})
+    return {k: g.cpu() for k, g in grads.items()}
+
+
+@pytest.mark.parametrize("arch,leaves", [
+    ("qwen3-14b", ("attn.wq", "attn.wk", "attn.wv")),
+    ("mamba2-1.3b", ("mamba.in_proj", "mamba.A_log", "mamba.dt_bias"))])
+def test_model_gradients_on_the_card_match_the_cpu(cuda, arch, leaves):
+    """The attention and SSD branches carry their gradients on the card
+    (the kernels' outputs had no grad_fn before they became
+    autograd.Functions, which left these leaves' gradients zero)."""
+    got = _lm_grads(arch, cuda)
+    counts = kernels.launch_counts()
+    want = _lm_grads(arch, torch.device("cpu"))
+    assert counts["flash_attention_bwd" if arch == "qwen3-14b"
+                  else "ssd_scan"] >= 2
+    for name in got:
+        scale = want[name].abs().max().item()
+        assert (got[name] - want[name]).abs().max().item() <= GRAD_TOL * scale
+    for name in (n for n in got if n.endswith(leaves)):
+        assert want[name].abs().max().item() > 0, name
+
+
+def test_vmap_grad_over_clients_is_one_launch_each_way(cuda):
+    """vmap(grad(...)) over 6 clients equals 6 separate calls, and the flash
+    kernels launch once each way for all of them."""
+    from torch.func import grad, vmap
+    q = _randn((6, 2, 40, 4, 16), 5, cuda)
+    k, v = _randn((6, 2, 40, 2, 16), 6, cuda), _randn((6, 2, 40, 2, 16), 7,
+                                                      cuda)
+    w = _randn((2, 40, 4, 16), 8, cuda)
+
+    def loss(q, k, v):
+        return (gqa_flash_attention(q, k, v, window=9) * w).sum()
+
+    batched = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 1)
+    for i in range(6):
+        one = grad(loss, argnums=(0, 1, 2))(q[i], k[i], v[i])
+        for a, b_ in zip(batched, one):
+            torch.testing.assert_close(a[i], b_, rtol=1e-5, atol=1e-6)

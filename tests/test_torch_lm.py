@@ -31,6 +31,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import prefill as jprefill  # noqa: E402
 from repro.models import token_ce as jtoken_ce  # noqa: E402
 
+from repro_torch import rng  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.convert import lm_params_from_jax, lm_params_to_jax  # noqa: E402
 from repro_torch.data import TokenDataset  # noqa: E402
@@ -320,7 +321,7 @@ def test_token_dataset_log_probs_bit_equal(vocab):
     ref = JTokenDataset(vocab_size=vocab, seq_len=9)
     np.testing.assert_array_equal(ds.log_probs.numpy(),
                                   np.asarray(ref.log_probs))
-    toks = ds.sample(torch.Generator().manual_seed(0), torch.arange(12) % 10)
+    toks = ds.sample(rng.PRNGKey(0), torch.arange(12) % 10)
     assert toks.shape == (12, 9)
     assert int(toks.min()) >= 0 and int(toks.max()) < vocab
 
