@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time and the compiler's register report;
-   check from ``cuobjdump -sass`` that the bf16 flash kernel and both SSD
-   scan kernels run on the tensor cores (``HGMMA``, ``HMMA``) and from the
-   ``-Xptxas -v`` log that they spill nothing;
+   check from ``cuobjdump -sass`` that the bf16 flash kernels (the forward
+   and the backward's dQ and dK/dV kernels) and both SSD scan kernels run
+   on the tensor cores (``HGMMA``, ``HMMA``) and from the ``-Xptxas -v``
+   log that they spill nothing;
 3. hold ``label_hist`` against its plain version on the card, bit-equal, at
    the round's shapes, the batched grid's (10500, 290, 10), long rows
    (8, 2^20, 10), C = 1 and 33, n = 0, 1 and 31, rows shared by 8 and 4
@@ -57,7 +58,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     in float32, prefill ≡ forward at the last prompt position and one decode
     step ≡ forward at the next, held to ``SELF_TOL_BF16`` and
     ``SELF_TOL_F32``;
-12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes;
+12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes, the
+    forward in turns without and with the row logsumexp it writes for the
+    backward (output bit-identical);
 13. the grid engine (``run(ExperimentSpec(engine="sim"))``), in four parts:
     (a) ``repro_torch.rng`` on the card against threefry known answers
     taken from JAX (bits, keys and uniforms bit-equal, normals within
@@ -113,16 +116,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     async's (10 arrivals, 10 clients, the CNN's leaves), each timed beside
     its bound.
 
-16. LM training: (a) the flash backward kernel pair against the plain
-    backward at ``BWD_SHAPES`` (bf16 at qwen3-14b's (4, 1024, 40/8, 128),
-    causal and window 256; float32 at head_dim 16, 32, 64 and 128, GQA
-    groups 1, 2 and 5, ragged S, a window of 5, no causal mask), each
-    within ``BWD_TOL`` of its max |grad|, with the plain backward's own
-    error against a float64 plain backward printed beside it, and its time
-    at qwen3-14b's shape beside its bound, the plain backward and SDPA's
-    backward; (b) the SSD Function's gradients at mamba2-1.3b's widths,
-    card against CPU, and the time of its backward (the plain chunked
-    form's vjp); (c) ``vmap(grad)`` of a reduced LM over 6 clients: equal
+16. LM training: (a) the flash backward kernels against the plain
+    backward at ``BWD_SHAPES`` (bf16, the tensor-core kernels, at
+    qwen3-14b's (4, 1024, 40/8, 128) causal and window 256, head_dim 64,
+    GQA groups 1, 5 and 8, S of 77, 190, 257, 300 and 333, windows of 20,
+    33 and 40, no causal mask; float32, the CUDA-core pair, at head_dim 16,
+    32, 64 and 128, GQA groups 1, 2 and 5, ragged S, a window of 5, no
+    causal mask), each within ``BWD_TOL`` of its max |grad| of the plain
+    backward and of a float64 plain backward, with the plain backward's own
+    error against float64 printed beside it; the bf16 kernels' time at
+    qwen3-14b's shape beside their bound, the plain backward, SDPA's
+    backward and the float32 pair at the same shape; (b) the SSD
+    Function's gradients at mamba2-1.3b's widths, card against CPU, and the
+    time of its backward (the plain chunked form's vjp); (c) ``vmap(grad)`` of a reduced LM over 6 clients: equal
     to 6 separate calls and one flash launch each way a layer; (d) the
     model's gradients card against CPU (the attention and SSD branches
     carry their gradients); (e) the ``lm`` FL workload through ``run``:
@@ -141,10 +147,12 @@ The line before the last is a JSON object with each kernel's numbers
 phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
 ``async_launches`` and ``population_*``; ``weighted_agg``'s also phase 13's
 ``trial_axis_*``, phase 14's ``clustered_*`` and phase 15's ``async_*``;
-``ssd_scan``'s phase 16's ``train_launches`` and ``backward_*``; the
-backward kernel pair ``flash_attention_bwd``, its ``launches`` those of
-phase 16f's qwen3-14b run and ``fl_launches`` phase 16e's sim run); the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+``ssd_scan``'s phase 16's ``train_launches`` and ``backward_*``;
+``flash_attention``'s phase 12's ``lse_ms``; the backward kernels
+``flash_attention_bwd``, its ``launches`` those of phase 16f's qwen3-14b
+run, ``fl_launches`` phase 16e's sim run and ``f32_pair_ms`` the float32
+pair at the same shape); the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or
 without the checkout's ``src/repro_torch`` beside this file, the script exits
 non-zero and prints no result.
 """
@@ -405,6 +413,8 @@ def _assert_close(what: str, got, want, tol: float) -> float:
 # Kernels that must run on the tensor cores: name in the SASS, the
 # instruction that shows it, and the template arguments printed beside it.
 TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",)),
+                       ("flash_bwd_dq_wgmma", "HGMMA", ("D",)),
+                       ("flash_bwd_dkv_wgmma", "HGMMA", ("D",)),
                        ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
                        ("ssd_prep_kernel", "HMMA", ("NP",)))
 
@@ -876,6 +886,29 @@ def flash_mma_flops(b: int, s: int, h: int, d: int) -> int:
     return b * h * tiles * 3 * 2 * 64 * 64 * d
 
 
+def flash_bwd_mma_flops(b: int, s: int, h: int, d: int) -> int:
+    """Tensor-core operations the bf16 backward kernels run for causal
+    attention: dQ a 64-row warpgroup of a 128-row q-tile over every 64-key
+    tile up to its frontier (S, dP once, dS.K twice); dK/dV a 64-key
+    warpgroup of a 128-key tile over every 64-row q-tile from its diagonal,
+    for each q-head of its group (S^T, dP^T once, P^T.dO and dS^T.Q
+    twice).  For information only: the bound counts live (q, k)
+    pairs and each product once."""
+    dq_tiles = dkv_tiles = 0
+    for q0 in range(0, s, 128):
+        t_hi = -(-min(s, q0 + 128) // 64)
+        for row_lo in (q0, q0 + 64):
+            if row_lo < s:
+                dq_tiles += min(t_hi, (row_lo + 63) // 64 + 1)
+    for k0 in range(0, s, 128):
+        for kw0 in (k0, k0 + 64):
+            if kw0 < s:
+                dkv_tiles += sum(1 for q0 in range(k0 // 64 * 64, s, 64)
+                                 if q0 + 63 >= kw0)
+    per = 2 * 64 * 64 * d
+    return b * h * (dq_tiles * 4 + dkv_tiles * 6) * per
+
+
 def ssd_mma_flops(b: int, s: int, h: int, p: int, g_: int, n: int) -> int:
     """Tensor-core operations the SSD kernels run (csrc/ssd_scan.cu), each
     product three times for the split TF32 (hi.hi, hi.lo, lo.hi), N padded
@@ -895,8 +928,8 @@ def phase12_times(dev) -> dict:
     """flash_attention and ssd_scan at the serving path's shapes."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (gqa_attention_ref,
-                                                     gqa_flash_attention)
+    from repro_torch.kernels.flash_attention import gqa_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import launch
     from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref
     say("== 12. flash_attention and ssd_scan at the serving path's shapes")
     g = torch.Generator(device=dev).manual_seed(12)
@@ -905,7 +938,18 @@ def phase12_times(dev) -> dict:
     k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
             for _ in range(2))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    fa = {"ms": time_ms(lambda: gqa_flash_attention(q, k, v)),
+
+    def serving():                # what prefill runs: no row statistics
+        return launch(q, k, v, causal=True, window=0)
+
+    def training():               # what a train step runs: L written too
+        return launch(q, k, v, causal=True, window=0, with_lse=True)
+
+    if not torch.equal(serving(), training()[0]):
+        raise AssertionError("flash_attention: the output with lse differs "
+                             "from the output without")
+    turns = [time_ms(f) for f in (serving, training, training, serving)]
+    fa = {"ms": (turns[0] + turns[3]) / 2, "lse_ms": (turns[1] + turns[2]) / 2,
           "plain": time_ms(lambda: gqa_attention_ref(q, k, v), reps=3,
                            trials=5),
           "lib": time_ms(lambda: F.scaled_dot_product_attention(
@@ -918,6 +962,10 @@ def phase12_times(dev) -> dict:
         f"({fa['by']}: {ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
         f"{nbytes / 1e6:.1f} MB), plain {fa['plain']:.4f} ms, "
         f"scaled_dot_product_attention {fa['lib']:.4f} ms")
+    say(f"flash_attention writing each row's logsumexp for the backward: "
+        f"{fa['lse_ms']:.4f} ms against {fa['ms']:.4f} ms without "
+        f"({fa['lse_ms'] / fa['ms'] - 1:+.2%}; in turns "
+        f"{', '.join(f'{x:.4f}' for x in turns)}), output bit-identical")
     mma = flash_mma_flops(b, s, h, d)
     say(f"flash_attention bf16 kernel's own tensor-core work: {mma / 1e9:.1f} "
         f"GFLOP (Q.K^T once, P.V twice for the P_hi/P_lo split, whole "
@@ -1919,12 +1967,13 @@ def phase15d_kernels(dev) -> dict:
     return {"label_hist": hist, "weighted_agg": agg}
 
 
-# Phase 16: LM training.  (a) the flash backward pair against the plain
-# backward, each gradient's max |diff| over its max |value|.  The limits are
-# twice the plain backward's own error in the input dtype against a float64
-# plain backward, read by this phase (H100 80GB HBM3 at 700 W, PERF.md):
-# at most 1.13e-6 in float32 and 3.44e-3 in bfloat16 over BWD_SHAPES, the
-# kernel's own gaps to the plain version 4.4e-7 and 1.8e-3.
+# Phase 16: LM training.  (a) the flash backward kernels against the plain
+# backward and a float64 plain backward, each gradient's max |diff| over its
+# max |value|.  The limits are twice the plain backward's own error in the
+# input dtype against float64, read by this phase on its first eight shapes
+# (H100 80GB HBM3 at 700 W, PERF.md): at most 1.13e-6 in float32 and
+# 3.44e-3 in bfloat16, the CUDA-core pair's own gaps to the plain version
+# then 4.4e-7 and 1.8e-3.
 BWD_TOL = {"float32": 2.5e-6, "bfloat16": 7e-3}
 BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
     (4, 1024, 40, 8, 128, "bfloat16", True, 0),
@@ -1935,6 +1984,13 @@ BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
     (1, 130, 4, 2, 128, "float32", False, 0),
     (2, 77, 10, 2, 16, "float32", False, 7),
     (1, 333, 10, 2, 128, "bfloat16", True, 40),
+    # The tensor-core pair's edges: head_dim 64, GQA groups 8 and 1, S of
+    # no multiple of 64 or 128, no causal mask (with and without a window),
+    # a window shorter than a tile.
+    (2, 77, 8, 1, 64, "bfloat16", True, 0),
+    (1, 190, 6, 6, 64, "bfloat16", False, 0),
+    (2, 300, 16, 2, 128, "bfloat16", True, 20),
+    (1, 257, 4, 2, 128, "bfloat16", False, 33),
 ]
 # (b)–(d): gradients on the card against the CPU (TF32 off) within GRAD_TOL
 # of each leaf's largest magnitude, the limit that holds the port's
@@ -1973,9 +2029,9 @@ def phase16a_flash_backward(dev) -> dict:
     BWD_SHAPES, and its times at qwen3-14b's prefill shape."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (FlashAttentionBackward,
-                                                     gqa_attention_bwd_ref,
-                                                     gqa_flash_attention)
+    from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                     FlashAttentionBackward,
+                                                     gqa_attention_bwd_ref)
     say("== 16a. flash_attention backward against the plain backward")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(16)
@@ -1986,8 +2042,9 @@ def phase16a_flash_backward(dev) -> dict:
         k, v = (torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype)
                 for _ in range(2))
         do = torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
-        o = gqa_flash_attention(q, k, v, causal=causal, window=window)
-        got = FlashAttentionBackward.apply(q, k, v, o, do, causal, window)
+        o, lse = FlashAttention.apply(q, k, v, causal, window, True)
+        got = FlashAttentionBackward.apply(q, k, v, o, lse, do, causal,
+                                           window)
         plain = gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
         exact = gqa_attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
                                       causal, window)
@@ -2002,20 +2059,20 @@ def phase16a_flash_backward(dev) -> dict:
         say(f"flash backward {what}: kernel vs plain {k_vs_p:.2e}, plain "
             f"vs float64 {p_vs_64:.2e}, kernel vs float64 {k_vs_64:.2e} "
             f"(of max |grad|; limit {BWD_TOL[dt]:.1e})")
-        if not k_vs_p <= BWD_TOL[dt] or not all(
+        if not max(k_vs_p, k_vs_64) <= BWD_TOL[dt] or not all(
                 bool(torch.isfinite(x).all()) for x in got):
-            raise AssertionError(f"flash backward {what}: {k_vs_p} > "
-                                 f"{BWD_TOL[dt]}")
-        del q, k, v, do, o, got, plain, exact
+            raise AssertionError(f"flash backward {what}: {k_vs_p} (plain), "
+                                 f"{k_vs_64} (float64) > {BWD_TOL[dt]}")
+        del q, k, v, do, o, lse, got, plain, exact
     torch.cuda.empty_cache()
     b, s, h, kvh, d = SERVE_BATCH, SERVE_PROMPT, 40, 8, 128
     q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
             for _ in range(2))
     do = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
-    o = gqa_flash_attention(q, k, v)
+    o, lse = FlashAttention.apply(q, k, v, True, 0, True)
     t = {"ms": time_ms(lambda: FlashAttentionBackward.apply(
-        q, k, v, o, do, True, 0), reps=5, trials=7),
+        q, k, v, o, lse, do, True, 0), reps=5, trials=7),
          "plain": time_ms(lambda: gqa_attention_bwd_ref(q, k, v, o, do),
                           reps=2, trials=5)}
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -2035,12 +2092,25 @@ def phase16a_flash_backward(dev) -> dict:
     t["bound"], t["by"] = bound(nbytes, ops, BF16_OPS_PER_S)
     t["err"] = worst_abs
     say(f"flash_attention backward (B={b}, S={s}, H={h}, KV={kvh}, D={d}, "
-        f"bf16, causal): kernel pair {t['ms']:.4f} ms, bound "
+        f"bf16, causal): tensor-core kernels {t['ms']:.4f} ms, bound "
         f"{t['bound']:.4f} ms ({t['by']}: {ops / 1e9:.1f} GFLOP, 2.5x the "
-        f"forward's live-pair products, at 989 TFLOP/s bf16), plain "
-        f"{t['plain']:.4f} ms, scaled_dot_product_attention backward "
-        f"{t['lib']:.4f} ms (forward+backward {both:.4f} less forward "
-        f"{fwd:.4f})")
+        f"forward's live-pair products, at 989 TFLOP/s bf16; "
+        f"{t['bound'] / t['ms']:.1%} of it), plain {t['plain']:.4f} ms, "
+        f"scaled_dot_product_attention backward {t['lib']:.4f} ms "
+        f"(forward+backward {both:.4f} less forward {fwd:.4f}; the kernels "
+        f"take {t['ms'] / t['lib']:.2f}x it)")
+    mma = flash_bwd_mma_flops(b, s, h, d)
+    say(f"flash_attention backward kernels' own tensor-core work: "
+        f"{mma / 1e9:.1f} GFLOP (S and dP once, the products with P and dS "
+        f"twice for their hi/lo split, whole diagonal tiles), "
+        f"{mma / (t['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
+    # The float32 pair (CUDA cores, unchanged) at the same shape.
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    o, lse = FlashAttention.apply(q, k, v, True, 0, True)
+    t["f32_ms"] = time_ms(lambda: FlashAttentionBackward.apply(
+        q, k, v, o, lse, do, True, 0), reps=2, trials=5)
+    say(f"flash_attention backward, the float32 pair (CUDA cores) at the "
+        f"same shape: {t['f32_ms']:.4f} ms")
     return t
 
 
@@ -2727,7 +2797,7 @@ def main() -> int:
          "launches": served["qwen3-14b"]["launches"],
          "max_abs_err": flash_err, "ms": fa["ms"], "plain_ms": fa["plain"],
          "bound_ms": fa["bound"], "bound_by": fa["by"],
-         "library_ms": fa["lib"]},
+         "library_ms": fa["lib"], "lse_ms": fa["lse_ms"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -2747,7 +2817,7 @@ def main() -> int:
                          * TRAIN_STEPS),
          "max_abs_err": bwd["err"], "ms": bwd["ms"], "plain_ms": bwd["plain"],
          "bound_ms": bwd["bound"], "bound_by": bwd["by"],
-         "library_ms": bwd["lib"],
+         "library_ms": bwd["lib"], "f32_pair_ms": bwd["f32_ms"],
          "fl_launches": p16e["sim"]["launches"]["flash_attention_bwd"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

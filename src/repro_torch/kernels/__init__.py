@@ -6,7 +6,7 @@ Each kernel sits in its own package beside its plain PyTorch version
 the plain version for a CPU tensor.  ``dispatch`` is what the FL round calls;
 the LM layers call ``flash_attention.gqa_flash_attention`` and
 ``ssd_scan.ssd_apply``, both differentiable (``flash_attention_bwd`` counts
-the backward kernel pair's launches).
+the attention backward's calls, one a call of its kernels).
 Nothing here imports a compiler or builds a kernel until a CUDA tensor arrives
 (``build.library``).
 """

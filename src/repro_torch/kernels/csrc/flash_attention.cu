@@ -101,8 +101,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int seq, int heads, int kv_heads, int causal,
-                           int window, float scale) {
+                           float* __restrict__ lse, int seq, int heads,
+                           int kv_heads, int causal, int window, float scale) {
   static_assert(D % 16 == 0 && D <= 128, "D is 16, 32, 64 or 128");
   constexpr int DC = D / 16;      // output columns a thread
   constexpr int D4 = D / 4;       // float4 groups in a row
@@ -227,6 +227,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
     if (qpos >= seq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<long long>(bh) * seq + qpos] = m[i] + logf(l[i]);
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
     float* orow = o + (static_cast<long long>(b) * seq + qpos) * q_row +
               static_cast<long long>(h) * D;
@@ -237,8 +239,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int batch, int seq, int heads, int kv_heads, int causal,
-               int window, cudaStream_t stream) {
+               float* lse, int batch, int seq, int heads, int kv_heads,
+               int causal, int window, cudaStream_t stream) {
   if (batch * heads > 65535) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto kern = flash_attention_f32_kernel<D>;
@@ -248,7 +250,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
   kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), seq, heads,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, seq, heads,
       kv_heads, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -266,6 +268,7 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kRow = 128;             // bytes of one swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct TcLayout {
@@ -587,14 +590,36 @@ __device__ __forceinline__ Item decode_item(int item, int bh_count,
   return it;
 }
 
+// The live key tiles [a, b) of [t_lo, t_hi) for the 64 query rows from
+// row_lo: none past their causal frontier or wholly before their window,
+// none at all if the rows all lie at or past S.
+__device__ __forceinline__ void live_tiles(int row_lo, int t_lo, int t_hi,
+                                           int seq, int causal, int window,
+                                           int& a, int& b) {
+  b = row_lo >= seq ? t_lo
+      : causal      ? min(t_hi, (row_lo + 63) / kTcBK + 1)
+                    : t_hi;
+  a = t_lo;
+  while (window && a < b && a * kTcBK + kTcBK - 1 <= row_lo - window) ++a;
+}
+
+// Whether key tile t needs the element mask for the 64 query rows from
+// row_lo: it straddles their causal frontier, their window's edge or S.
+__device__ __forceinline__ bool edge_tile(int t, int row_lo, int seq,
+                                          int causal, int window) {
+  const int k0 = t * kTcBK;
+  return (causal && k0 + kTcBK - 1 > row_lo) ||
+         (window && k0 <= row_lo + 63 - window) || k0 + kTcBK > seq;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ o, int batch, int seq,
-                      int heads, int kv_heads, int causal, int window,
-                      float scale_log2) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int batch, int seq, int heads, int kv_heads,
+                      int causal, int window, float scale_log2) {
   using L = TcLayout<D>;
   constexpr int kSlabQ = kTcBQ * kRow;     // bytes of one 64-column Q slab
   constexpr int kSlabKV = kTcBK * kRow;    // bytes of one 64-column K/V slab
@@ -688,17 +713,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       // thread's share of the denominator, for rows qa and qb.
       float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-      // This warpgroup's live tiles [a, b) of the item's [t_lo, t_hi): none
-      // past its causal frontier or wholly before its window, none at all
-      // if its rows all lie at or past S.  It still waits for and releases
-      // every stage of the ring, in order.
-      const int b_live = row_lo >= seq ? t_lo
-                         : causal ? min(t_hi, (row_lo + 63) / kTcBK + 1)
-                                  : t_hi;
-      int a_live = t_lo;
-      while (window && a_live < b_live &&
-             a_live * kTcBK + kTcBK - 1 <= row_lo - window)
-        ++a_live;
+      // This warpgroup's live tiles [a_live, b_live); it still waits for
+      // and releases every stage of the ring, in order.
+      int a_live, b_live;
+      live_tiles(row_lo, t_lo, t_hi, seq, causal, window, a_live, b_live);
       const int n0 = n - t_lo;   // ring count of tile t is n0 + t
       auto stage = [&](int t) { return (n0 + t) % kStages; };
       auto wait_full = [&](int t) {
@@ -709,9 +727,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         return ring + stage(t) * 2 * L::kTileBytes;
       };
       auto edge = [&](int t) {
-        const int k0 = t * kTcBK;
-        return (causal && k0 + kTcBK - 1 > row_lo) ||
-               (window && k0 <= row_lo + 63 - window) || k0 + kTcBK > seq;
+        return edge_tile(t, row_lo, seq, causal, window);
       };
 
       mbar_wait(q_full + 8 * qbuf, (j >> 1) & 1);
@@ -767,12 +783,18 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       n = n0 + t_hi;
 
       // Epilogue: the row's denominator over its four threads, then
-      // acc / max(l, 1e-30) rounded to bf16.
+      // acc / max(l, 1e-30) rounded to bf16; with lse, the row's logsumexp
+      // of the scaled scores in natural-log units, ln 2 (m + log2 l).
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         l[r] = fmaxf(l[r], 1e-30f);
+      }
+      if (lse != nullptr && c0 == 0) {
+        float* lrow = lse + (static_cast<long long>(it.b) * heads + it.h) * seq;
+        if (qa < seq) lrow[qa] = (m[0] + log2f(l[0])) * kLn2;
+        if (qb < seq) lrow[qb] = (m[1] + log2f(l[1])) * kLn2;
       }
       const long long row_stride = static_cast<long long>(heads) * D;
       __nv_bfloat16* oa = o +
@@ -841,10 +863,24 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// setmaxnreg moves registers within the block's allocation: refuse to
+// launch (rather than deadlock) a warp-specialised kernel whose allocation
+// cannot cover the producer's and the consumers' shares.
+template <typename Kernel>
+cudaError_t check_reg_split(Kernel kern) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * kTcThreads <
+      128 * (kProducerRegs + kConsumers * kConsumerRegs))
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int batch, int seq, int heads, int kv_heads, int causal,
-                int window, cudaStream_t stream) {
+                float* lse, int batch, int seq, int heads, int kv_heads,
+                int causal, int window, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v;
@@ -853,14 +889,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
       !make_map(encode, &tm_v, v, D, kv_heads, seq, batch, kTcBK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_attention_wgmma<D>;
-  // setmaxnreg moves registers within the block's allocation: refuse to
-  // launch (rather than deadlock) if the allocation cannot cover it.
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  cudaError_t err = check_reg_split(kern);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (attr.numRegs * kTcThreads <
-      128 * (kProducerRegs + kConsumers * kConsumerRegs))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
   constexpr int bytes = TcLayout<D>::kSmemBytes;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
@@ -876,38 +906,85 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(items < sms ? items : sms);
   kern<<<grid, kTcThreads, bytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), batch, seq, heads,
-      kv_heads, causal, window, kLog2e / sqrtf(static_cast<float>(D)));
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, batch, seq,
+      heads, kv_heads, causal, window, kLog2e / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// Backward, both dtypes: CUDA cores, float32 accumulation, no atomics
+// Backward
 // ---------------------------------------------------------------------------
 //
 // dQ, dK and dV of the function above: with P = exp(scale * Q.K^T - L) on
 // the visible pairs (L the row's logsumexp), dP = dO.V^T,
 // delta = rowsum(dO o O) and dS = P o (dP - delta):
 //   dQ = scale * dS.K,  dK = scale * dS^T.Q,  dV = P^T.dO,
-// dK and dV summed over the H / KV q-heads that read a kv-head.  Two
-// kernels, in order on one stream:
-// (a) flash_bwd_dq_kernel: one block a (b, h, 64-row q-tile).  A first pass
-//     over the live key tiles recomputes each row's L (online max and sum,
-//     the forward's masking and scale; the forward does not write L); it
-//     forms delta from O and dO, writes L and delta to the scratch, and a
-//     second pass accumulates dQ in registers.
-// (b) flash_bwd_dkv_kernel: one block a (b, kv-head, 64-key tile).  It loops
-//     over its group's q-heads and their live 32-row q-tiles, recomputes P
-//     and dS from L and delta, and accumulates dK and dV in registers.
-// Every output element is written by one thread of one block, so the result
-// does not depend on the schedule.  Tiles live in shared memory in float32
-// (bfloat16 inputs are widened on load); outputs are rounded once to the
+// dK and dV summed over the H / KV q-heads that read a kv-head.  Every
+// output element is written by one thread of one block (no atomics), so the
+// result does not depend on the schedule; outputs are rounded once to the
 // input dtype.  Bound on the card: operations.  The five S x S x D products
 // of the live pairs (Q.K^T, dO.V^T, dS.K, dS^T.Q, P^T.dO) are 2.5x the
 // forward's; at qwen3-14b's (4, 1024, 40, 128) bf16 that is 107.5 GFLOP,
-// 108.7 us at the tensor cores' 989 TFLOP/s.  This first version runs on
-// the CUDA cores (67 TFLOP/s float32 FMA peak) and recomputes Q.K^T three
-// times and dO.V^T twice (8 products): a wgmma/TMA version is later work.
+// 108.7 us at the tensor cores' 989 TFLOP/s.
+//
+// float32, the check dtype and the FL LM workloads' dtype (head_dim 16 to
+// 128): CUDA cores, float32 throughout, two kernels in order on one stream.
+// (a) flash_bwd_dq_kernel: one block a (b, h, 64-row q-tile).  A first pass
+//     over the live key tiles recomputes each row's L (online max and sum,
+//     the forward's masking and scale); it forms delta from O and dO,
+//     writes L and delta to the scratch, and a second pass accumulates dQ
+//     in registers.
+// (b) flash_bwd_dkv_kernel: one block a (b, kv-head, 64-key tile).  It loops
+//     over its group's q-heads and their live 32-row q-tiles, recomputes P
+//     and dS from L and delta, and accumulates dK and dV in registers.
+// Tiles live in shared memory in float32.  It recomputes Q.K^T three times
+// and dO.V^T twice (8 products) on the CUDA cores (67 TFLOP/s float32 FMA
+// peak); TF32 tensor cores would break the check dtype's limits.
+//
+// bfloat16, the training dtype: tensor cores (wgmma), TMA, warp-specialised
+// like the forward (a producer warpgroup whose one thread starts every copy,
+// two consumer warpgroups of 64 rows, setmaxnreg 24 / 240), two kernels in
+// order on one stream, from the row logsumexp L that the forward wrote in
+// its epilogue (natural-log units, B x H x S), so that no pass recomputes
+// it:
+// (q) flash_bwd_dq_wgmma: one block a (b, h, 128-row q-tile), heaviest
+//     (last) q-tiles first.  Q and dO arrive once by TMA; meanwhile each
+//     thread forms its two rows' delta in float32 from O and dO in global
+//     memory and turns L into log2 units, and writes both to a scratch
+//     [2][B x H][S_pad] whose rows are padded to the 64-row q-tile with
+//     zeros, so that every dK/dV tile's slice is one aligned 256-byte bulk
+//     copy.  K/V tiles of 64 keys stream through the forward's 3-stage
+//     ring.  Per live key tile: S = Q.K^T and dP = dO.V^T (SS wgmma, both
+//     operands K-major), P and dS on the accumulator fragment, then
+//     dQ += dS.K (RS wgmma, dS a register fragment built in place from the
+//     accumulator layout, K read through an MN-major descriptor as the
+//     forward reads V); tile t's S, dP and dS overlap tile t - 1's dS.K
+//     (a second set of dS fragments, so that dS's split overlaps it too,
+//     measured slower).
+//     Q and dO as register fragments (RS for S and dP) measured no faster
+//     and spilled.
+// (k) flash_bwd_dkv_wgmma: one block a (b, kv-head, 128-key tile), the
+//     first key tiles (the causal triangle's longest columns) first (a
+//     block taking a long and a short column together measured no faster:
+//     the hardware's in-order dispatch already balances them).  K and V
+//     stay resident; each consumer warpgroup owns 64 keys.
+//     Q and dO tiles of 64 rows, with their slices of L and delta (bulk
+//     copies), stream through a 3-stage ring over the group's q-heads and
+//     the item's live q-range (causal: q >= k0; window: q < k0 + 127 +
+//     window).  Per tile: S^T = K.Q^T (SS), P^T in registers, then
+//     dV += P^T.dO (RS, dO MN-major) while dP^T = V.dO^T (SS) runs, dS^T
+//     from P^T's split halves, then dK += dS^T.Q (RS), one after the
+//     other.  Two accumulators of 64 x D leave no registers for a second
+//     tile in flight (a version that started the next S^T behind
+//     dK's products spilled and ran slower).
+// Why P and dS are split: rounding them to bf16 once before their products,
+// as FlashAttention-2/3 do, puts the gradients within 0.999 of BWD_TOL
+// (7e-3 of each gradient's largest magnitude, chip_smoke.py phase 16a) of
+// the plain backward at (1, 512, 5/1, 128) causal
+// (tests/test_torch_attention_ssd.py emulates it).  So, as in the forward,
+// X = X_hi + X_lo with X_hi = bf16(X), X_lo = bf16(X - X_hi), and each
+// product with P or dS runs twice: 10 products in all against the bound's 5
+// (215 GFLOP at qwen3-14b's shape, 217 us at the bf16 peak).
 
 template <typename T>
 struct Io;
@@ -921,25 +998,6 @@ struct Io<float> {
     return __ldg(p);
   }
   static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  // Four bf16 (8 bytes) widened exactly: a bf16 is the top half of a float.
-  static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                               float out[4]) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    out[0] = __uint_as_float(raw.x << 16);
-    out[1] = __uint_as_float(raw.x & 0xffff0000u);
-    out[2] = __uint_as_float(raw.y << 16);
-    out[3] = __uint_as_float(raw.y & 0xffff0000u);
-  }
-  static __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
 };
 
 constexpr int BKB = 64;          // keys a dK/dV block
@@ -1358,27 +1416,590 @@ int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// bfloat16 backward: tensor cores
+// ---------------------------------------------------------------------------
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global into shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 2^x by the multi-function unit's approximation (a few float32 ulps, far
+// below the split's 2^-16; 0 for a very negative x).  exp2f's accurate
+// path makes the backward 18% slower at qwen3-14b's shape on an H100
+// (scripts/torch_flash_bwd_variants.py).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// split_p's split with a truncated high half: X_hi keeps X's top 16 bits
+// (one byte permute a pair) and X_lo = bf16(X - X_hi), one conversion a
+// pair instead of two; X_hi + X_lo still carries X to about 16 bits.
+__device__ __forceinline__ void split_trunc(const float (&x)[kTcBK / 2],
+                                            uint32_t (&hi)[kTcBK / 16][4],
+                                            uint32_t (&lo)[kTcBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTcBK / 16; ++kk) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const uint32_t a = __float_as_uint(x[8 * kk + 2 * g]);
+      const uint32_t b = __float_as_uint(x[8 * kk + 2 * g + 1]);
+      asm("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(hi[kk][g]) : "r"(a), "r"(b));
+      lo[kk][g] = bf16x2_bits(__floats2bfloat162_rn(
+          __uint_as_float(a) - __uint_as_float(a & 0xffff0000u),
+          __uint_as_float(b) - __uint_as_float(b & 0xffff0000u)));
+    }
+  }
+}
+
+// P of one tile's fragment, in place: the scores sc become
+// P = exp2(sc * scale_log2 - L), 0 where visible(j) is false; l2(j) gives
+// fragment element j's row statistic L (log2 units).
+template <class Stat, class Visible>
+__device__ __forceinline__ void probs_tile(float (&sc)[kTcBK / 2], Stat l2,
+                                           Visible visible_j,
+                                           float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < kTcBK / 2; ++j)
+    sc[j] = visible_j(j) ? fast_exp2(sc[j] * scale_log2 - l2(j)) : 0.f;
+}
+
+// dS of one tile's fragment, in place: dp (dO.V^T) becomes
+// dS = P (dp - delta), with p(j) and delta(j) fragment element j's P and
+// row statistic.
+template <class Prob, class Stat>
+__device__ __forceinline__ void dscores_tile(float (&dp)[kTcBK / 2], Prob p,
+                                             Stat delta) {
+#pragma unroll
+  for (int j = 0; j < kTcBK / 2; ++j) dp[j] = p(j) * (dp[j] - delta(j));
+}
+
+// Element j of a fragment split by split_trunc, X_hi + X_lo, back in
+// float32.
+__device__ __forceinline__ float unsplit(
+    const uint32_t (&hi)[kTcBK / 16][4], const uint32_t (&lo)[kTcBK / 16][4],
+    int j) {
+  const uint32_t h = hi[j / 8][(j % 8) / 2], l = lo[j / 8][(j % 8) / 2];
+  return (j & 1) ? __uint_as_float(h & 0xffff0000u) +
+                       __uint_as_float(l & 0xffff0000u)
+                 : __uint_as_float(h << 16) + __uint_as_float(l << 16);
+}
+
+// Rows ra and rb of a (64 x D) float32 fragment, times scale, rounded to
+// bf16 at pa and pb (each the row's column c0); a row flagged off is not
+// written.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* pa,
+                                           __nv_bfloat16* pb,
+                                           const float (&acc)[D / 2],
+                                           float scale, bool a_ok,
+                                           bool b_ok) {
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (a_ok)
+      *reinterpret_cast<__nv_bfloat162*>(pa + 8 * i) = __floats2bfloat162_rn(
+          acc[4 * i] * scale, acc[4 * i + 1] * scale);
+    if (b_ok)
+      *reinterpret_cast<__nv_bfloat162*>(pb + 8 * i) = __floats2bfloat162_rn(
+          acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+  }
+}
+
+// Rows of the bf16 pair's statistics scratch: S padded to the dK/dV
+// kernel's 64-row q-tile.
+__host__ __device__ __forceinline__ int padded_rows(int seq) {
+  return (seq + kTcBK - 1) / kTcBK * kTcBK;
+}
+
+// (q) dQ: one block a (b, h, 128-row q-tile), numbered as the forward's
+// items (decode_item), so the causal triangle's longest rows start first.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ stats,
+                   __nv_bfloat16* __restrict__ dq, int batch, int seq,
+                   int heads, int kv_heads, int causal, int window,
+                   float scale_log2, float scale) {
+  using L = TcLayout<D>;
+  constexpr int kSlabQ = kTcBQ * kRow;
+  constexpr int kSlabKV = kTcBK * kRow;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;                     // Q: [slab][128 rows][128 B]
+  const uint32_t sdo = sq + L::kQBytes;         // dO, likewise
+  const uint32_t ring = sdo + L::kQBytes;       // stage: K slabs, V slabs
+  const uint32_t q_full = ring + L::kRingBytes;
+  const uint32_t full_bar = q_full + 8;              // [kStages]
+  const uint32_t empty_bar = full_bar + 8 * kStages; // [kStages]
+
+  const int bh_count = batch * heads;
+  const Item it = decode_item(blockIdx.x, bh_count, (seq + kTcBQ - 1) / kTcBQ,
+                              seq, heads, kv_heads, causal, window);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Both roles walk the key tiles [t_lo, t_hi) in order, tile t in ring
+  // stage (t - t_lo) % kStages.
+  const int wg = tid / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 128 * kConsumers) {
+      mbar_expect_tx(q_full, 2 * L::kQBytes);
+#pragma unroll
+      for (int hf = 0; hf < L::kHalves; ++hf) {
+        tma_load(sq + hf * kSlabQ, &tm_q, q_full, 64 * hf, it.h, it.q0, it.b);
+        tma_load(sdo + hf * kSlabQ, &tm_do, q_full, 64 * hf, it.h, it.q0,
+                 it.b);
+      }
+      for (int t = it.t_lo, n = 0; t < it.t_hi; ++t, ++n) {
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(empty_bar + 8 * s, (n / kStages - 1) & 1);
+        const uint32_t ks = ring + s * 2 * L::kTileBytes;
+        const uint32_t vs = ks + L::kTileBytes;
+        mbar_expect_tx(full_bar + 8 * s, 2 * L::kTileBytes);
+#pragma unroll
+        for (int hf = 0; hf < L::kHalves; ++hf) {
+          tma_load(ks + hf * kSlabKV, &tm_k, full_bar + 8 * s, 64 * hf,
+                   it.kh, t * kTcBK, it.b);
+          tma_load(vs + hf * kSlabKV, &tm_v, full_bar + 8 * s, 64 * hf,
+                   it.kh, t * kTcBK, it.b);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int lane = tid % 32, warp = (tid % 128) / 32;
+    const int r0 = 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const int row_lo = it.q0 + 64 * wg;
+    const int qa = row_lo + r0, qb = qa + 8;
+    // While Q and dO arrive: L in log2 units and delta = rowsum(dO o O) of
+    // rows qa and qb, delta over the row's four threads (16-byte chunks
+    // lane % 4, + 4, ... of O and dO each), into the scratch for the dK/dV
+    // kernel.  Rows at or past S take L = delta = 0 (zeros up to S_pad):
+    // their dS is 0 and their dQ is not written.
+    const long long seq_pad = padded_rows(seq);
+    const long long bh = static_cast<long long>(it.b) * heads + it.h;
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? qb : qa;
+      float d = 0.f;
+      if (row < seq) {
+        const long long at =
+            ((static_cast<long long>(it.b) * seq + row) * heads + it.h) * D;
+#pragma unroll
+        for (int i = 0; i < D / 32; ++i) {
+          const long long e = at + 8 * (lane % 4 + 4 * i);
+          const uint4 x = __ldg(reinterpret_cast<const uint4*>(o + e));
+          const uint4 y = __ldg(reinterpret_cast<const uint4*>(dout + e));
+          const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+          const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            d = fmaf(__uint_as_float(xs[w] << 16),
+                     __uint_as_float(ys[w] << 16), d);
+            d = fmaf(__uint_as_float(xs[w] & 0xffff0000u),
+                     __uint_as_float(ys[w] & 0xffff0000u), d);
+          }
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      dl[r] = d;
+      l2[r] = row < seq ? lse[bh * seq + row] * kLog2e : 0.f;
+      if (lane % 4 == 0 && row < seq_pad) {
+        stats[bh * seq_pad + row] = l2[r];
+        stats[bh_count * seq_pad + bh * seq_pad + row] = d;
+      }
+    }
+    const uint32_t qs = sq + wg * 64 * kRow;
+    const uint32_t dos = sdo + wg * 64 * kRow;
+    int a_live, b_live;
+    live_tiles(row_lo, it.t_lo, it.t_hi, seq, causal, window, a_live, b_live);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    auto stage = [&](int t) { return (t - it.t_lo) % kStages; };
+    auto wait_full = [&](int t) {
+      mbar_wait(full_bar + 8 * stage(t), ((t - it.t_lo) / kStages) & 1);
+    };
+    auto release = [&](int t) { mbar_arrive(empty_bar + 8 * stage(t)); };
+    auto k_tile = [&](int t) { return ring + stage(t) * 2 * L::kTileBytes; };
+    // S and dP of key tile t: 2 wgmma groups.
+    auto start_s_dp = [&](float (&sc)[kTcBK / 2], float (&dp)[kTcBK / 2],
+                          int t) {
+      start_scores<D>(sc, qs, k_tile(t));
+      start_scores<D>(dp, dos, k_tile(t) + L::kTileBytes);
+    };
+    auto ds_tile = [&](float (&sc)[kTcBK / 2], float (&dp)[kTcBK / 2],
+                       int t) {
+      const bool edge = edge_tile(t, row_lo, seq, causal, window);
+      const int k0 = t * kTcBK;
+      probs_tile(
+          sc, [&](int j) { return l2[(j >> 1) & 1]; },
+          [&](int j) {
+            return !edge || visible((j & 2) ? qb : qa,
+                                    k0 + 8 * (j / 4) + c0 + (j & 1), seq,
+                                    causal, window);
+          },
+          scale_log2);
+      dscores_tile(
+          dp, [&](int j) { return sc[j]; },
+          [&](int j) { return dl[(j >> 1) & 1]; });
+    };
+
+    mbar_wait(q_full, 0);
+    for (int t = it.t_lo; t < a_live; ++t) {
+      wait_full(t);
+      release(t);
+    }
+    if (a_live < b_live) {
+      float sc[kTcBK / 2], dp[kTcBK / 2];
+      uint32_t ds_hi[kTcBK / 16][4], ds_lo[kTcBK / 16][4];
+      wait_full(a_live);
+      start_s_dp(sc, dp, a_live);
+      wgmma_wait<0>();
+      reg_fence(sc);
+      reg_fence(dp);
+      ds_tile(sc, dp, a_live);
+      split_trunc(dp, ds_hi, ds_lo);
+      // Tile t's S, dP and dS overlap tile t - 1's dS.K on the tensor
+      // cores; dS's fragments are rebuilt once that product has landed.
+      for (int t = a_live + 1; t < b_live; ++t) {
+        wait_full(t);
+        start_s_dp(sc, dp, t);
+        start_pv<D>(acc, ds_hi, ds_lo, k_tile(t - 1));
+        wgmma_wait<1>();
+        reg_fence(sc);
+        reg_fence(dp);
+        ds_tile(sc, dp, t);
+        wgmma_wait<0>();
+        reg_fence(acc);
+        reg_fence(ds_hi);
+        reg_fence(ds_lo);
+        release(t - 1);
+        split_trunc(dp, ds_hi, ds_lo);
+      }
+      start_pv<D>(acc, ds_hi, ds_lo, k_tile(b_live - 1));
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(ds_hi);
+      reg_fence(ds_lo);
+      release(b_live - 1);
+    }
+    for (int t = b_live; t < it.t_hi; ++t) {
+      wait_full(t);
+      release(t);
+    }
+    const long long row_stride = static_cast<long long>(heads) * D;
+    __nv_bfloat16* pa = dq + (static_cast<long long>(it.b) * seq + qa) *
+                                 row_stride +
+                        static_cast<long long>(it.h) * D + c0;
+    store_rows<D>(pa, pa + 8 * row_stride, acc, scale, qa < seq, qb < seq);
+  }
+}
+
+// One dK/dV work item: 128 keys [k0, k0 + 128) of one (b, kv-head), and
+// the walk over the q-tiles of 64 rows that see one of them, for each of
+// the group's q-heads: tile n of the walk is q-head kh * group + n / tiles,
+// q-tile qt_lo + n % tiles (causal: from the diagonal; window: below
+// k0 + 127 + window).  Items are numbered key tile by key tile from the
+// first, so the causal triangle's longest columns start first.
+struct KvItem {
+  int b, kh, k0, qt_lo, tiles, walk;
+};
+
+__device__ __forceinline__ KvItem decode_kv_item(int item, int batch,
+                                                 int seq, int kv_heads,
+                                                 int group, int causal,
+                                                 int window) {
+  KvItem it;
+  const int bkv_count = batch * kv_heads;
+  it.b = (item % bkv_count) / kv_heads;
+  it.kh = item % kv_heads;
+  it.k0 = (item / bkv_count) * kTcBQ;
+  it.qt_lo = causal ? it.k0 / kTcBK : 0;
+  const int q_hi = window ? min(seq, it.k0 + kTcBQ - 1 + window) : seq;
+  it.tiles = (q_hi + kTcBK - 1) / kTcBK - it.qt_lo;
+  it.walk = group * it.tiles;
+  return it;
+}
+
+// (k) dK and dV: one block an item.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ stats,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int batch, int seq,
+                    int heads, int kv_heads, int causal, int window,
+                    float scale_log2, float scale) {
+  using L = TcLayout<D>;
+  constexpr int kSlabK = kTcBQ * kRow;     // a 64-column slab of 128 keys
+  constexpr int kSlabQ = kTcBK * kRow;     // a 64-column slab of 64 q rows
+  constexpr int kStatBytes = 2 * kTcBK * 4;  // a tile's L and delta slices
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base;                     // K: [slab][128 keys][128 B]
+  const uint32_t sv = sk + L::kQBytes;          // V, likewise
+  const uint32_t ring = sv + L::kQBytes;        // stage: Q slabs, dO slabs
+  const uint32_t sstat = ring + L::kRingBytes;  // [kStages][L, delta][64]
+  const uint32_t kv_full = sstat + kStages * kStatBytes;
+  const uint32_t full_bar = kv_full + 8;              // [kStages]
+  const uint32_t empty_bar = full_bar + 8 * kStages;  // [kStages]
+
+  const int group = heads / kv_heads;
+  const KvItem it = decode_kv_item(blockIdx.x, batch, seq, kv_heads, group,
+                                   causal, window);
+  const long long seq_pad = padded_rows(seq);
+  const long long delta_at = static_cast<long long>(batch) * heads * seq_pad;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Both roles walk the item's tiles in order, tile n in ring stage
+  // n % kStages.
+  const int wg = tid / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 128 * kConsumers) {
+      mbar_expect_tx(kv_full, 2 * L::kQBytes);
+#pragma unroll
+      for (int hf = 0; hf < L::kHalves; ++hf) {
+        tma_load(sk + hf * kSlabK, &tm_k, kv_full, 64 * hf, it.kh, it.k0, it.b);
+        tma_load(sv + hf * kSlabK, &tm_v, kv_full, 64 * hf, it.kh, it.k0, it.b);
+      }
+      for (int n = 0; n < it.walk; ++n) {
+        const int h = it.kh * group + n / it.tiles;
+        const int q0 = (it.qt_lo + n % it.tiles) * kTcBK;
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(empty_bar + 8 * s, (n / kStages - 1) & 1);
+        const uint32_t qs = ring + s * 2 * L::kTileBytes;
+        const uint32_t dos = qs + L::kTileBytes;
+        const uint32_t st = sstat + s * kStatBytes;
+        const float* lrow =
+            stats + (static_cast<long long>(it.b) * heads + h) * seq_pad + q0;
+        mbar_expect_tx(full_bar + 8 * s, 2 * L::kTileBytes + kStatBytes);
+#pragma unroll
+        for (int hf = 0; hf < L::kHalves; ++hf) {
+          tma_load(qs + hf * kSlabQ, &tm_q, full_bar + 8 * s, 64 * hf, h, q0,
+                   it.b);
+          tma_load(dos + hf * kSlabQ, &tm_do, full_bar + 8 * s, 64 * hf, h, q0,
+                   it.b);
+        }
+        bulk_load(st, lrow, kStatBytes / 2, full_bar + 8 * s);
+        bulk_load(st + kStatBytes / 2, lrow + delta_at, kStatBytes / 2,
+                  full_bar + 8 * s);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: keys k0 + 64 wg .. + 63, fragment rows ka, kb.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int lane = tid % 32, warp = (tid % 128) / 32;
+    const int r0 = 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const uint32_t ks = sk + wg * 64 * kRow;
+    const uint32_t vs = sv + wg * 64 * kRow;
+    const int kw0 = it.k0 + 64 * wg;
+    const int ka = kw0 + r0, kb = ka + 8;
+    float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    for (int n = 0; n < it.walk; ++n) {
+      const int q0 = (it.qt_lo + n % it.tiles) * kTcBK;
+      const int s = n % kStages;
+      mbar_wait(full_bar + 8 * s, (n / kStages) & 1);
+      // Skip a tile none of whose (q, key) pairs is visible to these keys;
+      // mask the elements of one that straddles the diagonal, the window's
+      // edge or S.
+      const bool live = kw0 < seq && (!causal || q0 + kTcBK - 1 >= kw0) &&
+                        (!window || q0 < kw0 + 63 + window);
+      if (live) {
+        const uint32_t qs = ring + s * 2 * L::kTileBytes;
+        const uint32_t dos = qs + L::kTileBytes;
+        const float* st = reinterpret_cast<const float*>(
+            smem_raw + (sstat + s * kStatBytes - raw));
+        const bool edge = (causal && q0 < kw0 + 63) ||
+                          (window && q0 + kTcBK - 1 >= kw0 + window) ||
+                          q0 + kTcBK > seq || kw0 + 64 > seq;
+        // S^T, then P^T, which feeds dV's products while dP^T = V.dO^T
+        // runs; then dS^T (from P^T's split halves, so that the float32 P^T
+        // is not live beside dP^T), which feeds dK's.
+        float sc[kTcBK / 2], dp[kTcBK / 2];
+        start_scores<D>(sc, ks, qs);     // S^T = K.Q^T
+        wgmma_wait<0>();
+        reg_fence(sc);
+        probs_tile(
+            sc,
+            [&](int j) {
+              const float2 l =
+                  *reinterpret_cast<const float2*>(st + 8 * (j / 4) + c0);
+              return (j & 1) ? l.y : l.x;
+            },
+            [&](int j) {
+              return !edge || visible(q0 + 8 * (j / 4) + c0 + (j & 1),
+                                      (j & 2) ? kb : ka, seq, causal, window);
+            },
+            scale_log2);
+        uint32_t p_hi[kTcBK / 16][4], p_lo[kTcBK / 16][4];
+        split_trunc(sc, p_hi, p_lo);
+        start_pv<D>(acc_dv, p_hi, p_lo, dos);    // dV += P^T.dO
+        start_scores<D>(dp, vs, dos);            // dP^T = V.dO^T
+        wgmma_wait<0>();
+        reg_fence(acc_dv);
+        reg_fence(dp);
+        reg_fence(p_hi);
+        reg_fence(p_lo);
+        dscores_tile(
+            dp, [&](int j) { return unsplit(p_hi, p_lo, j); },
+            [&](int j) {
+              const float2 d = *reinterpret_cast<const float2*>(
+                  st + kTcBK + 8 * (j / 4) + c0);
+              return (j & 1) ? d.y : d.x;
+            });
+        uint32_t ds_hi[kTcBK / 16][4], ds_lo[kTcBK / 16][4];
+        split_trunc(dp, ds_hi, ds_lo);
+        start_pv<D>(acc_dk, ds_hi, ds_lo, qs);   // dK += dS^T.Q
+        wgmma_wait<0>();
+        reg_fence(acc_dk);
+        reg_fence(ds_hi);
+        reg_fence(ds_lo);
+      }
+      mbar_arrive(empty_bar + 8 * s);
+    }
+    const long long row_stride = static_cast<long long>(kv_heads) * D;
+    const long long at = (static_cast<long long>(it.b) * seq + ka) *
+                             row_stride +
+                         static_cast<long long>(it.kh) * D + c0;
+    store_rows<D>(dk + at, dk + at + 8 * row_stride, acc_dk, scale, ka < seq,
+                  kb < seq);
+    store_rows<D>(dv + at, dv + at + 8 * row_stride, acc_dv, 1.f, ka < seq,
+                  kb < seq);
+  }
+}
+
+template <int D>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const float* lse, const void* dout,
+                    void* dq, void* dk, void* dv, float* stats, int batch,
+                    int seq, int heads, int kv_heads, int causal, int window,
+                    cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  // dQ reads Q/dO in 128-row boxes and K/V in 64-key boxes; dK/dV the
+  // other way round.
+  CUtensorMap q128, do128, k64, v64, k128, v128, q64, do64;
+  if (!make_map(encode, &q128, q, D, heads, seq, batch, kTcBQ) ||
+      !make_map(encode, &do128, dout, D, heads, seq, batch, kTcBQ) ||
+      !make_map(encode, &k64, k, D, kv_heads, seq, batch, kTcBK) ||
+      !make_map(encode, &v64, v, D, kv_heads, seq, batch, kTcBK) ||
+      !make_map(encode, &k128, k, D, kv_heads, seq, batch, kTcBQ) ||
+      !make_map(encode, &v128, v, D, kv_heads, seq, batch, kTcBQ) ||
+      !make_map(encode, &q64, q, D, heads, seq, batch, kTcBK) ||
+      !make_map(encode, &do64, dout, D, heads, seq, batch, kTcBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kdq = flash_bwd_dq_wgmma<D>;
+  auto kdkv = flash_bwd_dkv_wgmma<D>;
+  constexpr int dq_bytes = TcLayout<D>::kSmemBytes;
+  constexpr int dkv_bytes = TcLayout<D>::kSmemBytes + kStages * 2 * kTcBK * 4;
+  cudaError_t err = check_reg_split(kdq);
+  if (err == cudaSuccess) err = check_reg_split(kdkv);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long dq_items =
+      static_cast<long long>(batch) * heads * ((seq + kTcBQ - 1) / kTcBQ);
+  if (dq_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int dkv_items = batch * kv_heads * ((seq + kTcBQ - 1) / kTcBQ);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
+  kdq<<<static_cast<int>(dq_items), kTcThreads, dq_bytes, stream>>>(
+      q128, do128, k64, v64, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, stats,
+      static_cast<__nv_bfloat16*>(dq), batch, seq, heads, kv_heads, causal,
+      window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdkv<<<dkv_items, kTcThreads, dkv_bytes, stream>>>(
+      k128, v128, q64, do64, stats, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), batch, seq, heads, kv_heads, causal,
+      window, scale_log2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, void* dq, void* dk, void* dv, void* scratch,
-               int batch, int seq, int heads, int kv_heads, int head_dim,
-               int causal, int window, void* stream) {
+               const float* lse, const void* dout, void* dq, void* dk,
+               void* dv, void* scratch, int batch, int seq, int heads,
+               int kv_heads, int head_dim, int causal, int window, bool bf16,
+               void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0)
     return static_cast<int>(cudaGetLastError());
   if (kv_heads <= 0 || heads % kv_heads != 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    float* stats = static_cast<float*>(scratch);
+    if (head_dim == 64)
+      return launch_bwd_bf16<64>(q, k, v, o, lse, dout, dq, dk, dv, stats,
+                                 batch, seq, heads, kv_heads, causal, window,
+                                 s);
+    if (head_dim == 128)
+      return launch_bwd_bf16<128>(q, k, v, o, lse, dout, dq, dk, dv, stats,
+                                  batch, seq, heads, kv_heads, causal, window,
+                                  s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define REPRO_BWD(D)                                                        \
-  return launch_bwd_d<T, D>(q, k, v, o, dout, dq, dk, dv, scratch, batch,  \
-                            seq, heads, kv_heads, causal, window, s)
-  constexpr bool kF32 = sizeof(T) == 4;
+  return launch_bwd_d<float, D>(q, k, v, o, dout, dq, dk, dv, scratch,     \
+                                batch, seq, heads, kv_heads, causal, window, \
+                                s)
   switch (head_dim) {
     case 16:
-      if constexpr (kF32) REPRO_BWD(16);
-      break;
+      REPRO_BWD(16);
     case 32:
-      if constexpr (kF32) REPRO_BWD(32);
-      break;
+      REPRO_BWD(32);
     case 64:
       REPRO_BWD(64);
     case 128:
@@ -1391,9 +2012,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <bool kBf16>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int seq, int heads, int kv_heads, int head_dim, int causal,
-           int window, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int seq, int heads, int kv_heads, int head_dim,
+           int causal, int window, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0)
     return static_cast<int>(cudaGetLastError());
   if (kv_heads <= 0 || heads % kv_heads != 0 || window < 0)
@@ -1401,24 +2022,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (kBf16) {
     if (head_dim == 64)
-      return launch_bf16<64>(q, k, v, o, batch, seq, heads, kv_heads, causal,
-                             window, s);
+      return launch_bf16<64>(q, k, v, o, lse, batch, seq, heads, kv_heads,
+                             causal, window, s);
     if (head_dim == 128)
-      return launch_bf16<128>(q, k, v, o, batch, seq, heads, kv_heads,
+      return launch_bf16<128>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
   } else {
     switch (head_dim) {
       case 16:
-        return launch_f32<16>(q, k, v, o, batch, seq, heads, kv_heads,
+        return launch_f32<16>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
       case 32:
-        return launch_f32<32>(q, k, v, o, batch, seq, heads, kv_heads,
+        return launch_f32<32>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
       case 64:
-        return launch_f32<64>(q, k, v, o, batch, seq, heads, kv_heads,
+        return launch_f32<64>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
       case 128:
-        return launch_f32<128>(q, k, v, o, batch, seq, heads, kv_heads,
+        return launch_f32<128>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                                causal, window, s);
       default:
         break;
@@ -1430,42 +2051,59 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 }  // namespace
 
 // Each returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// cudaErrorInvalidValue for a shape the kernel does not take.  lse, when not
+// null, receives each row's logsumexp of the scaled scores, B x H x S
+// floats (natural-log units); o is the same either way.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o, int batch,
-                                         int seq, int heads, int kv_heads,
-                                         int head_dim, int causal, int window,
+                                         const void* v, void* o, float* lse,
+                                         int batch, int seq, int heads,
+                                         int kv_heads, int head_dim,
+                                         int causal, int window,
                                          void* stream) {
-  return launch<false>(q, k, v, o, batch, seq, heads, kv_heads, head_dim,
-                       causal, window, stream);
+  return launch<false>(q, k, v, o, lse, batch, seq, heads, kv_heads,
+                       head_dim, causal, window, stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int batch,
-                                          int seq, int heads, int kv_heads,
-                                          int head_dim, int causal, int window,
+                                          const void* v, void* o, float* lse,
+                                          int batch, int seq, int heads,
+                                          int kv_heads, int head_dim,
+                                          int causal, int window,
                                           void* stream) {
-  return launch<true>(q, k, v, o, batch, seq, heads, kv_heads, head_dim,
+  return launch<true>(q, k, v, o, lse, batch, seq, heads, kv_heads, head_dim,
                       causal, window, stream);
 }
 
-// The backward pair (two launches on the stream); scratch holds 2 x B x H x
-// S floats (each row's logsumexp, then delta).  Returns as above.
+// Bytes of scratch the backward needs for these shapes: two floats a row
+// of B x H x S (each row's logsumexp, then delta), the rows padded to the
+// bf16 dK/dV kernel's 64-row q-tile in bfloat16.
+extern "C" long long repro_flash_attention_bwd_scratch_bytes(int batch,
+                                                             int seq,
+                                                             int heads,
+                                                             int bf16) {
+  if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+  return 2LL * 4 * batch * heads * (bf16 ? padded_rows(seq) : seq);
+}
+
+// The float32 backward pair (two launches on the stream), with its
+// scratch; it recomputes each row's logsumexp.  Returns as above.
 extern "C" int repro_flash_attention_f32_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* scratch, int batch,
     int seq, int heads, int kv_heads, int head_dim, int causal, int window,
     void* stream) {
-  return launch_bwd<float>(q, k, v, o, dout, dq, dk, dv, scratch, batch, seq,
-                           heads, kv_heads, head_dim, causal, window, stream);
+  return launch_bwd(q, k, v, o, nullptr, dout, dq, dk, dv, scratch, batch,
+                    seq, heads, kv_heads, head_dim, causal, window, false,
+                    stream);
 }
 
+// The bfloat16 backward (two launches on the stream) from the forward's
+// lse (B x H x S floats), with its scratch.  Returns as above.
 extern "C" int repro_flash_attention_bf16_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* scratch, int batch,
-    int seq, int heads, int kv_heads, int head_dim, int causal, int window,
-    void* stream) {
-  return launch_bwd<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, scratch,
-                                   batch, seq, heads, kv_heads, head_dim,
-                                   causal, window, stream);
+    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* scratch, int batch, int seq, int heads, int kv_heads, int head_dim,
+    int causal, int window, void* stream) {
+  return launch_bwd(q, k, v, o, lse, dout, dq, dk, dv, scratch, batch, seq,
+                    heads, kv_heads, head_dim, causal, window, true, stream);
 }

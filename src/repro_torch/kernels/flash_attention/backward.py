@@ -1,14 +1,16 @@
 """The gradients of causal / sliding-window GQA attention: the wrapper of
-the backward kernel pair in ``csrc/flash_attention.cu``.
+the backward kernels in ``csrc/flash_attention.cu``.
 
 The reference has no TPU kernel here: ``jax.grad`` differentiates the XLA
 attention it trains with (``repro/models/layers.py:_sdpa``).  The plain
 backward materialises the (S × S) score and probability matrices of every
-head; the kernel pair keeps them in shared memory and registers a tile at a
-time.  One call launches two kernels on the current stream: (a) dQ a
-(b, h, q-tile), writing each row's logsumexp L and Δ = rowsum(dO∘O) to a
-scratch this wrapper allocates; (b) dK and dV a (b, kv-head, k-tile), over
-the q-heads of its group.  The source note says what bounds them.
+head; the kernels keep them in shared memory and registers a tile at a
+time.  bfloat16 runs two kernels on the tensor cores from the forward's
+row logsumexp L: dQ a (b, h, 128-row q-tile), which also writes L in log2
+units and Δ = rowsum(dO∘O) to a scratch (sized by the library) whose rows
+are padded to the dK/dV kernel's q-tile, then dK/dV a (b, kv-head,
+128-key tile) over the q-heads of its group.  float32 runs the CUDA-core
+pair, which recomputes L itself.  The source note says what bounds them.
 """
 from __future__ import annotations
 
@@ -17,21 +19,23 @@ import torch
 from ..build import check_launch, library
 from .flash_attention import _ENTRY, check_operands
 
-# Launches of the backward kernel pair since the last reset
-# (repro_torch.kernels); one a call.
+# Launches of the backward kernels since the last reset (repro_torch.kernels);
+# one a call, whatever the number of kernels the call starts.
 launches = 0
 
 
 def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    o: torch.Tensor, do: torch.Tensor, *, causal: bool,
-                    window: int):
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                    causal: bool, window: int):
     """q/o/do (B, S, H, D), k/v (B, S, KV, D), one dtype (float32 or
-    bfloat16) on one CUDA device -> (dq, dk, dv) in that dtype.  Raises on
-    what the kernels do not take."""
+    bfloat16) on one CUDA device, and the forward's ``lse`` (B, H, S)
+    float32 -> (dq, dk, dv) in that dtype.  The float32 pair recomputes L
+    and does not read ``lse``.  Raises on what the kernels do not take."""
     ts = (q, k, v, o, do)
-    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+    if q.device.type != "cuda" or any(t.device != q.device
+                                      for t in ts + (lse,)):
         raise ValueError(f"flash_attention backward runs on one CUDA device;"
-                         f" got {[str(t.device) for t in ts]}")
+                         f" got {[str(t.device) for t in ts + (lse,)]}")
     if q.dtype not in _ENTRY or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"need float32 or bfloat16 tensors of one dtype; got "
                         f"{[t.dtype for t in ts]}")
@@ -40,16 +44,31 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if o.shape != q.shape or do.shape != q.shape or v.shape != k.shape:
         raise ValueError(f"need q/o/do of one shape and k/v of one shape; "
                          f"got {[tuple(t.shape) for t in ts]}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"need the forward's lse, contiguous float32 of "
+                         f"shape {(b, h, s)}; got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
     check_operands("flash_attention backward", ts, d, window)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    scratch = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+    lib = library()
+    bf16 = q.dtype == torch.bfloat16
+    scratch = torch.empty(
+        (lib.repro_flash_attention_bwd_scratch_bytes(b, s, h, int(bf16)),),
+        dtype=torch.uint8, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    check_launch("flash_attention backward", getattr(
-        library(), _ENTRY[q.dtype] + "_bwd")(
-        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, scratch)), b,
-        s, h, kvh, d, int(causal), window, stream))
+    tail = (b, s, h, kvh, d, int(causal), window, stream)
+    if bf16:
+        err = lib.repro_flash_attention_bf16_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                     scratch)), *tail)
+    else:
+        err = lib.repro_flash_attention_f32_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, scratch)),
+            *tail)
+    check_launch("flash_attention backward", err)
     global launches
     launches += 1
     return dq, dk, dv

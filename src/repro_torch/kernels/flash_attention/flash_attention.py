@@ -28,10 +28,13 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, window: int) -> torch.Tensor:
+           causal: bool, window: int, with_lse: bool = False):
     """q (B, S, H, D), k/v (B, S, KV, D) on one CUDA device -> (B, S, H, D)
     in q's dtype, by one kernel launch that reads kv-head ``h // (H // KV)``
-    for q-head h.  Raises on what the kernel does not take."""
+    for q-head h.  With ``with_lse`` it returns ``(o, lse)``: the kernel
+    also writes each row's logsumexp of the scaled, masked scores, (B, H, S)
+    float32, and ``o`` is the same bits as without.  Raises on what the
+    kernel does not take."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention runs on one CUDA device; got "
                          f"{q.device}, {k.device} and {v.device}")
@@ -42,15 +45,18 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kvh = k.shape[2]
     check_operands("flash_attention", (q, k, v), d, window)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     check_launch("flash_attention", getattr(library(), _ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        kvh, d, int(causal), window, stream))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, b, s, h, kvh, d, int(causal),
+        window, stream))
     global launches
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def check_operands(name: str, ts, d: int, window: int) -> None:

@@ -7,9 +7,10 @@ reference repeats K/V per q-head before flattening; the kernels read kv-head
 ``h // (H // KV)`` directly, which is the same mapping without the copy.
 
 ``FlashAttention`` is a ``torch.autograd.Function`` (``setup_context``
-style) whose backward is ``FlashAttentionBackward``, the backward kernel
-pair.  Each is the one code path on both devices: inside ``forward`` a CPU
-tensor takes the plain version and a CUDA tensor the kernel (or raises).
+style) that returns the output and each row's logsumexp L, which it saves
+for its backward, ``FlashAttentionBackward``, the backward kernels.  Each
+is the one code path on both devices: inside ``forward`` a CPU tensor takes
+the plain version and a CUDA tensor the kernel (or raises).
 Each has a ``vmap`` rule that folds the mapped dimension into B and calls
 ``apply`` once, so ``torch.func.vmap`` over clients or trials makes one
 launch for all of them, and ``vmap(grad(...))`` and ``grad(vmap(...))``
@@ -44,45 +45,60 @@ def unfold(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """o = attention(q, k, v); q (B, S, H, D), k/v (B, S, KV, D)."""
+    """(o, lse) = attention(q, k, v); q (B, S, H, D), k/v (B, S, KV, D).
+    With ``with_lse``, lse (B, H, S) float32 is each row's logsumexp of the
+    scaled, masked scores, which the backward reads; without it (no
+    gradient to come: serving, evaluation) the kernel writes none and lse is
+    an empty (B, H, 0).  o is the same bits either way; lse is not
+    differentiable."""
 
     @staticmethod
-    def forward(q, k, v, causal: bool, window: int):
+    def forward(q, k, v, causal: bool, window: int, with_lse: bool):
         if _on_cpu(q, k, v):
-            return gqa_attention_ref(q, k, v, causal, window)
-        return launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal=causal, window=window)
+            out = gqa_attention_ref(q, k, v, causal, window,
+                                    with_lse=with_lse)
+        else:
+            out = launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=causal, window=window, with_lse=with_lse)
+        if with_lse:
+            return out
+        b, s, h, _ = q.shape
+        return out, q.new_empty((b, h, 0), dtype=torch.float32)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window = inputs
-        ctx.save_for_backward(q, k, v, output)
+        q, k, v, causal, window, _ = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, o, do,
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, o, lse, do,
                                                   ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window):
+    def vmap(info, in_dims, q, k, v, causal, window, with_lse):
         n = info.batch_size
         q, k, v = fold((q, k, v), in_dims[:3], n)
-        return unfold(FlashAttention.apply(q, k, v, causal, window), n), 0
+        o, lse = FlashAttention.apply(q, k, v, causal, window, with_lse)
+        return (unfold(o, n), unfold(lse, n)), (0, 0)
 
 
 class FlashAttentionBackward(torch.autograd.Function):
-    """(dq, dk, dv) of :class:`FlashAttention` at (q, k, v) with output o
-    and output gradient do."""
+    """(dq, dk, dv) of :class:`FlashAttention` at (q, k, v) with outputs o
+    and lse and output gradient do."""
 
     @staticmethod
-    def forward(q, k, v, o, do, causal: bool, window: int):
-        if _on_cpu(q, k, v, o, do):
+    def forward(q, k, v, o, lse, do, causal: bool, window: int):
+        if _on_cpu(q, k, v, o, lse, do):
             return gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
-        return launch_backward(*(t.contiguous() for t in (q, k, v, o, do)),
-                               causal=causal, window=window)
+        return launch_backward(
+            *(t.contiguous() for t in (q, k, v, o, lse, do)), causal=causal,
+            window=window)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -94,9 +110,9 @@ class FlashAttentionBackward(torch.autograd.Function):
                                   "differentiable (no double backward)")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, o, do, causal, window):
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, window):
         n = info.batch_size
-        args = fold((q, k, v, o, do), in_dims[:5], n)
+        args = fold((q, k, v, o, lse, do), in_dims[:6], n)
         grads = FlashAttentionBackward.apply(*args, causal, window)
         return tuple(unfold(g, n) for g in grads), (0, 0, 0)
 
@@ -104,7 +120,8 @@ class FlashAttentionBackward(torch.autograd.Function):
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, S, H, D); k/v (B, S, KV, D) with KV dividing H -> (B, S, H, D),
-    differentiable in q, k and v.
+    differentiable in q, k and v.  With grad mode off (serving, evaluation)
+    the forward keeps no row statistics for a backward.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels or
     raise."""
@@ -114,4 +131,5 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"need q (B, S, H, D) and k/v (B, S, KV, D) with KV "
                          f"dividing H; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    return FlashAttention.apply(q, k, v, causal, int(window))
+    return FlashAttention.apply(q, k, v, causal, int(window),
+                                torch.is_grad_enabled())[0]

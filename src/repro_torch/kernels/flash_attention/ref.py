@@ -27,31 +27,46 @@ def _visible(s: int, causal: bool, window: int,
     return ok
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q/k/v (BH, S, D) -> (BH, S, D) in q's dtype."""
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int, with_lse: bool):
+    """q/k/v (BH, S, D) -> (o (BH, S, D) in q's dtype, each row's logsumexp
+    of the scaled, masked scores (BH, S) in the accumulation dtype, or None
+    without ``with_lse``)."""
     _, s, d = q.shape
     acc = _acc(q.dtype)
     scores = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) / math.sqrt(d)
     ok = _visible(s, causal, window, q.device)
     scores = scores.masked_fill(~ok[None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", probs, v.to(acc)).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", probs, v.to(acc)).to(q.dtype)
+    return out, torch.logsumexp(scores, dim=-1) if with_lse else None
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q/k/v (BH, S, D) -> (BH, S, D) in q's dtype."""
+    return _attention(q, k, v, causal, window, False)[0]
 
 
 def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True, window: int = 0) -> torch.Tensor:
+                      causal: bool = True, window: int = 0, *,
+                      with_lse: bool = False):
     """q (B, S, H, D), k/v (B, S, KV, D) -> (B, S, H, D): q-head h reads
-    kv-head ``h // (H // KV)``, as the reference repeats K/V per head."""
+    kv-head ``h // (H // KV)``, as the reference repeats K/V per head.  With
+    ``with_lse``, also each row's logsumexp L of the scaled, masked scores,
+    (B, H, S) in float32 (float64 for float64 inputs): the statistic the
+    kernels' backward reads, P = exp(scale·Q·Kᵀ − L)."""
     b, s, h, d = q.shape
     rep = h // k.shape[2]
 
     def flat(x):
         return x.transpose(1, 2).reshape(b * h, s, d)
 
-    out = attention_ref(flat(q), flat(k.repeat_interleave(rep, dim=2)),
-                        flat(v.repeat_interleave(rep, dim=2)), causal, window)
-    return out.reshape(b, h, s, d).transpose(1, 2)
+    out, lse = _attention(flat(q), flat(k.repeat_interleave(rep, dim=2)),
+                          flat(v.repeat_interleave(rep, dim=2)), causal,
+                          window, with_lse)
+    out = out.reshape(b, h, s, d).transpose(1, 2)
+    return (out, lse.reshape(b, h, s)) if with_lse else out
 
 
 def gqa_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

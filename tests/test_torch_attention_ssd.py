@@ -28,7 +28,8 @@ from repro.models import layers as JL  # noqa: E402
 
 from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention, gqa_flash_attention)
+    attention_ref, flash_attention, gqa_attention_bwd_ref, gqa_attention_ref,
+    gqa_flash_attention)
 from repro_torch.kernels.ssd_scan import ssd_apply, ssd_ref, ssd_scan  # noqa: E402
 
 
@@ -129,6 +130,82 @@ def test_bf16_flash_design_needs_the_p_split():
         once = _emulated_bf16_flash(q, k, v, split=False).float()
         assert bool(((split - want).abs() <= tol).all())
         assert int(((once - want).abs() > tol).sum()) > 100
+
+
+# The bf16 backward kernels' arithmetic (csrc/flash_attention.cu), emulated
+# in plain PyTorch: P = exp(scale·Q·Kᵀ − L) and dS = P∘(dO·Vᵀ − Δ) in float32
+# from exact bf16 products, then dV = Pᵀ·dO, dQ = dS·K and dK = dSᵀ·Q with P
+# and dS rounded to bf16 once, or split as the kernels split them (hi: the
+# top 16 bits, lo: bf16 of the rest), before their products; each gradient
+# rounded to bf16 once.  Held, as chip_smoke.py phase 16a and
+# tests/test_torch_kernels_cuda.py hold the bf16 kernels, to BWD_TOL_BF16 of
+# each gradient's largest magnitude against the plain backward, at head_dim
+# 128 and GQA 5 (qwen3-14b's 40/8 heads).
+BWD_TOL_BF16 = 7e-3
+BWD_DESIGN_CASES = [(256, True, 13), (512, True, 14), (256, False, 16)]
+
+
+def _emulated_bf16_flash_bwd(q, k, v, o, do, causal, *, split):
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qf, of, dof = (x.float().reshape(b, s, kvh, h // kvh, d)
+                   for x in (q, o, do))
+    kf, vf = k.float(), v.float()
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) / np.sqrt(d)
+    ok = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        ok = ok.tril()
+    lse = torch.logsumexp(sc.masked_fill(~ok, float("-inf")), -1, True)
+    p = torch.where(ok, torch.exp(sc - lse), 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None])
+
+    def rounded(x):
+        if not split:
+            return x.bfloat16().float()
+        hi = (x.view(torch.int32) & -65536).view(torch.float32)
+        return hi + (x - hi).bfloat16().float()
+
+    p, ds = rounded(p), rounded(ds)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) / np.sqrt(d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) / np.sqrt(d)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dq.reshape(q.shape).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def test_bf16_flash_backward_design_needs_the_split():
+    """One bf16 rounding of P and dS comes within 15% of the limit; the
+    hi + lo split holds it with a margin of 40% or more."""
+    def gap(got, want):
+        return max(((a.double() - w.double()).abs().max()
+                    / w.double().abs().max()).item()
+                   for a, w in zip(got, want))
+
+    worst = {False: 0.0, True: 0.0}
+    for s, causal, seed in BWD_DESIGN_CASES:
+        rng = np.random.default_rng(seed)
+        q = torch.from_numpy(rng.standard_normal((1, s, 5, 128))
+                             .astype(np.float32)).bfloat16()
+        k, v = (torch.from_numpy(rng.standard_normal((1, s, 1, 128))
+                                 .astype(np.float32)).bfloat16()
+                for _ in range(2))
+        do = torch.from_numpy(rng.standard_normal((1, s, 5, 128))
+                              .astype(np.float32)).bfloat16()
+        o = gqa_attention_ref(q, k, v, causal)
+        plain = gqa_attention_bwd_ref(q, k, v, o, do, causal)
+        exact = gqa_attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
+                                      causal)
+        for split in (False, True):
+            got = _emulated_bf16_flash_bwd(q, k, v, o, do, causal,
+                                           split=split)
+            worst[split] = max(worst[split], gap(got, plain))
+            print(f"S={s} causal={causal} {'split' if split else 'once'}: "
+                  f"{gap(got, plain):.2e} of max |grad| against the plain "
+                  f"backward, {gap(got, exact):.2e} against float64 (plain "
+                  f"against float64 {gap(plain, exact):.2e}; limit "
+                  f"{BWD_TOL_BF16:.0e})")
+    assert worst[True] <= 0.6 * BWD_TOL_BF16
+    assert worst[False] >= 0.85 * BWD_TOL_BF16
 
 
 @pytest.mark.parametrize("b,s,h,kv,d", [(2, 64, 4, 2, 32), (1, 33, 8, 8, 16),

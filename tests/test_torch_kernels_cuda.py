@@ -11,12 +11,14 @@ Tolerances: histograms bit-equal; the weighted sum within one float32
 rounding per client term; float32 attention 2e-5 and the SSD scan 1e-4 (the
 reference's own pins, tests/test_kernels.py); bfloat16 attention one bf16 ulp
 (both sides round a float32 result once, 2^-7 of the value at most).  The
-flash backward pair against the plain backward within ``BWD_TOL`` of each
-gradient's largest magnitude: twice the plain backward's own error in the
-input dtype against a float64 plain backward, read by ``chip_smoke.py``
-phase 16a (PERF.md).  Gradients of the model on the card against the CPU
-within ``GRAD_TOL`` of each leaf's largest magnitude, the limit that holds
-the port's gradients to the reference's on the CPU
+flash backward kernels against the plain backward within ``BWD_TOL`` of
+each gradient's largest magnitude: twice the plain backward's own error in
+the input dtype against a float64 plain backward, read by
+``chip_smoke.py`` phase 16a (PERF.md).  The forward's row logsumexp, which
+the bf16 backward reads, within 1e-5 + 1e-6 |L| of the plain one (both sum
+float32 exponentials, in other orders).  Gradients of the model on the card
+against the CPU within ``GRAD_TOL`` of each leaf's largest magnitude, the
+limit that holds the port's gradients to the reference's on the CPU
 (tests/test_torch_train.py).
 """
 import numpy as np
@@ -26,7 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    FlashAttentionBackward, attention_ref, flash_attention,
+    FlashAttention, FlashAttentionBackward, attention_ref, flash_attention,
     gqa_attention_bwd_ref, gqa_attention_ref, gqa_flash_attention)
 from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref  # noqa: E402
@@ -394,7 +396,9 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
 # (B, S, H, KV, D, dtype, causal, window): qwen3-14b's prefill shape in
 # bf16, causal and windowed; float32 at every head dim, GQA groups 1, 2 and
 # 5, ragged S (no multiple of the 64-row or 32-key tiles), a window shorter
-# than a tile and no causal mask.
+# than a tile and no causal mask; bf16 (the tensor-core kernels) also at
+# head_dim 64, GQA groups 1 and 8, S of no multiple of 64 or 128, no causal
+# mask (with and without a window) and windows shorter than a tile.
 BWD_SHAPES = [
     (4, 1024, 40, 8, 128, torch.bfloat16, True, 0),
     (4, 1024, 40, 8, 128, torch.bfloat16, True, 256),
@@ -404,6 +408,10 @@ BWD_SHAPES = [
     (1, 130, 4, 2, 128, torch.float32, False, 0),
     (2, 77, 10, 2, 16, torch.float32, False, 7),
     (1, 333, 10, 2, 128, torch.bfloat16, True, 40),
+    (2, 77, 8, 1, 64, torch.bfloat16, True, 0),
+    (1, 190, 6, 6, 64, torch.bfloat16, False, 0),
+    (2, 300, 16, 2, 128, torch.bfloat16, True, 20),
+    (1, 257, 4, 2, 128, torch.bfloat16, False, 33),
 ]
 
 
@@ -418,14 +426,34 @@ def test_flash_backward_kernels_match_plain_backward(cuda, b, s, h, kv, d,
     q = _randn((b, s, h, d), 1, cuda).to(dtype)
     k, v = (_randn((b, s, kv, d), i, cuda).to(dtype) for i in (2, 3))
     do = _randn((b, s, h, d), 4, cuda).to(dtype)
-    o = gqa_flash_attention(q, k, v, causal=causal, window=window)
-    got = FlashAttentionBackward.apply(q, k, v, o, do, causal, window)
+    o, lse = FlashAttention.apply(q, k, v, causal, window, True)
+    got = FlashAttentionBackward.apply(q, k, v, o, lse, do, causal, window)
     want = gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention_bwd"] == 1
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert _rel_err(g, w) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,dtype,causal,window", [
+    (2, 333, 40, 8, 128, torch.bfloat16, True, 0),
+    (1, 190, 6, 6, 64, torch.bfloat16, False, 33),
+    (2, 77, 10, 5, 32, torch.float32, True, 5)])
+def test_forward_lse_leaves_output_bit_identical(cuda, b, s, h, kv, d, dtype,
+                                                 causal, window):
+    """The forward writes each row's logsumexp only when asked, and its
+    output is the same bits either way; L matches the plain logsumexp."""
+    from repro_torch.kernels.flash_attention.flash_attention import launch
+    q = _randn((b, s, h, d), 1, cuda).to(dtype)
+    k, v = (_randn((b, s, kv, d), i, cuda).to(dtype) for i in (2, 3))
+    plain = launch(q, k, v, causal=causal, window=window)
+    o, lse = launch(q, k, v, causal=causal, window=window, with_lse=True)
+    _, want = gqa_attention_ref(q, k, v, causal, window, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, o)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-5)
 
 
 def _lm_grads(arch, device):

@@ -72,15 +72,43 @@ def _wl():
     return jwl, twl, jwl.make_dataset(), twl.make_dataset("cpu")
 
 
+BUILTIN_WORKLOADS = ("cnn", "lm")
+
+
+def _builtins_match_reference():
+    """The reference's builtins, as a prefix: the JAX registry is global to
+    the process, so names that other test files register into it (and
+    never remove) may follow them."""
+    n = len(BUILTIN_WORKLOADS)
+    assert (J.registered_workloads()[:n] == T.registered_workloads()[:n]
+            == BUILTIN_WORKLOADS)
+
+
 def test_micro_config_and_registry_match_reference():
     assert (dataclasses.asdict(MICRO_LM_CONFIG)
             == dataclasses.asdict(JMICRO))
-    assert set(J.registered_workloads()) <= set(T.registered_workloads())
+    _builtins_match_reference()
     jwl, twl, jds, tds = _wl()
     assert twl.batch_keys == jwl.batch_keys
     assert twl.num_classes(tds) == jwl.num_classes(jds) == 10
     np.testing.assert_array_equal(tds.log_probs.numpy(),
                                   np.asarray(jds.log_probs))
+
+
+def test_registry_comparison_ignores_test_only_registrations():
+    """A name registered into the reference's registry by another test (as
+    tests/test_registry_contracts.py does) does not change the comparison,
+    whichever files share a test process."""
+    from repro.fl import workloads as jw
+    name = "_throwaway_lm_workload_test"
+    J.register_workload(name, J.get_workload("lm"))
+    try:
+        assert name in J.registered_workloads()
+        assert name not in T.registered_workloads()
+        _builtins_match_reference()
+    finally:
+        jw._WORKLOADS.pop(name, None)
+    assert name not in J.registered_workloads()
 
 
 def test_materialize_sample_and_eval_set_bit_equal():
