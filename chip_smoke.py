@@ -2458,6 +2458,200 @@ def phase16f_full_width(dev) -> dict:
     return out
 
 
+# Phase 17: the sharded engine (fl/sharded.py) at the paper's FL width
+# (FLConfig(): N = 100, 30 a round, 4 local epochs of batch 32, Adam 1e-3,
+# fedavg), case1b x SHARDED_STRATEGIES x one seed, SHARDED_ROUNDS rounds.
+# The machine has one card and NCCL refuses two ranks on one device, so the
+# engine runs one group: once with no process group (every collective the
+# identity) and once inside a one-rank NCCL group (every collective an
+# NCCL call on the card's tensors); the two must be bit-identical.  Both
+# are held to the card's sim run of the same spec at the reference's own
+# sharded == sim pins (tests/test_experiment.py: num_selected equal, loss
+# rtol SHARDED_RTOL / atol SHARDED_ATOL, accuracy atol SHARDED_ACC_ATOL).
+# TF32 off and cuDNN's deterministic algorithms on, so that a difference
+# can only come from the engines.
+SHARDED_STRATEGIES = ("labelwise", "random")
+SHARDED_ROUNDS = 2
+SHARDED_RTOL, SHARDED_ATOL, SHARDED_ACC_ATOL = 2e-4, 2e-5, 5e-3
+
+
+def _sharded_spec(engine: str, **kw):
+    from repro_torch.configs import FLConfig
+    from repro_torch.fl import ExperimentSpec, ScenarioSpec
+    base = dict(scenarios=(ScenarioSpec.from_case("case1b"),),
+                strategies=SHARDED_STRATEGIES, seeds=(0,), engine=engine,
+                fl=FLConfig(), rounds=SHARDED_ROUNDS)
+    base.update(kw)
+    return ExperimentSpec(**base)
+
+
+def _counted_run(dev, spec, ds=None) -> dict:
+    """``run(spec)`` with the launch counts set to 0 just before and read
+    just after; for ``sharded`` also each round's wall time (its
+    ``sharded:round`` spans)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.fl import run
+    from repro_torch.obs import trace
+    n_ev = len(trace.events())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(spec, ds=ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    rounds = [e["dur"] / 1e6 for e in trace.events()[n_ev:]
+              if e["name"] == "sharded:round"]
+    return {"res": res, "launches": launches, "wall_s": wall,
+            "round_s": rounds}
+
+
+def _sharded_pin(what: str, sh, sim) -> dict:
+    """``sharded`` against ``sim``: num_selected equal, loss and accuracy
+    within the reference's sharded == sim pins, cluster assignments
+    bit-equal."""
+    import numpy as np
+    if not np.array_equal(sh.num_selected, sim.num_selected):
+        raise AssertionError(f"{what}: num_selected differs from sim")
+    loss_gap = float(np.abs(sh.loss - sim.loss).max())
+    acc_gap = float(np.abs(sh.accuracy - sim.accuracy).max())
+    if not (np.allclose(sh.loss, sim.loss, rtol=SHARDED_RTOL,
+                        atol=SHARDED_ATOL)
+            and acc_gap <= SHARDED_ACC_ATOL
+            and np.isfinite(sh.loss).all()):
+        raise AssertionError(f"{what}: loss {loss_gap:.3e} and accuracy "
+                             f"{acc_gap:.3e} from sim, over the pins")
+    cs, cr = sh.cluster_trajectories(), sim.cluster_trajectories()
+    if cr is not None and not np.array_equal(cs["assign"], cr["assign"]):
+        raise AssertionError(f"{what}: cluster assignments differ from sim")
+    return {"loss_gap": loss_gap, "acc_gap": acc_gap,
+            "loss_rel": loss_gap / float(np.abs(sim.loss).max())}
+
+
+def _expect(what: str, launches: dict, label_hist: int,
+            weighted_agg: int, lm: bool = False) -> None:
+    got = (launches["label_hist"], launches["weighted_agg"])
+    if got != (label_hist, weighted_agg) or (not lm and any(
+            launches[k] for k in ("flash_attention", "flash_attention_bwd",
+                                  "ssd_scan"))):
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{label_hist} label_hist and {weighted_agg} "
+                             f"weighted_agg")
+
+
+def phase17_sharded(dev) -> dict:
+    """The sharded engine on the card: (a) the paper's FL width with no
+    process group and in a one-rank NCCL group, against sim; (b)
+    clustered_fedavg4 and median under poison against sim; (c) the lm
+    workload against sim."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import lm_workload, register_workload
+    from repro_torch.models.config import ModelConfig
+    say(f"== 17a. run(ExperimentSpec(engine='sharded')) at the paper's FL "
+        f"width, case1b x {SHARDED_STRATEGIES} x 1 seed, {SHARDED_ROUNDS} "
+        f"rounds, against sim (TF32 off, cuDNN deterministic)")
+    old = _tf32(False, False)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ds = ImageDataset(device=dev)
+    per_run = len(SHARDED_STRATEGIES) * SHARDED_ROUNDS
+    out = {}
+    sim = _counted_run(dev, _sharded_spec("sim"), ds)
+    alone = _counted_run(dev, _sharded_spec("sharded"), ds)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        nccl = _counted_run(dev, _sharded_spec("sharded"), ds)
+    finally:
+        dist.destroy_process_group()
+    cfg = _sharded_spec("sharded").fl
+    want_facts = (1, cfg.clients_per_round,
+                  1.0 - cfg.clients_per_round / cfg.num_clients)
+    for what, r in (("no process group", alone), ("one-rank NCCL", nccl)):
+        _expect(f"sharded, {what}", r["launches"], per_run, per_run)
+        st = r["res"].meta["sharded"]
+        facts = st["strategies"]["labelwise"]
+        if (st["groups"], facts["budget"],
+                facts["flop_sparsity"]) != want_facts:
+            raise AssertionError(f"sharded, {what}: meta {st}, expected "
+                                 f"(groups, budget, flop_sparsity) "
+                                 f"{want_facts}")
+    for name in ("accuracy", "loss", "num_selected"):
+        if not np.array_equal(getattr(alone["res"], name),
+                              getattr(nccl["res"], name)):
+            raise AssertionError(f"sharded: {name} in the one-rank NCCL "
+                                 "group differs from the run without one")
+    if alone["res"].meta["sharded"] != nccl["res"].meta["sharded"]:
+        raise AssertionError("sharded: meta differs with NCCL")
+    pin = _sharded_pin("sharded 17a", alone["res"], sim["res"])
+    sim_round = sim["res"].meta["sim"]["round_s"]
+    say(f"no process group and one-rank NCCL bit-identical; launches "
+        f"{alone['launches']} ({len(SHARDED_STRATEGIES)} strategies x "
+        f"{SHARDED_ROUNDS} rounds: 1 label_hist and 1 weighted_agg a "
+        f"strategy and round); rounds {[f'{x:.3f}' for x in alone['round_s']]}"
+        f" s wall without a group, {[f'{x:.3f}' for x in nccl['round_s']]} s "
+        f"in the NCCL group (both strategies a round); sim's rounds "
+        f"{[f'{x:.3f}' for x in sim_round]} s (both strategies as 2 trials); "
+        f"against sim: loss {pin['loss_gap']:.3e} ({pin['loss_rel']:.3e} "
+        f"relative), accuracy {pin['acc_gap']:.3e}; "
+        f"meta {alone['res'].meta['sharded']['strategies']['labelwise']}")
+    out["a"] = {"launches": alone["launches"], "round_s": alone["round_s"],
+                "nccl_round_s": nccl["round_s"], "sim_round_s": sim_round,
+                **pin}
+
+    say("== 17b. clustered_fedavg4, and median under poison (scale -4) on a "
+        "quarter of the clients, sharded against sim")
+    poison = {"frac": 0.25, "behaviors": ["poison"], "scale": -4.0}
+    for name, kw, agg_launches in (
+            ("clustered_fedavg4", {"aggregation": "clustered_fedavg4"},
+             4 * per_run),
+            ("median+poison", {"aggregation": "median", "adversary": poison},
+             0)):
+        ref = _counted_run(dev, _sharded_spec("sim", **kw), ds)
+        got = _counted_run(dev, _sharded_spec("sharded", **kw), ds)
+        _expect(f"sharded {name}", got["launches"], per_run, agg_launches)
+        st = got["res"].meta["sharded"]
+        if name.startswith("median") and st["reduce"] != "gather":
+            raise AssertionError(f"median: meta {st}")
+        pin = _sharded_pin(f"sharded {name}", got["res"], ref["res"])
+        say(f"{name}: launches {got['launches']}; rounds "
+            f"{[f'{x:.3f}' for x in got['round_s']]} s wall (sim "
+            f"{[f'{x:.3f}' for x in ref['res'].meta['sim']['round_s']]}); "
+            f"against sim loss {pin['loss_gap']:.3e}, accuracy "
+            f"{pin['acc_gap']:.3e}"
+            + ("; cluster assignments bit-equal"
+               if kw["aggregation"].startswith("clustered") else
+               f"; reduce {st['reduce']}"))
+        out[name] = {"launches": got["launches"], "round_s": got["round_s"],
+                     **pin}
+
+    say(f"== 17c. fl-lm-12m ({LM_ROUNDS} rounds, labelwise) sharded "
+        "against sim")
+    register_workload("lm-12m", lm_workload(ModelConfig(**FL_LM_CFG),
+                                            num_domains=8, seq_len=64),
+                      overwrite=True)
+    lm = {e: _counted_run(dev, _lm_fl_spec(np, e, LM_ROUNDS,
+                                           strategies=("labelwise",)))
+          for e in ("sim", "sharded")}
+    _expect("sharded lm", lm["sharded"]["launches"], LM_ROUNDS, LM_ROUNDS,
+            lm=True)
+    if min(lm["sharded"]["launches"][k] for k in
+           ("flash_attention", "flash_attention_bwd")) == 0:
+        raise AssertionError("sharded lm did not reach the flash kernels")
+    pin = _sharded_pin("sharded lm", lm["sharded"]["res"], lm["sim"]["res"])
+    say(f"fl-lm-12m sharded: launches {lm['sharded']['launches']}; rounds "
+        f"{[f'{x:.3f}' for x in lm['sharded']['round_s']]} s wall; against "
+        f"sim loss {pin['loss_gap']:.3e}, accuracy {pin['acc_gap']:.3e}")
+    out["lm"] = {"launches": lm["sharded"]["launches"], **pin}
+    torch.backends.cudnn.deterministic = det
+    _tf32(*old)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2745,6 +2939,7 @@ def main() -> int:
     phase16c_vmap_grad(dev)
     p16e = phase16e_lm_fl(dev)
     p16f = phase16f_full_width(dev)
+    p17 = phase17_sharded(dev)
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -2769,7 +2964,11 @@ def main() -> int:
          "population_ms": [h["ms"] for h in pop_hist.values()],
          "population_plain_ms": [h["plain"] for h in pop_hist.values()],
          "population_bound_ms": [h["bound"] for h in pop_hist.values()],
-         "population_library_ms": [h["lib"] for h in pop_hist.values()]},
+         "population_library_ms": [h["lib"] for h in pop_hist.values()],
+         "sharded_launches": p17["a"]["launches"]["label_hist"],
+         "sharded_clustered_launches":
+             p17["clustered_fedavg4"]["launches"]["label_hist"],
+         "sharded_lm_launches": p17["lm"]["launches"]["label_hist"]},
         {"name": "weighted_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
          "replaces": "src/repro/kernels/weighted_agg/weighted_agg.py:28",
@@ -2790,7 +2989,11 @@ def main() -> int:
          "async_max_abs_err": pop_agg["err"],
          "async_plain_ms": pop_agg["plain"],
          "async_bound_ms": pop_agg["bound"],
-         "async_library_ms": pop_agg["lib"]},
+         "async_library_ms": pop_agg["lib"],
+         "sharded_launches": p17["a"]["launches"]["weighted_agg"],
+         "sharded_clustered_launches":
+             p17["clustered_fedavg4"]["launches"]["weighted_agg"],
+         "sharded_lm_launches": p17["lm"]["launches"]["weighted_agg"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",

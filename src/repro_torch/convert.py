@@ -52,6 +52,29 @@ def _stacked(perm, ndim: int):
     return tuple(range(lead)) + tuple(lead + int(i) for i in perm)
 
 
+def _leaf_to_torch(value: Any, device: torch.device) -> torch.Tensor:
+    """One reference leaf (an array-like) -> a tensor on ``device`` with its
+    bits.  NumPy has no bfloat16 of its own: the reference's bf16 leaves
+    come as ``ml_dtypes.bfloat16`` arrays, whose raw 16-bit words are viewed
+    as ``torch.bfloat16``."""
+    a = np.array(np.asarray(value))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One port leaf -> a NumPy array with its bits; bf16 becomes the
+    reference's ``ml_dtypes.bfloat16``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return np.ascontiguousarray(
+            t.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+    return np.ascontiguousarray(t.numpy())
+
+
 def params_from_jax(tree: Mapping[str, Any],
                     device: "str | torch.device | None" = None
                     ) -> Dict[str, torch.Tensor]:
@@ -64,7 +87,7 @@ def params_from_jax(tree: Mapping[str, Any],
         a = np.asarray(value)
         if path in CNN_LAYOUT:
             a = a.transpose(_stacked(CNN_LAYOUT[path], a.ndim))
-        out[path] = torch.from_numpy(np.array(a)).to(device)
+        out[path] = _leaf_to_torch(a, device)
     return out
 
 
@@ -73,7 +96,7 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     in the reference's layout."""
     out: Dict[str, Any] = {}
     for path, value in params.items():
-        a = value.detach().cpu().numpy()
+        a = _leaf_to_numpy(value)
         if path in CNN_LAYOUT:
             a = a.transpose(_stacked(np.argsort(CNN_LAYOUT[path]), a.ndim))
         *parents, name = path.split(".")
@@ -87,13 +110,13 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 def _to_torch(node: Any, device: torch.device) -> Any:
     if isinstance(node, Mapping):
         return {k: _to_torch(v, device) for k, v in node.items()}
-    return torch.from_numpy(np.array(np.asarray(node))).to(device)
+    return _leaf_to_torch(node, device)
 
 
 def _to_numpy(node: Any) -> Any:
     if isinstance(node, Mapping):
         return {k: _to_numpy(v) for k, v in node.items()}
-    return np.ascontiguousarray(node.detach().cpu().numpy())
+    return _leaf_to_numpy(node)
 
 
 def _take(node: Any, r: int) -> Any:

@@ -1,11 +1,14 @@
 """Label plans, label statistics, selection and aggregation (mirrors
 ``repro.core``)."""
 from .aggregation import (AGGREGATORS, Aggregator, aggregator_id,
-                          block_partial_sums, get_aggregator, interpolate,
-                          krum_reduce, krum_scores, make_krum,
-                          make_trimmed_mean, masked_mean, median_reduce,
-                          register_aggregator, registered_aggregators,
-                          trimmed_mean_reduce, two_tier_weighted_mean)
+                          all_gather_scores, block_partial_sums,
+                          exchange_selected_shards, gather_client_shards,
+                          get_aggregator, interpolate, krum_reduce,
+                          krum_scores, make_krum, make_trimmed_mean,
+                          masked_mean, median_reduce, psum_aggregate,
+                          psum_weighted_mean, register_aggregator,
+                          registered_aggregators, trimmed_mean_reduce,
+                          two_tier_weighted_mean)
 from .clustering import (area_counts, area_index, cluster_counts,
                          cluster_membership, cluster_sizes,
                          greedy_area_selection, kmeans_cluster,

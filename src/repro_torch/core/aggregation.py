@@ -1,5 +1,6 @@
 """Server-side aggregation: the masked weighted mean over stacked clients,
-server interpolation, the aggregator registry and the robust reductions.
+server interpolation, the aggregator registry, the robust reductions and
+the collectives of the sharded round.
 
 Parameters are ``dict[str, Tensor]``; a stacked tree has a leading client
 axis on every leaf.  The robust builtins (``median``, ``trimmed_mean``,
@@ -13,6 +14,7 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Params = Dict[str, torch.Tensor]
 
@@ -333,3 +335,169 @@ register_aggregator("median", Aggregator("fedavg", reduce=median_reduce))
 register_aggregator("trimmed_mean",
                     Aggregator("fedavg", reduce=trimmed_mean_reduce))
 register_aggregator("krum", Aggregator("fedavg", reduce=krum_reduce))
+
+
+# ---------------------------------------------------------------------------
+# Collective forms over a ``torch.distributed`` process group: a group of G
+# ranks, each holding its own block of clients (the reference's shard_map
+# over a mesh axis).  ``group=None`` is one group with no communication,
+# where every collective is the identity.  A rank's index within the group
+# plays the reference's ``axis_index``:
+#
+#   tiled all_gather -> all_gather_into_tensor
+#   psum_scatter(tiled=True) -> reduce_scatter_tensor
+#   psum -> all_reduce(SUM)
+#
+# Two regimes, as in the reference: the masked psum (psum_aggregate, every
+# rank computes and the mask zeroes unselected contributions) and the
+# gather/scatter of the gather-based round (gather_client_shards or
+# exchange_selected_shards, then psum_weighted_mean).  Bool tensors ride the
+# collectives as int8.
+# ---------------------------------------------------------------------------
+
+# torch 2.13 renames the tensor forms (``*_single``); older releases have
+# only the names the mapping above gives.
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor", None)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or getattr(
+    dist, "reduce_scatter_tensor", None)
+
+
+def group_size(group: "dist.ProcessGroup | None") -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group: "dist.ProcessGroup | None") -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _as_wire(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    return x.to(torch.int8) if x.dtype == torch.bool else x
+
+
+def _from_wire(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.to(torch.bool) if dtype == torch.bool else x
+
+
+def all_reduce_sum(x: torch.Tensor,
+                   group: "dist.ProcessGroup | None") -> torch.Tensor:
+    """``psum``: the sum of ``x`` over the group's ranks, on every rank, in
+    ``x``'s dtype (a new tensor)."""
+    if group is None:
+        return x
+    out = _as_wire(x).clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return _from_wire(out, x.dtype)
+
+
+def all_gather_tiled(x: torch.Tensor,
+                     group: "dist.ProcessGroup | None") -> torch.Tensor:
+    """Tiled ``all_gather``: every rank's (C, ...) block -> the (G·C, ...)
+    concatenation in rank order, on every rank."""
+    if group is None:
+        return x
+    wire = _as_wire(x)
+    out = wire.new_empty((group_size(group) * x.shape[0],) + x.shape[1:])
+    _ALL_GATHER(out, wire, group=group)
+    return _from_wire(out, x.dtype)
+
+
+def reduce_scatter_tiled(x: torch.Tensor,
+                         group: "dist.ProcessGroup | None") -> torch.Tensor:
+    """Tiled ``psum_scatter`` over the leading axis: the ranks' (G·S, ...)
+    tensors summed, rank g keeping rows [g·S, (g+1)·S)."""
+    if group is None:
+        return x
+    g = group_size(group)
+    if x.shape[0] % g:
+        raise ValueError(f"leading axis ({x.shape[0]}) must be a multiple "
+                         f"of the group size ({g})")
+    wire = _as_wire(x)
+    out = wire.new_empty((x.shape[0] // g,) + x.shape[1:])
+    _REDUCE_SCATTER(out, wire, op=dist.ReduceOp.SUM, group=group)
+    return _from_wire(out, x.dtype)
+
+
+def psum_aggregate(params: Params, my_mask: torch.Tensor,
+                   group: "dist.ProcessGroup | None",
+                   my_weight: Optional[torch.Tensor] = None) -> Params:
+    """Masked weighted all-reduce of each rank's client params: every rank
+    contributes mask·w·θ and the Σ w denominator makes the result the
+    FedAvg mean over the selected ranks, replicated on all of them.  The
+    sum runs in each leaf's dtype and the mean is finished in float32."""
+    w = my_mask.to(torch.float32)
+    if my_weight is not None:
+        w = w * my_weight.to(torch.float32)
+    denom = torch.clamp(all_reduce_sum(w, group), min=1e-12)
+    return {k: (all_reduce_sum(p * w.to(p.dtype), group).to(torch.float32)
+                / denom).to(p.dtype) for k, p in params.items()}
+
+
+def all_gather_scores(score: torch.Tensor,
+                      group: "dist.ProcessGroup | None") -> torch.Tensor:
+    """Every rank's selection statistic stacked on a new leading (G,) axis
+    (Algorithm 1's cheap server step: G scalars, not G models)."""
+    return all_gather_tiled(score[None], group)
+
+
+def gather_client_shards(tree: Params,
+                         group: "dist.ProcessGroup | None") -> Params:
+    """Tiled all-gather of every leaf's client axis: each rank's (C, ...)
+    block -> the (N, ...) whole on every rank (the gather-based round's
+    O(N) baseline exchange)."""
+    return {k: all_gather_tiled(x, group) for k, x in tree.items()}
+
+
+def exchange_selected_shards(tree: Params, order_padded: torch.Tensor,
+                             group: "dist.ProcessGroup | None", *,
+                             num_groups: int, per_group: int) -> Params:
+    """The O(B) selected-shard exchange: move only the ``B_pad =
+    len(order_padded)`` selected clients' shards.
+
+    Selection is replicated, so every rank computes the same routing:
+    training slot j holds client ``order_padded[j]``, which lives on rank
+    ``order_padded[j] // per_group`` at local row ``order_padded[j] %
+    per_group`` and trains on rank ``j // slots``.  Each rank fills its own
+    clients' slots of a (B_pad, ...) tensor, zeros elsewhere, and one
+    reduce-scatter sums the ranks' tensors and hands each rank its
+    (slots, ...) block.  A slot sums one owner's row and zeros, so the
+    result is bit-identical to all-gather-then-index."""
+    b_pad = order_padded.shape[0]
+    if b_pad % num_groups:
+        raise ValueError(f"padded budget ({b_pad}) must be a multiple of the "
+                         f"group count ({num_groups})")
+    order = order_padded.long()
+    src_row = order % per_group
+    mine = (order // per_group) == group_rank(group)
+
+    def route(x: torch.Tensor) -> torch.Tensor:
+        contrib = _as_wire(x)[src_row]
+        keep = mine.reshape((b_pad,) + (1,) * (contrib.dim() - 1))
+        contrib = torch.where(keep, contrib, torch.zeros_like(contrib))
+        return _from_wire(reduce_scatter_tiled(contrib, group), x.dtype)
+
+    return {k: route(x) for k, x in tree.items()}
+
+
+def psum_weighted_mean(tree: Params, weights: torch.Tensor,
+                       group: "dist.ProcessGroup | None",
+                       local_sum: Optional[Callable[[Params, torch.Tensor],
+                                                    Params]] = None
+                       ) -> Params:
+    """Weighted mean over every rank's training slots: leaves (S, ...) and
+    per-slot weights (S,) -> ``Σ_ranks Σ_s w·x / Σ w`` in float32,
+    replicated on every rank.  The slot sum and the all-reduce run in each
+    leaf's dtype (a bf16 delta tree halves the all-reduce's bytes); an
+    all-zero weight vector gives an exact zero through the 1e-12
+    denominator.  ``local_sum(tree, w)`` replaces the in-rank slot sum
+    (leaf dtype kept): the sharded round passes
+    ``kernels.dispatch.weighted_sum_tree``, one ``weighted_agg`` launch for
+    the tree on a card."""
+    w = weights.to(torch.float32)
+    denom = torch.clamp(all_reduce_sum(w.sum(), group), min=1e-12)
+    if local_sum is None:
+        def local_sum(t: Params, wv: torch.Tensor) -> Params:
+            return {k: (_bcast(wv, x) * x).sum(0) for k, x in t.items()}
+    return {k: all_reduce_sum(s, group).to(torch.float32) / denom
+            for k, s in local_sum(tree, w).items()}

@@ -144,3 +144,25 @@ def digamma(x: torch.Tensor) -> torch.Tensor:
     log_t = log1p(z * _F32_1_7_5) + _F32_LOG_7_5
     y = (log_t + num / den) - torch.full_like(z, 7.0) / (z + 7.5)
     return torch.where(x < 0.5, torch.nan, y)
+
+
+_LIBM = None
+
+
+def cos(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``cos`` as the reference's CPU code computes it.  XLA's CPU
+    backend lowers ``cos`` to a call of the C library's ``cosf``, which is
+    within one ulp but not correctly rounded, and ``torch.cos`` lands one
+    ulp away on some arguments; the port calls the same function, an
+    element at a time on the host, so it serves scalars such as a
+    learning-rate schedule's and not whole tensors."""
+    global _LIBM
+    if _LIBM is None:
+        import ctypes
+        import ctypes.util
+        _LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+        _LIBM.cosf.restype = ctypes.c_float
+        _LIBM.cosf.argtypes = [ctypes.c_float]
+    flat = x.detach().to(torch.float32).cpu().reshape(-1).tolist()
+    out = torch.tensor([_LIBM.cosf(v) for v in flat], dtype=torch.float32)
+    return out.reshape(x.shape).to(x.device)

@@ -172,9 +172,16 @@ _REGISTRY_ORDER: List[str] = []
 
 
 def register_strategy(name: str, fn: SelectFn, *,
-                      overwrite: bool = False) -> SelectFn:
+                      overwrite: bool = False,
+                      check: bool = False) -> SelectFn:
     """Register ``fn`` under ``name``.  A new name gets the next id;
-    re-registering (``overwrite=True``) swaps the callable and keeps the id."""
+    re-registering (``overwrite=True``) swaps the callable and keeps the id.
+    ``check=True``, the contract pass over ``fn``, is not ported yet and
+    raises."""
+    if check:
+        raise NotImplementedError(
+            "register_strategy(check=True), the contract pass over a "
+            "strategy, is not ported yet (ROADMAP Queue 1 item 16)")
     if not name or not isinstance(name, str):
         raise ValueError(f"strategy name must be a non-empty str; got {name!r}")
     if name in STRATEGIES and not overwrite:

@@ -29,8 +29,10 @@ block-separable selection and round telemetry (``async`` also
 ``staleness_hist``); ``meta["population"]`` holds their side facts.
 ``run`` folds the metric series, the engines' side facts, the trace spans
 and the peak device memory into the reference's ``meta["telemetry"]``
-envelope.  Not ported yet, and raising with their ROADMAP item: the
-``sharded`` engine (Queue 1 item 12) and ``validate(deep=True)`` (item 16).
+envelope.  ``"sharded"`` is the gather-based round over a
+``torch.distributed`` process group (``fl.sharded``; one group without
+one), with ``meta["sharded"]``.  Not ported yet, and raising with its
+ROADMAP item: ``validate(deep=True)`` (item 16).
 """
 from __future__ import annotations
 
@@ -779,9 +781,226 @@ def _engine_async(spec: ExperimentSpec, lowered: Sequence[LoweredScenario],
     return run_engine_async(spec, lowered, ds, device)
 
 
-def _engine_sharded(*args, **kwargs):
-    raise NotImplementedError("engine 'sharded' is not ported yet (ROADMAP "
-                              "Queue 1 item 12)")
+def _sharded_group(n_clients: int):
+    """-> (group, groups, rank, world): without an initialised default
+    process group one group and no communication; with one, the largest
+    divisor of N not above the world size (the reference's rule on its
+    device count), the ranks past it outside the rounds."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None, 1, 0, 1
+    world, rank = dist.get_world_size(), dist.get_rank()
+    groups = max(g for g in range(1, world + 1) if n_clients % g == 0)
+    group = (dist.group.WORLD if groups == world
+             else dist.new_group(list(range(groups))))
+    return group, groups, rank, world
+
+
+def _engine_sharded(spec: ExperimentSpec, lowered: Sequence[LoweredScenario],
+                    ds, device):
+    """The gather-based round over a ``torch.distributed`` process group
+    (``fl.sharded``): each rank draws only its block of each round's rows,
+    selection runs on the all-gathered histograms on every rank, only the
+    ``order[:budget]`` slots train, and the weighted delta mean (or the
+    gather-reduce of a robust family) is all-reduced back.
+
+    Every strategy and every aggregation family of the registries runs
+    (each strategy its own round with its own static budget), with the
+    spec's adversary and telemetry.  Without an initialised default process
+    group the engine runs one group on ``device``; with one, every rank
+    calls ``run`` with the same spec, the round runs on the first
+    ``groups`` ranks (the largest divisor of N not above the world size)
+    and every rank returns the same result.  ``REPRO_SHARDED_EXCHANGE``
+    picks ``a2a`` (default) or ``allgather``, two bit-identical exchanges;
+    ``meta["sharded"]`` holds the reference's facts."""
+    import os
+    from collections import deque
+
+    import torch.distributed as dist
+    from torch.func import vmap
+
+    from .. import rng
+    from ..data import client_batches
+    from ..optim import get_optimizer
+    from .client import local_gradient, local_train
+    from .loop import RoundTelemetry, cluster_mixture
+    from .round import resolve_adversary, stack_global_params
+    from .sharded import exchange_bytes_per_device, make_sharded_fl_round
+    from .workloads import get_workload
+
+    cfg = spec.fl
+    agg = get_aggregator(spec.aggregation or cfg.aggregation)
+    poison_scale, tau = resolve_adversary(spec.adversary)
+    attacked = poison_scale is not None or tau > 0
+    adv_masks = spec.adversary_masks() if attacked else None
+    n_clients = cfg.num_clients
+    group, groups, rank, world = _sharded_group(n_clients)
+    per_group = n_clients // groups
+    exchange = os.environ.get("REPRO_SHARDED_EXCHANGE", "a2a")
+    k_n, s_n, r_n = len(lowered), len(spec.strategies), len(spec.seeds)
+    t_n = spec.num_rounds
+    acc = np.zeros((k_n, s_n, r_n, t_n), np.float32)
+    loss = np.zeros_like(acc)
+    nsel = np.zeros_like(acc)
+    c_acc = c_loss = c_assign = None
+    if agg.clustered:
+        c_acc = np.zeros((k_n, s_n, r_n, t_n, agg.n_clusters), np.float32)
+        c_loss = np.zeros_like(c_acc)
+        c_assign = np.zeros((k_n, s_n, r_n, t_n, n_clients), np.int32)
+    tel: Dict[str, np.ndarray] = {}
+    meta: Dict[str, Any] = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    if rank < groups:
+        wl = get_workload(spec.workload)
+        opt = get_optimizer(cfg.optimizer, cfg.lr)
+        eval_batch = wl.eval_set(ds, spec.eval_n_per_class)
+        eval_fn = wl.make_eval(ds)
+        if agg.clustered:
+            eval_fn = vmap(eval_fn, in_dims=(0, None))
+        loss_fn = wl.make_loss(ds)
+        if agg.base == "fedavg":
+            server_lr = cfg.server_lr
+
+            def local_step(params, batch):      # leaves (S, ...)
+                return local_train(params, opt, batch, loss_fn,
+                                   cfg.local_epochs)[0]
+        else:
+            server_lr = 1.0                     # fedsgd: no interpolation
+
+            def local_step(params, batch):
+                # The client delta −lr·∇ makes the weighted delta mean the
+                # engines' aggregate-gradients-then-step FedSGD update.
+                g, _ = local_gradient(params, batch, loss_fn)
+                return {k: p - cfg.lr * g[k] for k, p in params.items()}
+
+        round_fns = {strat: make_sharded_fl_round(
+            group, local_step, n_select=cfg.clients_per_round,
+            num_classes=wl.num_classes(ds), num_clients=n_clients,
+            strategy=strat, server_lr=server_lr, exchange=exchange,
+            n_clusters=agg.n_clusters, kmeans_iters=agg.kmeans_iters,
+            reduce_fn=agg.reduce, poison_scale=poison_scale,
+            with_stale=tau > 0) for strat in spec.strategies}
+        keys = ["hists", "mask", "num_classes", "params_old", "params_new"]
+        if agg.clustered:
+            keys += ["assign", "n_clusters", "centroids", "prev_centroids"]
+        rows = torch.arange(rank * per_group, (rank + 1) * per_group,
+                            device=device)
+
+        def draw(plan_t: np.ndarray, kt):
+            """This rank's block of the round: its rows of the whole
+            population's draw (``Workload.sample``'s row offsets) -> the
+            block's batches, labels and valid flags."""
+            labels_all = torch.as_tensor(plan_t, dtype=torch.int32,
+                                         device=device)
+            labels = labels_all[rows]
+            block = {**wl.sample(ds, rng.fold_in(kt, 0), labels_all, rows),
+                     "labels": labels, "valid": labels >= 0}
+            return (client_batches(block, cfg.batch_size, wl.batch_keys),
+                    labels, block["valid"])
+
+        def evaluate(p: Dict[str, torch.Tensor], info):
+            """-> (accuracy, loss) of the global model, a clustered
+            family's mixture over its models, then the per-cluster
+            accuracies and losses (None for one model)."""
+            with torch.no_grad():
+                l_, m = eval_fn(p, eval_batch)
+            if not agg.clustered:
+                return float(m["accuracy"]), float(l_), None, None
+            w = info["cluster_weights"]
+            return (float(cluster_mixture(m["accuracy"], w)),
+                    float(cluster_mixture(l_, w)),
+                    m["accuracy"].cpu().numpy(), l_.cpu().numpy())
+
+        xbytes: Optional[Dict[str, int]] = None
+        for k, low in enumerate(lowered):
+            for r, seed in enumerate(spec.seeds):
+                plan = low.composed_plan(r)
+                key = rng.PRNGKey(int(seed), device)
+                init = wl.init(rng.fold_in(key, 1), ds)
+                if agg.clustered:
+                    init = stack_global_params(init, agg.n_clusters)
+                params = {strat: init for strat in spec.strategies}
+                tels = {strat: RoundTelemetry(spec.telemetry, agg, keys)
+                        for strat in spec.strategies}
+                extra = ()
+                if attacked:
+                    extra = (torch.as_tensor(adv_masks[r], device=device,
+                                             dtype=torch.float32),)
+                # stale_update window: past[strat][0] is θ_{t−τ} (θ₀ early).
+                past = ({strat: deque([init], maxlen=tau + 1)
+                         for strat in spec.strategies} if tau else None)
+                for t in range(t_n):
+                    # A round's data and keys depend on (scenario, seed,
+                    # round) alone: drawn once for every strategy.
+                    with span("sharded:round", round=t):
+                        kt = rng.fold_in(key, 1000 + t)
+                        batches, labels, valid = draw(
+                            plan[t % plan.shape[0]], kt)
+                        if xbytes is None:
+                            xbytes = {st: exchange_bytes_per_device(
+                                batches, n_clients, fn.budget_padded, groups,
+                                exchange) for st, fn in round_fns.items()
+                                if fn.exchange is not None}
+                        for s, strat in enumerate(spec.strategies):
+                            old = params[strat]
+                            stale = (past[strat][0],) if tau else ()
+                            params[strat], info = round_fns[strat](
+                                old, batches, labels, valid,
+                                rng.fold_in(kt, 1), *extra, *stale)
+                            if tau:
+                                past[strat].append(params[strat])
+                            if tels[strat].metrics:
+                                cl = ({"assign": info["cluster_assign"][None],
+                                       "centroids":
+                                           info["cluster_centroids"][None]}
+                                      if agg.clustered else {})
+                                tels[strat].add(
+                                    info["hists"][None], info["mask"][None],
+                                    {n: p[None] for n, p in old.items()},
+                                    {n: p[None]
+                                     for n, p in params[strat].items()}, **cl)
+                            cell = (k, s, r, t)
+                            acc[cell], loss[cell], ca, cl_ = evaluate(
+                                params[strat], info)
+                            nsel[cell] = float(info["num_selected"])
+                            if agg.clustered:
+                                c_acc[cell], c_loss[cell] = ca, cl_
+                                c_assign[cell] = info[
+                                    "cluster_assign"].cpu().numpy()
+                for s, strat in enumerate(spec.strategies):
+                    for name, v in (tels[strat].result() or {}).items():
+                        if name not in tel:
+                            tel[name] = np.zeros((k_n, s_n, r_n)
+                                                 + v.shape[1:], np.float32)
+                        tel[name][k, s, r] = v[0]
+        meta["sharded"] = {
+            "groups": groups, "clients": n_clients,
+            "clients_per_group": per_group, "exchange": exchange,
+            "n_clusters": agg.n_clusters,
+            "reduce": "gather" if agg.reduce is not None else "psum",
+            "strategies": {
+                strat: {"budget": fn.budget,
+                        "trained_per_round": fn.trained_per_round,
+                        "flop_sparsity": fn.flop_sparsity,
+                        # Analytic ring bytes a rank receives in the
+                        # exchange (None when no round ran).
+                        "exchange_bytes_per_device":
+                            None if xbytes is None else xbytes.get(strat)}
+                for strat, fn in round_fns.items()}}
+        if agg.clustered:
+            meta.update(_clustered_meta(c_acc, c_loss, c_assign))
+        if tel:
+            meta["_telemetry_series"] = tel
+    wall = time.perf_counter() - t0
+    record_memory_analysis("sharded:grid", device)
+    out = [acc, loss, nsel, wall, 0.0, meta]
+    if world > 1:
+        # Every rank returns rank 0's result, the ranks past ``groups``
+        # included.
+        dist.broadcast_object_list(out, src=0)
+    return tuple(out)
 
 
 register_engine("sim", _engine_sim, option_keys=())

@@ -85,7 +85,15 @@ _WORKLOADS: Dict[str, Workload] = {}
 
 
 def register_workload(name: str, workload: Workload, *,
-                      overwrite: bool = False) -> Workload:
+                      overwrite: bool = False,
+                      check: bool = False) -> Workload:
+    """Register ``workload`` under ``name`` (``overwrite=True`` replaces a
+    registered one).  ``check=True``, the contract pass over the bundle, is
+    not ported yet and raises."""
+    if check:
+        raise NotImplementedError(
+            "register_workload(check=True), the contract pass over a "
+            "workload, is not ported yet (ROADMAP Queue 1 item 16)")
     if name in _WORKLOADS and not overwrite:
         raise ValueError(f"workload {name!r} is already registered; pass "
                          "overwrite=True to replace it")

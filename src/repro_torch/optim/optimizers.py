@@ -1,6 +1,8 @@
-"""Optimizers over ``dict[str, Tensor]`` parameters: sgd, adam and adamw,
-and the global-norm clip, with the reference's arithmetic
-(``repro.optim.optimizers``), not ``torch.optim``'s.
+"""Optimizers over ``dict[str, Tensor]`` parameters: sgd, momentum, adam
+and adamw, and the global-norm clip, with the reference's arithmetic
+(``repro.optim.optimizers``), not ``torch.optim``'s.  The learning rate is
+a float or a schedule (``optim.schedules``: a function of the step counter
+returning a float32 0-dim tensor), read at the step before the update.
 
     opt = adam(lr=1e-3)
     state = opt.init(params)
@@ -37,28 +39,60 @@ class OptState(NamedTuple):
     nu: Optional[Params] = None
 
 
-def sgd(lr: float) -> Optimizer:
-    eta = float(np.float32(lr))
-
-    def init(params):
-        return OptState(step=0)
-
-    def update(grads, state, params=None):
-        ups = {k: -eta * g.to(torch.float32) for k, g in grads.items()}
-        return ups, OptState(step=state.step + 1)
-
-    return Optimizer(init, update)
+Schedule = Callable[[int], torch.Tensor]
 
 
 def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _adam_core(lr: float, b1: float, b2: float, eps: float,
-               weight_decay: float, state_dtype: torch.dtype) -> Optimizer:
+def _as_schedule(lr: "float | Schedule") -> Schedule:
+    """A float rate -> the constant schedule of its float32 value (a
+    Python float, which a float32 tensor takes as float32)."""
+    if callable(lr):
+        return lr
     eta = _f32(lr)
-    # −η·wd·θ: the reference rounds η·wd to float32 before the product.
-    eta_wd = _f32(np.float32(eta) * np.float32(weight_decay))
+    return lambda step: eta
+
+
+def sgd(lr: "float | Schedule") -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return OptState(step=0)
+
+    def update(grads, state, params=None):
+        eta = sched(state.step)
+        ups = {k: -eta * g.to(torch.float32) for k, g in grads.items()}
+        return ups, OptState(step=state.step + 1)
+
+    return Optimizer(init, update)
+
+
+def momentum(lr: "float | Schedule", beta: float = 0.9,
+             state_dtype: torch.dtype = torch.float32) -> Optimizer:
+    """Heavy ball: ``μ ← β·μ + g`` (float32, stored in ``state_dtype``),
+    ``u = −η·μ``."""
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return OptState(step=0, mu={k: torch.zeros_like(p, dtype=state_dtype)
+                                    for k, p in params.items()})
+
+    def update(grads, state, params=None):
+        eta = sched(state.step)
+        mu = {k: (beta * state.mu[k].to(torch.float32)
+                  + g.to(torch.float32)).to(state.mu[k].dtype)
+              for k, g in grads.items()}
+        ups = {k: -eta * m.to(torch.float32) for k, m in mu.items()}
+        return ups, OptState(step=state.step + 1, mu=mu)
+
+    return Optimizer(init, update)
+
+
+def _adam_core(lr: "float | Schedule", b1: float, b2: float, eps: float,
+               weight_decay: float, state_dtype: torch.dtype) -> Optimizer:
+    sched = _as_schedule(lr)
 
     def init(params):
         return OptState(step=0,
@@ -68,6 +102,10 @@ def _adam_core(lr: float, b1: float, b2: float, eps: float,
                             for k, p in params.items()})
 
     def update(grads, state, params=None):
+        eta = sched(state.step)
+        # −η·wd·θ: the reference rounds η·wd to float32 before the product.
+        eta_wd = (_f32(np.float32(eta) * np.float32(weight_decay))
+                  if isinstance(eta, float) else eta * weight_decay)
         step = state.step + 1
         bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
         bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
@@ -87,13 +125,14 @@ def _adam_core(lr: float, b1: float, b2: float, eps: float,
     return Optimizer(init, update)
 
 
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Optimizer:
-    return _adam_core(lr, b1, b2, eps, 0.0, torch.float32)
+def adam(lr: "float | Schedule", b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8,
+         state_dtype: torch.dtype = torch.float32) -> Optimizer:
+    return _adam_core(lr, b1, b2, eps, 0.0, state_dtype)
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.1,
+def adamw(lr: "float | Schedule", b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.1,
           state_dtype: torch.dtype = torch.float32) -> Optimizer:
     return _adam_core(lr, b1, b2, eps, weight_decay, state_dtype)
 
@@ -119,12 +158,14 @@ def clip_by_global_norm(grads: Params, max_norm: float
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
 
 
-def get_optimizer(name: str, lr: float) -> Optimizer:
+def get_optimizer(name: str, lr: "float | Schedule",
+                  state_dtype: torch.dtype = torch.float32) -> Optimizer:
     if name == "sgd":
         return sgd(lr)
+    if name == "momentum":
+        return momentum(lr, state_dtype=state_dtype)
     if name == "adam":
-        return adam(lr)
+        return adam(lr, state_dtype=state_dtype)
     if name == "adamw":
-        return adamw(lr)
-    raise KeyError(f"unknown optimizer {name!r}; the port has sgd, adam and "
-                   "adamw (the reference's momentum is not ported)")
+        return adamw(lr, state_dtype=state_dtype)
+    raise KeyError(f"unknown optimizer {name!r}")

@@ -328,3 +328,18 @@ def test_entry_points_without_device_raise_on_a_host_without_a_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_register_strategy_takes_the_check_keyword():
+    """As the reference's: ``check=False`` registers (here a builtin
+    re-registered with its own callable, which keeps its id); the contract
+    pass that ``check=True`` asks for is not ported and raises, naming its
+    ROADMAP item, before anything is registered."""
+    before = tsel.registered_strategies()
+    fn = tsel.get_strategy("random")
+    assert tsel.register_strategy("random", fn, overwrite=True,
+                                  check=False) is fn
+    assert tsel.registered_strategies() == before
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tsel.register_strategy("_checked_strategy", fn, check=True)
+    assert tsel.registered_strategies() == before

@@ -379,15 +379,23 @@ def test_weighted_agg_trial_axis_plain_equals_one_trial_calls():
     ("deep", "item 16"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(change, item):
-    """Items 12 and 16 still raise, naming their item.  Item 13's engines
+    """Item 16 still raises, naming its item.  Items 12 and 13's engines
     have landed: they run this grid spec (both scenarios, strategies and
-    seeds) and report their ``meta["population"]``; their parity with the
-    reference is tests/test_torch_population.py's."""
+    seeds) and report their ``meta["sharded"]`` or ``meta["population"]``;
+    their parity with the reference is tests/test_torch_sharded.py's and
+    tests/test_torch_population.py's."""
     spec = _grid_spec(tx, FLConfig, "sim")
     ds = ImageDataset(image_size=HW, device="cpu")
-    if item == "item 13":
+    if item in ("item 12", "item 13"):
         res = tx.run(dataclasses.replace(spec, **change), device="cpu", ds=ds)
-        assert res.meta["population"]["mode"] == change["engine"]
+        if item == "item 12":
+            st = res.meta["sharded"]
+            assert (st["groups"], st["clients"], st["exchange"]) == (
+                1, N, "a2a")
+            assert {s: f["budget"] for s, f in st["strategies"].items()} == {
+                "random": PER_ROUND, "labelwise": PER_ROUND}
+        else:
+            assert res.meta["population"]["mode"] == change["engine"]
         assert res.accuracy.shape == (2, 2, 2, 2)
         assert np.isfinite(res.loss).all()
         return
@@ -396,3 +404,29 @@ def test_unported_options_raise_with_their_roadmap_item(change, item):
             spec.validate(deep=True)
         else:
             tx.run(dataclasses.replace(spec, **change), device="cpu", ds=ds)
+
+
+def test_momentum_runs_on_every_engine():
+    """``FLConfig(optimizer="momentum")`` through ``run`` on each engine
+    (the optimizer's updates are held to the reference's in
+    tests/test_torch_model.py): ``host`` against ``sim`` at this file's
+    pins, ``sharded`` at the reference's own sharded ≡ sim pin (rtol 2e-4,
+    atol 2e-5), both with selections bit-equal; ``hier`` and ``async``,
+    block engines with trajectories of their own, finite."""
+    ds = ImageDataset(image_size=HW, device="cpu")
+    grid = _grid_spec(tx, FLConfig, "sim")
+    spec = dataclasses.replace(grid, scenarios=grid.scenarios[:1],
+                               seeds=grid.seeds[:1], rounds=2,
+                               fl=_cfg(FLConfig, optimizer="momentum"))
+    res = {e: tx.run(dataclasses.replace(spec, engine=e), device="cpu",
+                     ds=ds) for e in ("sim", "host", "sharded")}
+    _assert_trajectories(res["host"], res["sim"])
+    np.testing.assert_array_equal(res["sharded"].num_selected,
+                                  res["sim"].num_selected)
+    np.testing.assert_allclose(res["sharded"].loss, res["sim"].loss,
+                               rtol=2e-4, atol=2e-5)
+    for e in ("hier", "async"):
+        got = tx.run(dataclasses.replace(spec, engine=e,
+                                         strategies=("full",)),
+                     device="cpu", ds=ds)
+        assert np.isfinite(got.loss).all(), e

@@ -355,3 +355,74 @@ def test_entry_points_without_device_raise_on_a_host_without_a_card():
                  lambda: init_caches(tcfg, 1, 4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# bf16, the configs' default dtype
+# ---------------------------------------------------------------------------
+
+def test_bf16_reference_tree_converts_bit_equal():
+    """``reduced()`` keeps the configs' bf16: the reference's leaves are
+    ``ml_dtypes.bfloat16`` arrays, and each must arrive as a bf16 tensor
+    with the same bits, and go back."""
+    jcfg, tcfg = jget_config("qwen3-14b").reduced(), get_config(
+        "qwen3-14b").reduced()
+    assert jcfg.dtype == tcfg.dtype == "bfloat16"
+    tree = jinit_model(jax.random.PRNGKey(8), jcfg)[0]
+    port = lm_params_from_jax(tree, tcfg, device="cpu")
+    ref_leaves = [np.asarray(a) for a in jax.tree_util.tree_leaves(tree)]
+    port_leaves = jax.tree_util.tree_leaves(
+        port, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert len(port_leaves) == len(ref_leaves)
+    assert any(a.dtype.name == "bfloat16" for a in ref_leaves)
+    for got, want in zip(port_leaves, ref_leaves):
+        if want.dtype.name == "bfloat16":
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                          want.view(np.int16))
+        else:
+            np.testing.assert_array_equal(got.numpy(), want)
+    for got, want in zip(jax.tree_util.tree_leaves(lm_params_to_jax(
+            port, tcfg)), ref_leaves):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_bf16_prefill_and_decode_match_at_the_reference_pin(arch):
+    """Both stacks at ``reduced()`` in bf16 from the same redrawn weights
+    (cast to bf16 on the reference's side, converted by
+    ``lm_params_from_jax``): prefill of a 37-token prompt, then 8 decode
+    steps, each step's logits within the reference's own bf16 pin for
+    decode ≡ forward, 2e-2 (tests/test_arch_smoke.py), taken of the
+    step's largest |logit|.  Each side rounds its activations to bf16 at
+    its own points (the reference's own jit and eager forms of one Mamba
+    layer differ by a bf16 ulp), and a logit near 0 carries the rounding of
+    the O(1) terms it sums: elementwise at rtol = atol = 2e-2 the gaps read
+    up to 1.17x (qwen3-14b) and 1.82x (mamba2-1.3b) of the allowance on
+    such logits, 2-3 bf16 ulps of the largest, while of the largest |logit|
+    they stay within 1.41e-2 (scripts/torch_bf16_lm_gap.py, five seeds)."""
+    jcfg, tcfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    tree = _np_tree(jinit_model(jax.random.PRNGKey(9), jcfg)[0], 9)
+    tree = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), tree)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = lm_params_from_jax(tree, tcfg, device="cpu")
+    b, prompt, gen = 2, 37, 8
+    toks = _tokens(b, prompt + gen, jcfg.vocab_size, seed=10)
+    last_t, caches_t = prefill(tp, tcfg, {"tokens": _t(toks[:, :prompt])},
+                               prompt + gen)
+    last_j, caches_j = jprefill(jp, jcfg,
+                                {"tokens": jnp.asarray(toks[:, :prompt])},
+                                prompt + gen)
+
+    def close(port, ref):
+        ref = np.asarray(ref, np.float32)
+        np.testing.assert_allclose(port.float().numpy(), ref, rtol=0,
+                                   atol=2e-2 * np.abs(ref).max())
+
+    close(last_t, last_j)
+    for i in range(prompt, prompt + gen):
+        logits_t, caches_t = decode_step(tp, tcfg, _t(toks[:, i]), caches_t)
+        logits_j, caches_j = jdecode_step(jp, jcfg, jnp.asarray(toks[:, i]),
+                                          caches_j)
+        close(logits_t, logits_j)

@@ -197,3 +197,16 @@ def test_lm_workload_of_another_config_checks_its_vocabulary():
     assert (ds.vocab_size, ds.num_domains, ds.seq_len) == (128, 4, 8)
     with pytest.raises(ValueError, match="vocab_size"):
         wl.make_loss(get_workload("lm").make_dataset("cpu"))
+
+
+def test_register_workload_takes_the_check_keyword():
+    """As the reference's: ``check=False`` registers, ``check=True`` (the
+    contract pass, not ported) raises naming its ROADMAP item and registers
+    nothing."""
+    before = T.registered_workloads()
+    wl = get_workload("cnn")
+    assert T.register_workload("cnn", wl, overwrite=True, check=False) is wl
+    assert T.registered_workloads() == before
+    with pytest.raises(NotImplementedError, match="item 16"):
+        T.register_workload("_checked_workload", wl, check=True)
+    assert T.registered_workloads() == before

@@ -19,11 +19,13 @@ from torch.func import grad_and_value  # noqa: E402
 from repro.models.cnn import cnn_init as jcnn_init  # noqa: E402
 from repro.models.cnn import cnn_loss as jcnn_loss  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
+from repro.optim import schedules as jsched  # noqa: E402
 
 from repro_torch import rng  # noqa: E402
 from repro_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.models import cnn_apply, cnn_init, cnn_loss  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
+from repro_torch.optim import schedules as tsched  # noqa: E402
 
 C, HW, C1, C2, HID = 10, 12, 4, 6, 16
 
@@ -106,16 +108,29 @@ def test_cnn_apply_flattens_in_reference_order():
     _close(port, ref)
 
 
-@pytest.mark.parametrize("name", ["sgd", "adam"])
+@pytest.mark.parametrize("name", ["sgd", "adam", "momentum"])
 def test_optimizer_updates_match(name):
+    _optimizer_updates_match(name, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam", "momentum", "adamw"])
+def test_optimizer_updates_match_with_a_schedule(name):
+    """The same four jitted reference steps with a warmup_cosine rate in
+    place of the float: two warmup steps, then the cosine."""
+    _optimizer_updates_match(
+        name, jsched.warmup_cosine(1e-3, warmup_steps=2, total_steps=6),
+        tsched.warmup_cosine(1e-3, warmup_steps=2, total_steps=6))
+
+
+def _optimizer_updates_match(name, jlr, tlr):
     rng = np.random.default_rng(2)
     params = {"a": rng.standard_normal((3, 4)).astype(np.float32),
               "b": rng.standard_normal(5).astype(np.float32)}
     grads = [{k: (rng.standard_normal(v.shape) * 10.0 ** rng.integers(
         -6, 1, v.shape)).astype(np.float32) for k, v in params.items()}
         for _ in range(4)]
-    jo = jopt.get_optimizer(name, 1e-3)
-    to = topt.get_optimizer(name, 1e-3)
+    jo = jopt.get_optimizer(name, jlr)
+    to = topt.get_optimizer(name, tlr)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
     js, ts = jo.init(jp), to.init(tp)
@@ -132,3 +147,46 @@ def test_optimizer_updates_match(name):
     assert ts.step == int(js.step) == len(grads)
     with pytest.raises(KeyError):
         topt.get_optimizer("lion", 1e-3)
+
+
+def _f32_bits(x):
+    return np.asarray(x, np.float32).reshape(-1).view(np.int32).astype(
+        np.int64)
+
+
+def test_cos_is_the_reference_cosine():
+    """The reference's float32 cosine, compiled by XLA for the CPU, is the
+    C library's ``cosf``; ``core.ordered.cos`` calls it, bit-equal on
+    every argument here."""
+    from repro_torch.core.ordered import cos
+    x = np.linspace(-10.0, 10.0, 20001).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.cos)(jnp.asarray(x)))
+    np.testing.assert_array_equal(cos(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("constant", {}),
+    ("cosine", {"total_steps": 100}),
+    ("cosine", {"total_steps": 37, "final_frac": 0.0}),
+    ("warmup_cosine", {"warmup_steps": 10, "total_steps": 100}),
+    ("warmup_cosine", {"warmup_steps": 100, "total_steps": 1000,
+                       "final_frac": 0.0}),
+])
+@pytest.mark.parametrize("lr", [3e-4, 1e-3, 0.1])
+def test_schedules_within_one_ulp(name, kw, lr):
+    """Every step in [0, total + 5], the reference's schedule called on
+    each step as its source reads (its operations one at a time, its
+    cosine the C library's), against the port's float32 rate: within one
+    ulp.  Where ``1 + cos`` cancels near the end, a cosine one ulp off
+    would move the rate by many ulps."""
+    total = kw.get("total_steps", 50)
+    fj = jsched.get_schedule(name, lr, **kw)
+    ft = tsched.get_schedule(name, lr, **kw)
+    for step in range(total + 6):
+        want = fj(jnp.asarray(step, jnp.int32))
+        got = ft(step)
+        assert got.dtype == torch.float32 and got.dim() == 0
+        gap = np.abs(_f32_bits(got.numpy()) - _f32_bits(want)).max()
+        assert gap <= 1, (step, float(got), float(want))
+    with pytest.raises(KeyError):
+        tsched.get_schedule("linear", lr)
