@@ -2652,6 +2652,387 @@ def phase17_sharded(dev) -> dict:
     return out
 
 
+# Phase 18: the analysis layer (repro_torch.analysis) on the card.  (a) the
+# CLI in a fresh interpreter; (b) the registry sweep in this one, with the
+# kernels' ops in the traced graphs and the block gate's classifier timed
+# per builtin strategy, cold and from its cache; (c) validate(deep=True) on
+# phase 13b's paper grid and phase 16e's fl-lm-12m spec, then the seeded
+# violations of tests/test_analysis.py (their torch counterparts) with the
+# reference's codes; (d) a row-wise extension strategy registered with
+# check=True through hier and async at the population engines' paper width
+# (phase 15's: 10 blocks of 10, case1b, one seed, POP_ROUNDS rounds), hier
+# and degenerate async held to sim at POP_PIN (TF32 off), hier's selections
+# bit-equal to the same trial on the CPU; (e) a non-separable extension
+# refused by hier before any launch, then vouched for and run.
+EXT_ROWWISE, EXT_ALL, EXT_NONSEP = ("_smoke_rowwise", "_smoke_rowwise_all",
+                                    "_smoke_nonsep")
+
+
+def _smoke_fixtures():
+    """The torch counterparts of tests/test_analysis.py's seeded
+    violations: (kind, name, callable, the reference's code)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch import rng
+    from repro_torch.core.selection import SelectionResult
+    from repro_torch.fl import get_workload
+
+    def bad_dtype(key, hists, n_select=None):
+        scores = hists.sum(-1)
+        return SelectionResult((scores > 0).to(torch.int32), scores,
+                               torch.argsort(-scores).to(torch.float32),
+                               n_select)
+
+    def traced_bool(key, hists, n_select=None):
+        scores = hists.sum(-1)
+        if scores.sum() > 0:
+            scores = scores / scores.sum()
+        return SelectionResult((scores > 0).to(torch.float32), scores,
+                               torch.argsort(-scores).to(torch.int32),
+                               n_select)
+
+    def traced_budget(key, hists, n_select=None):
+        scores = hists.sum(-1)
+        return SelectionResult((scores > 0).to(torch.float32), scores,
+                               torch.argsort(-scores).to(torch.int32),
+                               torch.tensor(n_select or 4))
+
+    def const_seeded(key, hists, n_select=None):
+        scores = rng.uniform(rng.PRNGKey(0, hists.device), (hists.shape[0],))
+        return SelectionResult(torch.ones_like(scores), scores,
+                               torch.argsort(-scores).to(torch.int32),
+                               n_select)
+
+    cnn = get_workload("cnn")
+
+    def no_hists(ds, plan_t, key):
+        out = dict(cnn.materialize(ds, plan_t, key))
+        out.pop("hists")
+        return out
+
+    def callback_metric(state):
+        return torch.as_tensor(state["hists"].cpu().numpy().sum())
+
+    def bool_metric(state):
+        if state["hists"].sum() > 0:
+            return state["hists"].sum()
+        return torch.tensor(0.0)
+
+    return [("strategy", "_smoke_bad_dtype", bad_dtype, "A003"),
+            ("strategy", "_smoke_traced_bool", traced_bool, "A001"),
+            ("strategy", "_smoke_traced_budget", traced_budget, "A004"),
+            ("strategy", "_smoke_const_seed", const_seeded, "A006"),
+            ("workload", "_smoke_no_hists",
+             dc.replace(cnn, materialize=no_hists), "A101"),
+            ("metric", "_smoke_cb_metric", callback_metric, "A005"),
+            ("metric", "_smoke_bool_metric", bool_metric, "A301"),
+            ("metric", "_smoke_big_metric",
+             lambda state: state["hists"].new_zeros((128, 64)), "A302")]
+
+
+def _unregister(name: str) -> None:
+    """Take a strategy this phase registered out of the registry."""
+    from repro_torch.core import selection as tsel
+    tsel.STRATEGIES.pop(name, None)
+    if name in tsel._REGISTRY_ORDER:
+        tsel._REGISTRY_ORDER.remove(name)
+
+
+def _smoke_nonsep(key, hists, n_select):
+    """Row scores over a population-wide total: not block-separable."""
+    from repro_torch.core.selection import SelectionResult, topn_mask
+    scores = hists.sum(-1) / (hists.sum() + 1.0)
+    mask, order = topn_mask(scores, scores > 0, n_select)
+    return SelectionResult(mask, scores, order, n_select)
+
+
+def _smoke_rowwise(key, hists, n_select):
+    """A row-wise extension: labelwise's scores through a closure."""
+    from repro_torch.core.selection import select_labelwise
+    return select_labelwise(key, hists, n_select)
+
+
+def _smoke_rowwise_all(key, hists, n_select):
+    """A row-wise extension that selects every client with data (what the
+    degenerate async ≡ sim identity needs), in σ²/n order."""
+    from repro_torch.core.label_stats import label_variance_normed
+    from repro_torch.core.ordered import class_sum
+    from repro_torch.core.selection import SelectionResult, topn_mask
+    scores = label_variance_normed(hists)
+    n = hists.shape[-2]
+    mask, order = topn_mask(scores, class_sum(hists) > 0, n)
+    return SelectionResult(mask, scores, order, n)
+
+
+def phase18a_cli(dev, card: str) -> dict:
+    import os
+    say(f"== 18a. python -m repro_torch.analysis --json --device {dev.type} "
+        "(fresh interpreter)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json", "--device",
+         dev.type], capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"analysis CLI exited {proc.returncode}:\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+    out = json.loads(proc.stdout)
+    by_code: dict = {}
+    for rec in out["findings"]:
+        key = f"{rec['code']}/{rec['severity']}"
+        by_code[key] = by_code.get(key, 0) + 1
+    say(f"exit 0; findings by code {dict(sorted(by_code.items()))}; "
+        f"{out['errors']} errors; wall {wall:.2f} s ({card})")
+    return {"by_code": by_code, "wall_s": wall}
+
+
+def phase18b_registries(dev, card: str) -> dict:
+    import torch
+    from repro_torch import rng
+    from repro_torch.analysis import check_registries
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.analysis.separability import graph_ops, trace_graph
+    from repro_torch.core.selection import BUILTIN_STRATEGIES
+    from repro_torch.fl import get_workload
+    from repro_torch.fl import population as pop
+    say(f"== 18b. check_registries(device='{dev.type}'); the kernels' ops in "
+        "the traced graphs; the block gate's classifier per builtin "
+        "strategy")
+    t0 = time.perf_counter()
+    findings = check_registries(device=dev)
+    wall = time.perf_counter() - t0
+    if findings.errors():
+        raise AssertionError("check_registries on the card:\n"
+                             + "\n".join(d.render()
+                                         for d in findings.errors()))
+    verdicts = {d.name: d.detail for d in findings.by_code("A007")}
+    say(f"no errors, {len(findings)} findings in {wall:.2f} s ({card}); "
+        f"A007: " + ", ".join(f"{n}={'sep' if v['separable'] else 'NOT'}/"
+                              f"{v['scores_dep']}"
+                              for n, v in verdicts.items()))
+    cnn, lm = get_workload("cnn"), get_workload("lm")
+    ds = cnn.make_dataset(dev)
+    plan = torch.zeros((8, 6), dtype=torch.int32, device=dev)
+    key = torch.zeros(2, dtype=torch.int64, device=dev)
+    mat_ops = graph_ops(trace_graph(lambda p, k: cnn.materialize(ds, p, k),
+                                    plan, key)[0])
+    lds = lm.make_dataset(dev)
+    params = lm.init(rng.PRNGKey(0, dev), lds)
+    batch = {"tokens": torch.zeros((6, 16), dtype=torch.int64, device=dev),
+             "labels": torch.zeros(6, dtype=torch.int32, device=dev),
+             "valid": torch.ones(6, dtype=torch.bool, device=dev)}
+    # The attention Function's vmap rule keeps it out of a functionalised
+    # trace: the loss's graph is make_fx's own.
+    loss_ops = graph_ops(make_fx(lm.make_loss(lds), tracing_mode="fake",
+                                 _allow_non_fake_inputs=True)(params, batch))
+    if mat_ops.get("repro_torch.label_hist.default") != 1 or \
+            not loss_ops.get("repro_torch.flash_attention.default"):
+        raise AssertionError(f"kernel ops missing: materialize "
+                             f"{mat_ops}, lm loss {loss_ops}")
+    say(f"cnn materialize graph: {sum(mat_ops.values())} nodes, "
+        f"label_hist x{mat_ops['repro_torch.label_hist.default']}; lm loss "
+        f"graph: {sum(loss_ops.values())} nodes, flash_attention "
+        f"x{loss_ops['repro_torch.flash_attention.default']}")
+    times = {}
+    for name in BUILTIN_STRATEGIES + ("labelwise_priority",
+                                      "dirichlet_uniformity"):
+        for k in [k for k in pop._SEPARABILITY_CACHE if k[0] == name]:
+            del pop._SEPARABILITY_CACHE[k]
+        t0 = time.perf_counter()
+        v = pop._block_separability(name, 10, dev)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pop._block_separability(name, 10, dev)
+        cached = time.perf_counter() - t0
+        times[name] = {"cold_s": cold, "cached_s": cached,
+                       "separable": v.separable, "scores": v.scores_dep,
+                       "mask_probe": v.mask_consistent}
+    if [n for n, t in times.items() if not t["separable"]] != [
+            "labelwise_priority"]:
+        raise AssertionError(f"classifier verdicts: {times}")
+    say(f"classifier at (32, 10) on {dev.type}, cold ms / cached µs "
+        f"({card}): " + "; ".join(
+            f"{n} {t['cold_s'] * 1e3:.1f} / {t['cached_s'] * 1e6:.1f} "
+            f"({t['scores']})" for n, t in times.items()))
+    return {"wall_s": wall, "classifier": times}
+
+
+def phase18c_validate(dev, card: str) -> dict:
+    import numpy as np
+    from repro_torch.analysis import ContractError, check_metric
+    from repro_torch.core import selection as tsel
+    from repro_torch.fl import ScenarioSpec
+    from repro_torch.fl import workloads as twl
+    from repro_torch.obs import register_metric
+    from repro_torch.obs import registry as treg
+    say(f"== 18c. validate(deep=True, device='{dev.type}'): phase 13b's grid "
+        "spec, phase 16e's fl-lm-12m spec, then the seeded violations")
+    out = {}
+    for what, spec in (("paper grid", _grid_spec()),
+                       ("fl-lm-12m", _lm_fl_spec(np, "sim", LM_ROUNDS))):
+        t0 = time.perf_counter()
+        spec.validate(deep=True, device=dev)
+        out[what] = time.perf_counter() - t0
+        say(f"{what}: passes deep validation in {out[what]:.2f} s ({card})")
+    micro = dict(scenarios=(ScenarioSpec.from_case("iid"),),
+                 strategies=("labelwise",))
+    base = _pop_spec("sim", **micro)
+    got = {}
+    for kind, name, obj, code in _smoke_fixtures():
+        if kind == "strategy":
+            tsel.register_strategy(name, obj, overwrite=True)
+            spec = dataclasses.replace(base, strategies=(name,))
+        elif kind == "workload":
+            twl.register_workload(name, obj, overwrite=True)
+            spec = dataclasses.replace(base, workload=name)
+        else:
+            register_metric(name, obj, requires=("hists",), overwrite=True,
+                            axes=("a", "b") if code == "A302" else ())
+            spec = dataclasses.replace(base, telemetry=(name,))
+        try:
+            if code == "A302":
+                codes = {d.code for d in check_metric(name,
+                                                      device=dev).errors()}
+            else:
+                try:
+                    spec.validate(deep=True, device=dev)
+                    codes = set()
+                except ContractError as e:
+                    codes = {d.code for d in e.findings.errors()}
+        finally:
+            _unregister(name)
+            twl._WORKLOADS.pop(name, None)
+            treg._METRICS.pop(name, None)
+            if name in treg._METRIC_IDS:
+                treg._METRIC_IDS.remove(name)
+        if codes != {code}:
+            raise AssertionError(f"{kind} {name}: codes {codes}, the "
+                                 f"reference's {code}")
+        got[name] = code
+    say("seeded violations, each with the reference's code: "
+        + ", ".join(f"{n} {c}" for n, c in got.items()))
+    return {"validate_s": out, "codes": got}
+
+
+def phase18d_extension(dev, card: str) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.selection import register_strategy
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import (ScenarioSpec, availability,
+                                make_hier_trial_fn)
+    say(f"== 18d. row-wise extension strategies registered with check=True "
+        f"({EXT_ROWWISE}, {EXT_ALL}) through hier and async, paper width, "
+        f"{POP_ROUNDS} rounds")
+    for name, fn in ((EXT_ROWWISE, _smoke_rowwise),
+                     (EXT_ALL, _smoke_rowwise_all)):
+        t0 = time.perf_counter()
+        register_strategy(name, fn, overwrite=True, check=True, device=dev)
+        say(f"{name}: check=True passed in {time.perf_counter() - t0:.2f} s "
+            f"({card})")
+    ds = ImageDataset(device=dev)
+    spec_h = _pop_spec("hier", strategies=(EXT_ROWWISE,))
+    spec_a = _pop_spec("async", strategies=(EXT_ROWWISE,),
+                       scenarios=(ScenarioSpec.from_case(
+                           "case1b", transforms=(availability(0.3),)),),
+                       engine_options=POP_ASYNC)
+    old = _tf32(True, False)
+    try:
+        hier = _pop_run(dev, ds, spec_h, {"label_hist": POP_ROUNDS,
+                                          "weighted_agg": 0})
+        asy = _pop_run(dev, ds, spec_a, {"label_hist": POP_ROUNDS,
+                                         "weighted_agg": POP_ROUNDS})
+    finally:
+        _tf32(*old)
+    say(f"hier: launches {hier['launches']}, run {hier['wall_s']:.3f} s; "
+        f"async: launches {asy['launches']}, run {asy['wall_s']:.3f} s "
+        f"({card})")
+    from repro_torch.fl import GridRun
+    old = _tf32(False, False)
+    try:
+        plan = spec_h.scenarios[0].lower(spec_h.fl, (0,), POP_ROUNDS).plan
+        card_h = make_hier_trial_fn(spec_h.fl, ds, strategy=EXT_ROWWISE,
+                                    rounds=POP_ROUNDS)(plan, 0)
+        grid = GridRun(plan[None], spec_h.fl, strategies=(EXT_ROWWISE,),
+                       seeds=(0,), rounds=POP_ROUNDS, ds=ds, device=dev)
+        for t in range(POP_ROUNDS):
+            sel = grid.round(t)
+            if not (np.array_equal(card_h["selected"][t],
+                                   sel["selected"][0].cpu().numpy())
+                    and np.array_equal(card_h["live"][t],
+                                       sel["live"][0].cpu().numpy())):
+                raise AssertionError(f"{EXT_ROWWISE} hier round {t}: "
+                                     f"selection differs from sim's")
+        gap_h = _pop_pin(f"{EXT_ROWWISE} hier vs sim", card_h,
+                         grid.result(0.0))
+        deg = _pop_run(dev, ds, _pop_spec(
+            "async", strategies=(EXT_ALL,),
+            engine_options={"buffer_k": 10, "tau_max": 0}),
+            {"label_hist": POP_ROUNDS, "weighted_agg": POP_ROUNDS})
+        sim = _pop_run(dev, ds, _pop_spec("sim", strategies=(EXT_ALL,)),
+                       {"label_hist": POP_ROUNDS,
+                        "weighted_agg": POP_ROUNDS})
+        gap_a = _pop_pin(f"{EXT_ALL} degenerate async vs sim", deg["res"],
+                         sim["res"])
+    finally:
+        _tf32(*old)
+    cpu_h = make_hier_trial_fn(spec_h.fl, ImageDataset(device="cpu"),
+                               strategy=EXT_ROWWISE, rounds=POP_ROUNDS,
+                               device="cpu")(plan, 0)
+    if not (np.array_equal(cpu_h["selected"], card_h["selected"])
+            and np.array_equal(cpu_h["live"], card_h["live"])):
+        raise AssertionError(f"{EXT_ROWWISE} hier: selections differ between "
+                             "the card and the CPU")
+    say(f"{EXT_ROWWISE}: hier selections bit-equal to sim's and to the CPU's "
+        f"in each round; hier {gap_h:.3e} from sim; {EXT_ALL} degenerate "
+        f"async {gap_a:.3e} from sim (limit {POP_PIN})")
+    for name in (EXT_ROWWISE, EXT_ALL):
+        _unregister(name)
+    return {"hier": hier["launches"], "async": asy["launches"],
+            "hier_sim_gap": gap_h, "async_sim_gap": gap_a}
+
+
+def phase18e_refusal(dev, card: str) -> dict:
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.selection import register_strategy
+    from repro_torch.data import ImageDataset
+    from repro_torch.fl import population as pop
+    from repro_torch.fl import run
+    say(f"== 18e. a non-separable extension ({EXT_NONSEP}) on hier: refused "
+        "before any launch, then vouched for and run")
+    register_strategy(EXT_NONSEP, _smoke_nonsep, overwrite=True, check=True,
+                      device=dev)
+    ds = ImageDataset(device=dev)
+    spec = _pop_spec("hier", strategies=(EXT_NONSEP,))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        run(spec, ds=ds, device=dev)
+        raise AssertionError(f"hier ran {EXT_NONSEP}")
+    except ValueError as e:
+        if "not block-separable" not in str(e):
+            raise
+        why = str(e)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"launches before the refusal: "
+                             f"{kernels.launch_counts()}")
+    say(f"refused, no launch: {why[:160]}")
+    pop.ASSUME_BLOCK_SEPARABLE.add(EXT_NONSEP)
+    try:
+        ran = _pop_run(dev, ds, spec, {"label_hist": POP_ROUNDS,
+                                       "weighted_agg": 0})
+    finally:
+        pop.ASSUME_BLOCK_SEPARABLE.discard(EXT_NONSEP)
+        _unregister(EXT_NONSEP)
+    say(f"vouched for: ran with launches {ran['launches']} in "
+        f"{ran['wall_s']:.3f} s ({card})")
+    return {"launches": ran["launches"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2940,6 +3321,12 @@ def main() -> int:
     p16e = phase16e_lm_fl(dev)
     p16f = phase16f_full_width(dev)
     p17 = phase17_sharded(dev)
+
+    phase18a_cli(dev, card)
+    phase18b_registries(dev, card)
+    phase18c_validate(dev, card)
+    phase18d_extension(dev, card)
+    phase18e_refusal(dev, card)
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [

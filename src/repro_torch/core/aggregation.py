@@ -88,17 +88,16 @@ _AGG_REGISTRY_ORDER: List[str] = []
 
 def register_aggregator(name: str, agg: "Aggregator | AggregateFn", *,
                         overwrite: bool = False,
-                        check: bool = False) -> Aggregator:
+                        check: bool = False, device=None) -> Aggregator:
     """Register an aggregation family (a bare callable becomes
     ``Aggregator("fedavg", reduce=fn)``).  New names append to the id ledger;
     ``overwrite=True`` swaps the family and keeps its id.  A registered
     ``reduce`` takes one trial: leaves (S, …), ``live`` and ``sizes`` (S,).
-    ``check=True``, the contract pass over a custom ``reduce``, is not ported
-    yet and raises."""
-    if check:
-        raise NotImplementedError(
-            "register_aggregator(check=True), the contract pass over a "
-            "custom reduce, is not ported yet (ROADMAP Queue 1 item 16)")
+    ``check=True`` runs the contract pass (``repro_torch.analysis``) over a
+    custom ``reduce`` BEFORE registering — tree/shape/dtype preservation,
+    traceability, host round trips — raising
+    ``repro_torch.analysis.ContractError`` with structured diagnostics;
+    ``device`` (``None``: the card) is where it traces."""
     if not name or not isinstance(name, str):
         raise ValueError(f"aggregator name must be a non-empty str; got {name!r}")
     if name in AGGREGATORS and not overwrite:
@@ -110,6 +109,9 @@ def register_aggregator(name: str, agg: "Aggregator | AggregateFn", *,
     if not isinstance(agg, Aggregator):
         raise TypeError(f"aggregator {name!r} must be an Aggregator or a "
                         f"callable; got {type(agg)}")
+    if check:
+        from ..analysis import assert_aggregator_contract
+        assert_aggregator_contract(name, agg, device=device)
     AGGREGATORS[name] = agg
     if name not in _AGG_REGISTRY_ORDER:
         _AGG_REGISTRY_ORDER.append(name)

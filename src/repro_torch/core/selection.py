@@ -173,15 +173,15 @@ _REGISTRY_ORDER: List[str] = []
 
 def register_strategy(name: str, fn: SelectFn, *,
                       overwrite: bool = False,
-                      check: bool = False) -> SelectFn:
+                      check: bool = False, device=None) -> SelectFn:
     """Register ``fn`` under ``name``.  A new name gets the next id;
     re-registering (``overwrite=True``) swaps the callable and keeps the id.
-    ``check=True``, the contract pass over ``fn``, is not ported yet and
-    raises."""
-    if check:
-        raise NotImplementedError(
-            "register_strategy(check=True), the contract pass over a "
-            "strategy, is not ported yet (ROADMAP Queue 1 item 16)")
+    ``check=True`` runs the contract passes (``repro_torch.analysis``) over
+    ``fn`` BEFORE registering — schema, static budget, traceability, host
+    round trips, seeded keys — and raises
+    ``repro_torch.analysis.ContractError`` (with structured diagnostics)
+    instead of registering it; ``device`` (``None``: the card) is where
+    they trace."""
     if not name or not isinstance(name, str):
         raise ValueError(f"strategy name must be a non-empty str; got {name!r}")
     if name in STRATEGIES and not overwrite:
@@ -190,6 +190,9 @@ def register_strategy(name: str, fn: SelectFn, *,
             " pass overwrite=True to replace its callable (the id is kept)")
     if not callable(fn):
         raise TypeError(f"strategy {name!r} must be callable; got {type(fn)}")
+    if check:
+        from ..analysis import assert_strategy_contract
+        assert_strategy_contract(name, fn, device=device)
     STRATEGIES[name] = fn
     if name not in _REGISTRY_ORDER:
         _REGISTRY_ORDER.append(name)

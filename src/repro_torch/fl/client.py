@@ -62,3 +62,10 @@ def local_gradient(params: Params, batches: Batch, loss_fn: LossFn
         losses.append(loss)
     return ({k: a / n_batches for k, a in acc.items()},
             {"loss": torch.stack(losses).mean(0)})
+
+
+def batched_eval(eval_fn: LossFn) -> LossFn:
+    """``eval_fn(params, batch)`` over a leading model axis of ``params``
+    (the grid's trials, or a clustered family's models), one batch shared:
+    ``vmap(eval_fn, in_dims=(0, None))``."""
+    return vmap(eval_fn, in_dims=(0, None))

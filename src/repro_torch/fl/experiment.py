@@ -31,8 +31,8 @@ block-separable selection and round telemetry (``async`` also
 and the peak device memory into the reference's ``meta["telemetry"]``
 envelope.  ``"sharded"`` is the gather-based round over a
 ``torch.distributed`` process group (``fl.sharded``; one group without
-one), with ``meta["sharded"]``.  Not ported yet, and raising with its
-ROADMAP item: ``validate(deep=True)`` (item 16).
+one), with ``meta["sharded"]``.  ``validate(deep=True)`` runs the contract
+passes of ``repro_torch.analysis`` over the entries a spec resolves.
 """
 from __future__ import annotations
 
@@ -384,16 +384,15 @@ class ExperimentSpec:
     def num_rounds(self) -> int:
         return self.fl.global_epochs if self.rounds is None else self.rounds
 
-    def validate(self, deep: bool = False, ds=None) -> None:
+    def validate(self, deep: bool = False, ds=None, device=None) -> None:
         """The reference's name-level pass: unknown strategy, engine,
         aggregator, workload, transform or metric names, undeclared
         ``engine_options`` keys and adversary behaviors an aggregation family
-        cannot take raise.  ``deep=True`` is not ported yet and raises,
-        naming its ROADMAP item."""
-        if deep:
-            raise NotImplementedError(
-                "validate(deep=True), the contract passes over the "
-                "registries, is not ported yet (ROADMAP Queue 1 item 16)")
+        cannot take raise.  ``deep=True`` then runs the contract passes
+        (``repro_torch.analysis.check_spec``) on exactly the entries the
+        spec resolves, over ``ds`` (default: the workload's dataset) on
+        ``device`` (``None``: the card), and raises
+        ``repro_torch.analysis.ContractError`` on errors."""
         if not self.scenarios:
             raise ValueError("spec needs at least one scenario")
         names = [s.name for s in self.scenarios]
@@ -447,6 +446,11 @@ class ExperimentSpec:
         for m in self.telemetry:
             if m != "auto":
                 get_metric(m)
+        if deep:
+            from ..analysis import ContractError, check_spec
+            findings = check_spec(self, ds=ds, device=device)
+            if findings.errors():
+                raise ContractError(findings)
 
     def adversary_masks(self) -> Optional[np.ndarray]:
         """The (R, N) per-seed 0/1 byzantine masks of the spec's adversary
@@ -817,12 +821,10 @@ def _engine_sharded(spec: ExperimentSpec, lowered: Sequence[LoweredScenario],
     from collections import deque
 
     import torch.distributed as dist
-    from torch.func import vmap
-
     from .. import rng
     from ..data import client_batches
     from ..optim import get_optimizer
-    from .client import local_gradient, local_train
+    from .client import batched_eval, local_gradient, local_train
     from .loop import RoundTelemetry, cluster_mixture
     from .round import resolve_adversary, stack_global_params
     from .sharded import exchange_bytes_per_device, make_sharded_fl_round
@@ -858,7 +860,7 @@ def _engine_sharded(spec: ExperimentSpec, lowered: Sequence[LoweredScenario],
         eval_batch = wl.eval_set(ds, spec.eval_n_per_class)
         eval_fn = wl.make_eval(ds)
         if agg.clustered:
-            eval_fn = vmap(eval_fn, in_dims=(0, None))
+            eval_fn = batched_eval(eval_fn)
         loss_fn = wl.make_loss(ds)
         if agg.base == "fedavg":
             server_lr = cfg.server_lr

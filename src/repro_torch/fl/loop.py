@@ -24,6 +24,7 @@ from ..data import client_batches
 from .. import rng
 from ..device import resolve_device
 from ..obs import make_collector, resolve_metrics, resolve_telemetry_request
+from .client import batched_eval
 from .round import (check_adversary, make_fl_round, resolve_adversary,
                     resolve_aggregator, stack_global_params)
 from .workloads import Workload, get_workload
@@ -225,7 +226,7 @@ def run_fl_host(plan: np.ndarray, fl_cfg, *, strategy: Optional[str] = None,
     eval_batch = wl.eval_set(ds, eval_n_per_class)
     eval_fn = wl.make_eval(ds)
     if agg.clustered:
-        eval_fn = torch.func.vmap(eval_fn, in_dims=(0, None))
+        eval_fn = batched_eval(eval_fn)
     adv_dev = (torch.as_tensor(np.asarray(adv), dtype=torch.float32,
                                device=device) if attacked else None)
     # θ_{t−τ} .. θ_t: [0] is a stale client's training base (θ₀ while the

@@ -41,8 +41,9 @@ E edge aggregators each own an N/E-client block.  Three layers:
 Engine knobs ride in ``ExperimentSpec.engine_options``: ``num_blocks``
 (both), ``buffer_k``/``alpha``/``tau_max`` (async).  Both engines reject
 clustered families, a custom ``reduce`` and strategies that are not
-block-separable.  Trials run one at a time, as the reference's
-``_run_cells`` runs them.
+block-separable (the classifier of ``repro_torch.analysis.separability``,
+over the strategy's aten graph).  Trials run one at a time, as the
+reference's ``_run_cells`` runs them.
 """
 from __future__ import annotations
 
@@ -76,44 +77,41 @@ Params = Dict[str, torch.Tensor]
 # blocks; at least one block).
 _CHUNK_ROWS = 1 << 16
 
-# Names the block engines refuse whatever a classifier says: the area index
-# of labelwise_priority offsets every score by the population-wide label
-# union, which differs per block.
+# Override denylist: names here are rejected by the block engines without
+# consulting the classifier (labelwise_priority's area index offsets every
+# score by the population-wide label-union count, which differs per block —
+# the classifier agrees, but the pin keeps the error message stable and the
+# rejection classifier-independent).
 NON_BLOCK_SEPARABLE = frozenset({"labelwise_priority"})
 
-# Extension strategies whose authors vouch that their scores are row-wise.
+# Opt-out allowlist: extension-strategy names whose authors vouch for block
+# separability, skipping the classification — for row-wise strategies whose
+# graph defeats the static pass (an opaque op on the scores' path).
 ASSUME_BLOCK_SEPARABLE: set = set()
 
-# The reference classifier's verdicts (repro.analysis.separability on the
-# reference's registry, 32 clients, 10 classes) for the builtin strategies,
-# held to it by tests/test_torch_population.py: name -> reason it is not
-# separable, or None.
-BUILTIN_SEPARABILITY: Dict[str, Optional[str]] = {
-    "random": None, "labelwise": None, "labelwise_unnorm": None,
-    "coverage": None, "kl": None, "entropy": None, "full": None,
-    "dirichlet_uniformity": None,
-    "labelwise_priority": "reduce_or reduces over the client axis "
-                          "(axes=(0,)); opaque primitive 'scatter'",
-}
+# (name, id(fn), num_classes) -> SeparabilityVerdict.  id(fn) keys the cache
+# to the registered callable, so overwrite-registrations re-classify.
+_SEPARABILITY_CACHE: Dict[Tuple[str, int, int], Any] = {}
 
 
-def _builtin_strategy(name: str) -> Optional[Callable]:
-    """The port's own callable for a builtin strategy name."""
-    from ..core import selection as sel
-    from .experiment import select_dirichlet_uniformity
-    return {"random": sel.select_random, "labelwise": sel.select_labelwise,
-            "labelwise_unnorm": sel.select_labelwise_unnorm,
-            "coverage": sel.select_coverage, "kl": sel.select_kl,
-            "entropy": sel.select_entropy, "full": sel.select_full,
-            "labelwise_priority": sel.select_labelwise_priority,
-            "dirichlet_uniformity": select_dirichlet_uniformity}.get(name)
+def _block_separability(strategy: str, num_classes: int, device=None):
+    fn = STRATEGIES[strategy]
+    key = (strategy, id(fn), int(num_classes))
+    if key not in _SEPARABILITY_CACHE:
+        from ..analysis.separability import classify_strategy
+        _SEPARABILITY_CACHE[key] = classify_strategy(
+            fn, num_clients=32, num_classes=int(num_classes), name=strategy,
+            device=device)
+    return _SEPARABILITY_CACHE[key]
 
 
-def _check_block_separable(strategy: str, engine: str) -> None:
+def _check_block_separable(strategy: str, engine: str, num_classes: int,
+                           device=None) -> None:
     """Refuse ``strategy`` unless its scores are a row-wise function of the
-    client's own histogram: the denylist first, then the builtins' verdicts.
-    A strategy with no verdict (an extension, or a builtin name registered
-    over) needs the classifier, which is not ported, unless vouched for."""
+    client's own histogram row — the denylist first, then the vouched-for
+    names, then the classifier's verdict over the strategy's aten graph
+    (``repro_torch.analysis.separability``, its mask probe on ``device``;
+    cached per (name, callable, num_classes))."""
     if strategy in NON_BLOCK_SEPARABLE:
         raise ValueError(
             f"strategy {strategy!r} is not block-separable (its score "
@@ -123,17 +121,11 @@ def _check_block_separable(strategy: str, engine: str) -> None:
             "engine='sim'")
     if strategy in ASSUME_BLOCK_SEPARABLE or strategy not in STRATEGIES:
         return  # vouched for / unknown name (raises later at get_strategy)
-    if STRATEGIES[strategy] is not _builtin_strategy(strategy):
-        raise NotImplementedError(
-            f"strategy {strategy!r} has no block-separability verdict: the "
-            "port holds the reference classifier's verdicts for its builtin "
-            "strategies only, and the classifier is not ported yet (ROADMAP "
-            "Queue 1 item 16); add the name to repro_torch.fl.population."
-            "ASSUME_BLOCK_SEPARABLE to vouch for it")
-    why = BUILTIN_SEPARABILITY[strategy]
-    if why is not None:
+    verdict = _block_separability(strategy, num_classes, device)
+    if not verdict.separable:
+        why = "; ".join(verdict.reasons) or verdict.summary()
         raise ValueError(
-            f"strategy {strategy!r} is not block-separable per the jaxpr "
+            f"strategy {strategy!r} is not block-separable per the graph "
             f"classification ({why}) and cannot run on engine={engine!r}; "
             "run it on engine='sim' or 'host', or add the name to "
             "repro_torch.fl.population.ASSUME_BLOCK_SEPARABLE to vouch for "
@@ -146,7 +138,8 @@ def default_num_blocks(num_clients: int) -> int:
     return max(d for d in range(1, cap + 1) if num_clients % d == 0)
 
 
-def _check_block_engine(agg, strategies: Sequence[str], engine: str) -> None:
+def _check_block_engine(agg, strategies: Sequence[str], engine: str,
+                        num_classes: int, device=None) -> None:
     if agg.clustered:
         raise ValueError(
             f"engine={engine!r} aggregates through the two-tier block "
@@ -158,7 +151,7 @@ def _check_block_engine(agg, strategies: Sequence[str], engine: str) -> None:
             "reduction; a custom Aggregator.reduce override is not "
             "supported — run it on engine='sim' or 'host'")
     for s in strategies:
-        _check_block_separable(s, engine)
+        _check_block_separable(s, engine, num_classes, device)
 
 
 def _resolve_blocks(num_clients: int, options: Dict[str, Any]
@@ -292,7 +285,7 @@ def make_hier_trial_fn(fl_cfg, ds=None, *, strategy: str,
     agg = get_aggregator(aggregation or fl_cfg.aggregation)
     n_clients = fl_cfg.num_clients
     n_classes = wl.num_classes(ds)
-    _check_block_engine(agg, (strategy,), "hier")
+    _check_block_engine(agg, (strategy,), "hier", n_classes, dev)
     e_blocks, block_size = _resolve_blocks(
         n_clients, {} if num_blocks is None else {"num_blocks": num_blocks})
     budget = _static_budget(strategy, n_clients, n_classes,
@@ -447,7 +440,7 @@ def make_async_trial_fn(fl_cfg, ds=None, *, strategy: str,
     agg = get_aggregator(aggregation or fl_cfg.aggregation)
     n_clients = fl_cfg.num_clients
     n_classes = wl.num_classes(ds)
-    _check_block_engine(agg, (strategy,), "async")
+    _check_block_engine(agg, (strategy,), "async", n_classes, dev)
     e_blocks, block_size = _resolve_blocks(
         n_clients, {} if num_blocks is None else {"num_blocks": num_blocks})
     k_buf = e_blocks if buffer_k is None else int(buffer_k)
@@ -614,7 +607,8 @@ def run_engine_hier(spec, lowered, ds, device):
     """The ``engine="hier"`` registry body (:func:`make_hier_trial_fn`)."""
     opts = dict(spec.engine_options or {})
     agg = get_aggregator(spec.aggregation or spec.fl.aggregation)
-    _check_block_engine(agg, spec.strategies, "hier")
+    _check_block_engine(agg, spec.strategies, "hier",
+                        get_workload(spec.workload).num_classes(ds), device)
     e_blocks, block_size = _resolve_blocks(spec.fl.num_clients, opts)
     trials: Dict[str, Any] = {}
 
@@ -641,7 +635,8 @@ def run_engine_async(spec, lowered, ds, device):
     """The ``engine="async"`` registry body (:func:`make_async_trial_fn`)."""
     opts = dict(spec.engine_options or {})
     agg = get_aggregator(spec.aggregation or spec.fl.aggregation)
-    _check_block_engine(agg, spec.strategies, "async")
+    _check_block_engine(agg, spec.strategies, "async",
+                        get_workload(spec.workload).num_classes(ds), device)
     e_blocks, block_size = _resolve_blocks(spec.fl.num_clients, opts)
     k_buf = int(opts.get("buffer_k", e_blocks))
     alpha = float(opts.get("alpha", 0.5))
@@ -739,7 +734,7 @@ def make_population_round(*, plan_fn: Callable[[torch.Tensor, torch.Tensor],
     dev = resolve_device(device) if ds is None else torch.device(ds.device)
     ds = wl.make_dataset(dev) if ds is None else ds
     n_classes = wl.num_classes(ds)
-    _check_block_separable(strategy, "population")
+    _check_block_separable(strategy, "population", n_classes, dev)
     e_blocks = num_clients // block_size
     budget = max(1, min(int(budget), num_clients))
     opt = get_optimizer(optimizer, lr)

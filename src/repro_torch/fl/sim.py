@@ -43,7 +43,6 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import vmap
 from torch.profiler import record_function
 
 from .. import rng
@@ -52,6 +51,7 @@ from ..core import (STRATEGIES, cluster_counts, kmeans_cluster,
 from ..data import client_batches
 from ..device import resolve_device
 from ..optim import get_optimizer
+from .client import batched_eval
 from .loop import RoundTelemetry, cluster_mixture
 from .round import (check_adversary, client_updates, resolve_adversary,
                     resolve_aggregator, server_update, stack_global_params,
@@ -213,7 +213,7 @@ class GridRun:
         self.params = params
         self.loss_fn = wl.make_loss(ds)
         self.eval_batch = wl.eval_set(ds, eval_n_per_class)
-        self.eval_fn = vmap(wl.make_eval(ds), in_dims=(0, None))
+        self.eval_fn = batched_eval(wl.make_eval(ds))
         self.opt = get_optimizer(fl_cfg.optimizer, fl_cfg.lr)
         self.tel = RoundTelemetry(telemetry, agg)
         self.chunk = self.per_trial = None

@@ -85,18 +85,21 @@ _WORKLOADS: Dict[str, Workload] = {}
 
 
 def register_workload(name: str, workload: Workload, *,
-                      overwrite: bool = False,
-                      check: bool = False) -> Workload:
+                      overwrite: bool = False, check: bool = False,
+                      device=None) -> Workload:
     """Register ``workload`` under ``name`` (``overwrite=True`` replaces a
-    registered one).  ``check=True``, the contract pass over the bundle, is
-    not ported yet and raises."""
-    if check:
-        raise NotImplementedError(
-            "register_workload(check=True), the contract pass over a "
-            "workload, is not ported yet (ROADMAP Queue 1 item 16)")
+    registered one).  ``check=True`` runs the contract passes
+    (``repro_torch.analysis``) over the bundle BEFORE registering —
+    materialize schema (labels/valid/hists + batch_keys, histogram width),
+    traceable init/loss, eval metrics containing "accuracy" — raising
+    ``repro_torch.analysis.ContractError`` with structured diagnostics;
+    ``device`` (``None``: the card) is where they trace."""
     if name in _WORKLOADS and not overwrite:
         raise ValueError(f"workload {name!r} is already registered; pass "
                          "overwrite=True to replace it")
+    if check:
+        from ..analysis import assert_workload_contract
+        assert_workload_contract(name, workload, device=device)
     if workload.name != name:
         workload = dataclasses.replace(workload, name=name)
     _WORKLOADS[name] = workload

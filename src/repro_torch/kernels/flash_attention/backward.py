@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from ..build import check_launch, library
-from .flash_attention import _ENTRY, check_operands
+from .flash_attention import _ENTRY, _on_cpu, check_operands
+from .ref import gqa_attention_bwd_ref
 
 # Launches of the backward kernels since the last reset (repro_torch.kernels);
 # one a call, whatever the number of kernels the call starts.
@@ -72,3 +73,29 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     launches += 1
     return dq, dk, dv
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, lse: torch.Tensor,
+                           do: torch.Tensor, causal: bool, window: int
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """(dq, dk, dv): CPU tensors take the plain backward, CUDA tensors one
+    :func:`launch_backward` (or raise).  Its fake form gives the shapes
+    alone, so a graph traced over fake tensors holds one node for the
+    kernels."""
+    if _on_cpu(q, k, v, o, lse, do):
+        return gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
+    return launch_backward(*(t.contiguous() for t in (q, k, v, o, lse, do)),
+                           causal=causal, window=window)
+
+
+@flash_attention_bwd_op.register_fake
+def _flash_attention_bwd_fake(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool, window: int
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)

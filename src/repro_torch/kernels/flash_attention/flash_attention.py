@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..build import check_launch, library
-from .ref import attention_ref
+from .ref import attention_ref, gqa_attention_ref
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
@@ -59,6 +59,35 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if with_lse else out
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int, with_lse: bool
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q (B, S, H, D), k/v (B, S, KV, D) -> (o, lse): CPU tensors take the
+    plain version, CUDA tensors one :func:`launch` (or raise).  Without
+    ``with_lse`` lse is an empty (B, H, 0).  Its fake form gives the shapes
+    alone, so a graph traced over fake tensors holds one node for the
+    kernel."""
+    if _on_cpu(q, k, v):
+        out = gqa_attention_ref(q, k, v, causal, window, with_lse=with_lse)
+    else:
+        out = launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                     causal=causal, window=window, with_lse=with_lse)
+    if with_lse:
+        return out
+    b, s, h, _ = q.shape
+    return out, q.new_empty((b, h, 0), dtype=torch.float32)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool, window: int, with_lse: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    b, s, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, s if with_lse else 0), dtype=torch.float32))
+
+
 def check_operands(name: str, ts, d: int, window: int) -> None:
     """Raise on what the kernels do not take: head_dim outside
     ``HEAD_DIMS`` of the dtype, tensors not contiguous or not starting on a
@@ -88,5 +117,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(v.shape)}")
     if _on_cpu(q, k, v):
         return attention_ref(q, k, v, causal, window)
-    return launch(q[:, :, None], k[:, :, None], v[:, :, None], causal=causal,
-                  window=window)[:, :, 0]
+    return flash_attention_op(q[:, :, None], k[:, :, None], v[:, :, None],
+                              causal, window, False)[0][:, :, 0]

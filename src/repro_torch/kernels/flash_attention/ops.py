@@ -9,8 +9,10 @@ reference repeats K/V per q-head before flattening; the kernels read kv-head
 ``FlashAttention`` is a ``torch.autograd.Function`` (``setup_context``
 style) that returns the output and each row's logsumexp L, which it saves
 for its backward, ``FlashAttentionBackward``, the backward kernels.  Each
-is the one code path on both devices: inside ``forward`` a CPU tensor takes
-the plain version and a CUDA tensor the kernel (or raises).
+is the one code path on both devices: its ``forward`` calls one
+``repro_torch`` op (``flash_attention`` / ``flash_attention_bwd``), in which
+a CPU tensor takes the plain version and a CUDA tensor the kernel (or
+raises), and whose fake form lets a graph be traced through it.
 Each has a ``vmap`` rule that folds the mapped dimension into B and calls
 ``apply`` once, so ``torch.func.vmap`` over clients or trials makes one
 launch for all of them, and ``vmap(grad(...))`` and ``grad(vmap(...))``
@@ -22,9 +24,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from .backward import launch_backward
-from .flash_attention import _on_cpu, launch
-from .ref import gqa_attention_bwd_ref, gqa_attention_ref
+from .backward import flash_attention_bwd_op
+from .flash_attention import flash_attention_op
 
 
 def fold(xs: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
@@ -54,16 +55,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal: bool, window: int, with_lse: bool):
-        if _on_cpu(q, k, v):
-            out = gqa_attention_ref(q, k, v, causal, window,
-                                    with_lse=with_lse)
-        else:
-            out = launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal=causal, window=window, with_lse=with_lse)
-        if with_lse:
-            return out
-        b, s, h, _ = q.shape
-        return out, q.new_empty((b, h, 0), dtype=torch.float32)
+        return flash_attention_op(q, k, v, causal, window, with_lse)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -94,11 +86,7 @@ class FlashAttentionBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, o, lse, do, causal: bool, window: int):
-        if _on_cpu(q, k, v, o, lse, do):
-            return gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
-        return launch_backward(
-            *(t.contiguous() for t in (q, k, v, o, lse, do)), causal=causal,
-            window=window)
+        return flash_attention_bwd_op(q, k, v, o, lse, do, causal, window)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

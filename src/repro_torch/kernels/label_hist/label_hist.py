@@ -162,14 +162,31 @@ def label_hist_kernel(labels: torch.Tensor, valid: torch.Tensor,
     """labels (B, n) int32, valid (B, n) bool -> (B, C) float32 counts.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    once, as ``plan_hist`` cuts the work for its card, or raises."""
+    once, as ``plan_hist`` cuts the work for its card, or raises.  Both go
+    through the ``repro_torch::label_hist`` op, whose fake form gives the
+    shape alone, so a graph traced over fake tensors holds one node for
+    the kernel."""
     _check(labels, valid)
+    return label_hist_op(labels, valid, num_classes)
+
+
+@torch.library.custom_op("repro_torch::label_hist", mutates_args=())
+def label_hist_op(labels: torch.Tensor, valid: torch.Tensor,
+                  num_classes: int) -> torch.Tensor:
+    """The op behind :func:`label_hist_kernel` (inputs already checked)."""
     if labels.device.type == "cpu" and valid.device.type == "cpu":
         return label_hist_ref(labels, valid, num_classes)
     _check_cuda(labels, valid, num_classes)
     sms = torch.cuda.get_device_properties(labels.device).multi_processor_count
     return _launch_plan(labels, valid, num_classes,
                         plan_hist(*labels.shape, num_classes, sms))
+
+
+@label_hist_op.register_fake
+def _label_hist_fake(labels: torch.Tensor, valid: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    return labels.new_empty((labels.shape[0], num_classes),
+                            dtype=torch.float32)
 
 
 def _launch_plan(labels: torch.Tensor, valid: torch.Tensor, num_classes: int,

@@ -8,8 +8,9 @@ uses head ``bh % H``, group ``(bh % H) // (H / G)`` and ``A[bh % H]``; the
 kernel reads the same group and head in place, without the copies.
 
 ``SSDScan`` is a ``torch.autograd.Function`` (``setup_context`` style): its
-forward is the kernel on a CUDA tensor (the plain recurrence on a CPU
-tensor), and that output is the one the model uses.  Its backward is
+forward is the ``repro_torch::ssd_scan`` op, the kernel on a CUDA tensor
+(the plain recurrence on a CPU tensor), and that output is the one the
+model uses.  Its backward is
 ``torch.func.vjp`` of the plain chunked form ``ref.ssd_chunked_ref``, the
 function the reference itself differentiates for training
 (``repro/models/layers.py:_ssd_chunked``, computed there outside any Pallas
@@ -23,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from ..flash_attention.ops import fold, unfold
-from .ref import ssd_apply_ref, ssd_chunked_ref
-from .ssd_scan import _on_cpu, launch
+from .ref import ssd_chunked_ref
+from .ssd_scan import ssd_scan_op
 
 # Backward calls (plain vjps, no kernel) since the last reset; read beside
 # the kernels' launch counts.
@@ -38,10 +39,7 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(x, dt, A, B, C, chunk: int):
-        if _on_cpu(x, dt, A, B, C):
-            return ssd_apply_ref(x, dt, A, B, C)
-        return launch(*(t.float().contiguous() for t in (x, dt, A, B, C)),
-                      a_stride=x.shape[2])
+        return ssd_scan_op(x, dt, A, B, C)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

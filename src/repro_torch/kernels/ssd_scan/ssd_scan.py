@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..build import check_launch, library
-from .ref import ssd_ref
+from .ref import ssd_apply_ref, ssd_ref
 
 # Launches of the CUDA kernel since the last reset (repro_torch.kernels).
 launches = 0
@@ -68,6 +68,30 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, fin
 
 
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (b, S, H, P), dt (b, S, H), A (b, H), B/C (b, S, G, N) -> (y,
+    final_state) float32: CPU tensors take the plain version, CUDA tensors
+    one :func:`launch` on float32 copies (or raise).  Its fake form gives
+    the shapes alone, so a graph traced over fake tensors holds one node
+    for the kernel."""
+    if _on_cpu(x, dt, A, B, C):
+        return ssd_apply_ref(x, dt, A, B, C)
+    return launch(*(t.float().contiguous() for t in (x, dt, A, B, C)),
+                  a_stride=x.shape[2])
+
+
+@ssd_scan_op.register_fake
+def _ssd_scan_fake(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p), dtype=torch.float32),
+            x.new_empty((b, h, p, B.shape[3]), dtype=torch.float32))
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int = 128):
     """x (BH, S, P); dt (BH, S); A (BH,); B/C (BH, S, N) ->
@@ -89,7 +113,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if _on_cpu(x, dt, A, B, C):
         return ssd_ref(x, dt, A, B, C)
     # Rows as batch entries of one head each: (BH, S, 1, ...), A[row].
-    x, dt, A, B, C = (t.float().contiguous() for t in (x, dt, A, B, C))
-    y, fin = launch(x[:, :, None], dt[:, :, None], A, B[:, :, None],
-                    C[:, :, None], a_stride=1)
+    y, fin = ssd_scan_op(x[:, :, None], dt[:, :, None], A[:, None],
+                         B[:, :, None], C[:, :, None])
     return y[:, :, 0], fin[:, 0]

@@ -13,7 +13,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -151,8 +151,17 @@ def weighted_agg_leaves(leaves: Sequence[torch.Tensor], scales: torch.Tensor,
 
     CPU tensors take the plain version.  CUDA tensors make one kernel launch
     for the leaves of each dtype (one per ``MAX_LEAVES`` leaves) for all
-    trials, or raise."""
+    trials, or raise.  Both go through the ``repro_torch::weighted_agg``
+    op, whose fake form gives the shapes alone, so a graph traced over fake
+    tensors holds one node for the kernel's launches."""
     _check_leaves(leaves, scales, denom)
+    return weighted_agg_op(list(leaves), scales, denom)
+
+
+@torch.library.custom_op("repro_torch::weighted_agg", mutates_args=())
+def weighted_agg_op(leaves: List[torch.Tensor], scales: torch.Tensor,
+                    denom: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    """The op behind :func:`weighted_agg_leaves` (inputs already checked)."""
     tensors = [*leaves, scales] + ([] if denom is None else [denom])
     if all(t.device.type == "cpu" for t in tensors):
         return [weighted_agg_ref(x, scales, denom) for x in leaves]
@@ -189,6 +198,12 @@ def weighted_agg_leaves(leaves: Sequence[torch.Tensor], scales: torch.Tensor,
             scales.data_ptr(), k_clients, k_clients, denom_ptr, 1, stream))
         launches += 1
     return outs
+
+
+@weighted_agg_op.register_fake
+def _weighted_agg_fake(leaves: List[torch.Tensor], scales: torch.Tensor,
+                       denom: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    return [x.new_empty(x.shape[:-2] + x.shape[-1:]) for x in leaves]
 
 
 def weighted_agg_kernel(stacked: torch.Tensor,

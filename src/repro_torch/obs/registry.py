@@ -68,15 +68,12 @@ _METRIC_IDS: list = []          # append-only ledger: position = stable id
 
 def register_metric(name: str, fn: Callable, *, requires: Sequence[str] = (),
                     axes: Sequence[str] = (), overwrite: bool = False,
-                    check: bool = False) -> Metric:
+                    check: bool = False, device=None) -> Metric:
     """Register a round metric under ``name``.  Ids are append-only
     (``overwrite=True`` replaces the callable and keeps the id).
-    ``check=True``, the contract pass over ``fn``, is not ported yet and
-    raises."""
-    if check:
-        raise NotImplementedError(
-            "register_metric(check=True), the contract pass over a metric, "
-            "is not ported yet (ROADMAP Queue 1 item 16)")
+    ``check=True`` raises ``repro_torch.analysis.ContractError`` if the fn
+    violates the metric contract (untraceable, oversized output, host
+    round trips), traced on ``device`` (``None``: the card)."""
     if not name or not isinstance(name, str):
         raise ValueError(f"metric name must be a non-empty str; got {name!r}")
     if name in _METRICS and not overwrite:
@@ -84,6 +81,9 @@ def register_metric(name: str, fn: Callable, *, requires: Sequence[str] = (),
     if not callable(fn):
         raise TypeError(f"metric {name!r} must be callable; got {type(fn)}")
     m = Metric(name=name, fn=fn, requires=tuple(requires), axes=tuple(axes))
+    if check:
+        from ..analysis import assert_metric_contract
+        assert_metric_contract(name, m, device=device)
     _METRICS[name] = m
     if name not in _METRIC_IDS:
         _METRIC_IDS.append(name)

@@ -71,11 +71,26 @@ def as_key(key: KeyLike, device=None) -> torch.Tensor:
     return k
 
 
+@torch.library.custom_op("repro_torch::random_seed", mutates_args=())
+def random_seed(seed: torch.Tensor) -> torch.Tensor:
+    """int64 seeds (…) -> keys (…, 2) ``(0, seed mod 2^32)``.  One op of its
+    own, as JAX's ``random_seed`` primitive is, so that a key built from a
+    seed inside a traced body is one node of the graph
+    (``repro_torch.analysis`` flags it, A006)."""
+    s = seed & _MASK
+    return torch.stack([torch.zeros_like(s), s], dim=-1)
+
+
+@random_seed.register_fake
+def _random_seed_fake(seed: torch.Tensor) -> torch.Tensor:
+    return seed.new_empty(seed.shape + (2,))
+
+
 def PRNGKey(seed, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey``: an int seed (or a tensor of seeds) -> keys
     ``(0, seed mod 2^32)``, as JAX forms them with 64-bit types off."""
-    s = torch.as_tensor(seed, dtype=torch.int64, device=device) & _MASK
-    return torch.stack([torch.zeros_like(s), s], dim=-1)
+    return random_seed(torch.as_tensor(seed, dtype=torch.int64,
+                                       device=device))
 
 
 def fold_in(key: KeyLike, data) -> torch.Tensor:

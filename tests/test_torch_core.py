@@ -332,14 +332,32 @@ def test_entry_points_without_device_raise_on_a_host_without_a_card():
 
 def test_register_strategy_takes_the_check_keyword():
     """As the reference's: ``check=False`` registers (here a builtin
-    re-registered with its own callable, which keeps its id); the contract
-    pass that ``check=True`` asks for is not ported and raises, naming its
-    ROADMAP item, before anything is registered."""
+    re-registered with its own callable, which keeps its id);
+    ``check=True`` runs the contract pass first, so a broken strategy (int
+    mask, float order) raises ``ContractError`` with the reference's code,
+    A003, and registers nothing, and a clean one registers."""
+    from repro_torch.analysis import ContractError
     before = tsel.registered_strategies()
     fn = tsel.get_strategy("random")
     assert tsel.register_strategy("random", fn, overwrite=True,
                                   check=False) is fn
     assert tsel.registered_strategies() == before
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tsel.register_strategy("_checked_strategy", fn, check=True)
+
+    def bad(key, hists, n_select):
+        r = fn(key, hists, n_select)
+        return tsel.SelectionResult(r.mask.to(torch.int32), r.scores,
+                                    r.order.to(torch.float32), r.budget)
+
+    with pytest.raises(ContractError) as ei:
+        tsel.register_strategy("_checked_strategy", bad, check=True,
+                               device="cpu")
+    assert {d.code for d in ei.value.findings.errors()} == {"A003"}
     assert tsel.registered_strategies() == before
+    try:
+        assert tsel.register_strategy("_checked_strategy", fn, check=True,
+                                      device="cpu") is fn
+        assert tsel.registered_strategies() == before + ("_checked_strategy",)
+    finally:
+        tsel.STRATEGIES.pop("_checked_strategy", None)
+        if "_checked_strategy" in tsel._REGISTRY_ORDER:
+            tsel._REGISTRY_ORDER.remove("_checked_strategy")

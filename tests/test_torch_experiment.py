@@ -379,11 +379,15 @@ def test_weighted_agg_trial_axis_plain_equals_one_trial_calls():
     ("deep", "item 16"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(change, item):
-    """Item 16 still raises, naming its item.  Items 12 and 13's engines
-    have landed: they run this grid spec (both scenarios, strategies and
-    seeds) and report their ``meta["sharded"]`` or ``meta["population"]``;
-    their parity with the reference is tests/test_torch_sharded.py's and
-    tests/test_torch_population.py's."""
+    """Every item has landed.  Items 12 and 13's engines run this grid spec
+    (both scenarios, strategies and seeds) and report their
+    ``meta["sharded"]`` or ``meta["population"]``; their parity with the
+    reference is tests/test_torch_sharded.py's and
+    tests/test_torch_population.py's.  Item 16's ``validate(deep=True)``
+    passes the spec, as the reference's does, and raises ``ContractError``
+    with the reference's code (A003) once a strategy of it breaks the
+    SelectionResult schema (tests/test_torch_analysis.py holds every code
+    to the reference's)."""
     spec = _grid_spec(tx, FLConfig, "sim")
     ds = ImageDataset(image_size=HW, device="cpu")
     if item in ("item 12", "item 13"):
@@ -399,11 +403,25 @@ def test_unported_options_raise_with_their_roadmap_item(change, item):
         assert res.accuracy.shape == (2, 2, 2, 2)
         assert np.isfinite(res.loss).all()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        if change == "deep":
-            spec.validate(deep=True)
-        else:
-            tx.run(dataclasses.replace(spec, **change), device="cpu", ds=ds)
+    from repro_torch.analysis import ContractError
+    spec.validate(deep=True, ds=ds, device="cpu")
+
+    def bad(key, hists, n_select):
+        r = tsel.select_labelwise(key, hists, n_select)
+        return tsel.SelectionResult(r.mask, r.scores,
+                                    r.order.to(torch.float32), r.budget)
+
+    tsel.register_strategy("_test_deep_bad", bad, overwrite=True)
+    try:
+        with pytest.raises(ContractError, match="A003") as ei:
+            dataclasses.replace(spec, strategies=(
+                "labelwise", "_test_deep_bad")).validate(
+                    deep=True, ds=ds, device="cpu")
+        assert {(d.code, d.name) for d in ei.value.findings.errors()} == {
+            ("A003", "_test_deep_bad")}
+    finally:
+        tsel.STRATEGIES.pop("_test_deep_bad", None)
+        tsel._REGISTRY_ORDER.remove("_test_deep_bad")
 
 
 def test_momentum_runs_on_every_engine():

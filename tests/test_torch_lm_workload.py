@@ -200,13 +200,31 @@ def test_lm_workload_of_another_config_checks_its_vocabulary():
 
 
 def test_register_workload_takes_the_check_keyword():
-    """As the reference's: ``check=False`` registers, ``check=True`` (the
-    contract pass, not ported) raises naming its ROADMAP item and registers
-    nothing."""
+    """As the reference's: ``check=False`` registers; ``check=True`` runs
+    the contract pass first, so the ``lm`` bundle with a materializer that
+    drops ``hists`` raises ``ContractError`` with the reference's code,
+    A101, and registers nothing, and the clean ``lm`` bundle registers."""
+    from repro_torch.analysis import ContractError
+    from repro_torch.fl import workloads as tw
     before = T.registered_workloads()
     wl = get_workload("cnn")
     assert T.register_workload("cnn", wl, overwrite=True, check=False) is wl
     assert T.registered_workloads() == before
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T.register_workload("_checked_workload", wl, check=True)
+    lm = get_workload("lm")
+
+    def no_hists(ds, plan_t, key):
+        out = dict(lm.materialize(ds, plan_t, key))
+        out.pop("hists")
+        return out
+
+    with pytest.raises(ContractError) as ei:
+        T.register_workload("_checked_workload", dataclasses.replace(
+            lm, materialize=no_hists), check=True, device="cpu")
+    assert {d.code for d in ei.value.findings.errors()} == {"A101"}
     assert T.registered_workloads() == before
+    try:
+        T.register_workload("_checked_workload", lm, check=True,
+                            device="cpu")
+        assert T.registered_workloads() == before + ("_checked_workload",)
+    finally:
+        tw._WORKLOADS.pop("_checked_workload", None)

@@ -75,8 +75,27 @@ def test_register_metric_contract():
     assert tobs.metric_id("update_norm") == 2
     with pytest.raises(ValueError):
         tobs.register_metric("update_norm", m.fn)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tobs.register_metric("checked", m.fn, check=True)
+    # check=True: a host round trip in the body is the reference's A005 and
+    # registers nothing; the clean callable registers.
+    from repro_torch.analysis import ContractError
+    from repro_torch.obs import registry as treg
+
+    def host_sum(state):
+        return torch.as_tensor(state["hists"].numpy().sum())
+
+    with pytest.raises(ContractError) as ei:
+        tobs.register_metric("checked", host_sum, requires=("hists",),
+                             check=True, device="cpu")
+    assert {d.code for d in ei.value.findings.errors()} == {"A005"}
+    assert "checked" not in tobs.registered_metrics()
+    try:
+        tobs.register_metric("checked", m.fn, requires=m.requires,
+                             check=True, device="cpu")
+        assert tobs.registered_metrics()[-1] == "checked"
+    finally:
+        treg._METRICS.pop("checked", None)
+        if "checked" in treg._METRIC_IDS:
+            treg._METRIC_IDS.remove("checked")
     with pytest.raises(TypeError):
         tobs.register_metric("not_callable", 3)
 

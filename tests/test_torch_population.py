@@ -305,20 +305,23 @@ def test_default_num_blocks():
 # ---------------------------------------------------------------------------
 
 def test_separability_table_matches_reference_classifier():
-    """The table covers the port's nine builtins (other tests may register
-    more strategies in either registry), each with the classifier's
-    verdict on the reference's callable."""
+    """The block engines' gate classifies each of the nine builtins with
+    the port's classifier (over the port's callable, 32 clients, 10
+    classes, its probe on the CPU) and gets the reference classifier's
+    verdict on the reference's callable: ``separable``, ``scores_dep`` and
+    ``mask_consistent``."""
     builtins = tsel.BUILTIN_STRATEGIES + ("labelwise_priority",
                                           "dirichlet_uniformity")
-    assert set(tpop.BUILTIN_SEPARABILITY) == set(builtins)
     assert set(builtins) <= set(JSTRATEGIES) and set(builtins) <= set(
         STRATEGIES)
-    for name, why in tpop.BUILTIN_SEPARABILITY.items():
-        v = classify_strategy(JSTRATEGIES[name], num_clients=32,
-                              num_classes=10, name=name)
-        assert v.separable == (why is None), name
-        if why is not None:
-            assert why == "; ".join(v.reasons)
+    for name in builtins:
+        want = classify_strategy(JSTRATEGIES[name], num_clients=32,
+                                 num_classes=10, name=name)
+        got = tpop._block_separability(name, 10, "cpu")
+        assert (got.separable, got.scores_dep, got.mask_consistent) == (
+            want.separable, want.scores_dep, want.mask_consistent), name
+    assert not tpop._block_separability("labelwise_priority", 10,
+                                        "cpu").separable
 
 
 def _spec(mod, cfg, engine, **kw):
@@ -377,18 +380,27 @@ def test_population_round_rejections_match_reference(case):
 
 
 def test_strategy_without_a_verdict_raises_naming_item_16(monkeypatch):
-    """An extension strategy (or a builtin name registered over) needs the
-    classifier, which is not ported, unless its name is vouched for."""
+    """An extension strategy gets the classifier's verdict: a row-wise one
+    passes the gate, one whose scores divide by a population-wide total is
+    refused before the run ("not block-separable", as the reference
+    refuses it), and a vouched-for name skips the classifier."""
     def rowwise(key, hists, n_select):
         return tsel.select_labelwise(key, hists, n_select)
 
+    def nonsep(key, hists, n_select):
+        scores = hists.sum(-1) / (hists.sum() + 1.0)
+        mask, order = tsel.topn_mask(scores, scores > 0, n_select)
+        return tsel.SelectionResult(mask, scores, order, n_select)
+
     register_strategy("_test_pop_rowwise", rowwise, overwrite=True)
-    spec = _spec(tx, FLConfig, "hier", strategies=("_test_pop_rowwise",))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    tpop._check_block_separable("_test_pop_rowwise", "hier", 10, "cpu")
+    register_strategy("_test_pop_nonsep", nonsep, overwrite=True)
+    spec = _spec(tx, FLConfig, "hier", strategies=("_test_pop_nonsep",))
+    with pytest.raises(ValueError, match="not block-separable"):
         tx.run(spec, device="cpu",
                ds=ImageDataset(image_size=HW, device="cpu"))
-    monkeypatch.setattr(tpop, "ASSUME_BLOCK_SEPARABLE", {"_test_pop_rowwise"})
-    tpop._check_block_separable("_test_pop_rowwise", "hier")
+    monkeypatch.setattr(tpop, "ASSUME_BLOCK_SEPARABLE", {"_test_pop_nonsep"})
+    tpop._check_block_separable("_test_pop_nonsep", "hier", 10, "cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -178,10 +178,26 @@ def test_reducers_take_a_trial_axis(name):
 
 
 def test_register_with_check_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tagg.register_aggregator("robust_custom", tagg.median_reduce,
-                                 check=True)
+    """``check=True`` runs the contract pass over a custom reduce: one that
+    returns the stacked tree (the wrong shapes) raises ``ContractError``
+    with the reference's code, A201, and registers nothing; the median
+    reduce registers."""
+    from repro_torch.analysis import ContractError
+    with pytest.raises(ContractError) as ei:
+        tagg.register_aggregator(
+            "robust_custom", lambda stacked, live, sizes: stacked,
+            check=True, device="cpu")
+    assert {d.code for d in ei.value.findings.errors()} == {"A201"}
     assert "robust_custom" not in tagg.registered_aggregators()
+    try:
+        agg = tagg.register_aggregator("robust_custom", tagg.median_reduce,
+                                       check=True, device="cpu")
+        assert agg.reduce is tagg.median_reduce
+        assert "robust_custom" in tagg.registered_aggregators()
+    finally:
+        tagg.AGGREGATORS.pop("robust_custom", None)
+        if "robust_custom" in tagg._AGG_REGISTRY_ORDER:
+            tagg._AGG_REGISTRY_ORDER.remove("robust_custom")
 
 
 @pytest.mark.parametrize("adversary", [
