@@ -141,6 +141,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     to 4 layers, 5 steps of 4 x 1024 tokens: step time, tokens/s, the
     token draw's share, peak memory and launches a step; losses finite and
     the last below the first.
+19. the launch tooling: (a) mamba2-1.3b's full-width bf16 params saved
+    from the card (``ckpt.save_checkpoint``) and loaded back onto it
+    (``load_checkpoint``), bit-equal, with the GB and the times, then
+    ``run_train(..., ckpt_dir=...)`` on a reduced config and its sidecar's
+    ``extra``; (b) ``make_prefill_step`` / ``make_serve_step`` for
+    mamba2-1.3b and qwen3-14b at phase 11's 4 x 1024 in bf16: tokens
+    bit-equal to ``prefill``'s / ``decode_step``'s argmax on the same
+    weights, 48 ``ssd_scan`` / 40 ``flash_attention`` launches in the
+    prefill step and none in the serve step, the prefill step timed warm
+    with its peak memory; (c) the dry-run (traced over fake tensors in a
+    background process that starts before the build, see DRYRUN_SCRIPT) of
+    those prefill steps and of phase 16f's train steps: traced FLOPs over
+    the measured time as TFLOP/s and as a share of 989 TFLOP/s, the
+    estimated peak beside ``max_memory_allocated``, and the traced kernel
+    ops equal to the card's launches; (d) one warm step of every assigned
+    prefill or decode pair that the dry-run marks ``fits_one_card`` (a
+    serve step reads a full cache), with wall, peak and the estimate; an
+    out-of-memory there fails the phase.  The train_4k pairs are not
+    traced here (5-10 minutes of host CPU each, to read that they do not
+    fit): ``python -m repro_torch.launch.dryrun --all`` records them.
+
+Without a CUDA device, without the checkout's ``src/repro_torch`` beside
+this file, or with ``REPRO_COMPUTE_BACKEND`` set, the script exits non-zero
+and prints no result.
 
 The line before the last is a JSON object with each kernel's numbers
 (``label_hist``'s also ``floor_ms``, the synthetic grid's cold ``grid_ms``,
@@ -152,16 +176,16 @@ phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
 ``flash_attention_bwd``, its ``launches`` those of phase 16f's qwen3-14b
 run, ``fl_launches`` phase 16e's sim run and ``f32_pair_ms`` the float32
 pair at the same shape); the last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA device, or
-without the checkout's ``src/repro_torch`` beside this file, the script exits
-non-zero and prints no result.
+{...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3033,12 +3057,393 @@ def phase18e_refusal(dev, card: str) -> dict:
     return {"launches": ran["launches"]}
 
 
+# Phase 19: the launch tooling (ckpt/, data/specs.py, launch/steps.py,
+# launch/dryrun.py, launch/roofline.py).  The dry-run traces over fake
+# tensors on the host's CPU, about two minutes in all (mamba2-1.3b's train
+# step at 16f's shape most of it), so a background process (one torch
+# thread, niced) starts before the build and runs beside phases 2-18: it
+# traces the six assigned prefill and decode pairs, then the steps phase 19
+# runs on the card at phase 11's and 16f's shapes, and prints one JSON
+# record a line to DRYRUN_LOG; phase 19 reads them.
+DRYRUN_LOG = ROOT / "build" / "phase19_dryrun.log"
+DRYRUN_WAIT_S = 450            # the most phase 19 waits for the traces
+P19_STEP_REPS = 3              # warm calls of a step timed (median)
+P19_CKPT_DIR = ROOT / "build" / "phase19_ckpt"
+DRYRUN_SCRIPT = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import InputShape
+from repro_torch.launch import dryrun
+
+batch, prompt, seq, qwen_layers = map(int, sys.argv[1:])
+torch.set_num_threads(1)
+
+
+def emit(what, record):
+    print(json.dumps({"what": what, **record}), flush=True)
+
+
+def pair(arch, shape):
+    emit(f"{arch} {shape}", dryrun.dryrun_one(arch, shape, save=False,
+                                              verbose=False))
+
+
+for arch in ("mamba2-1.3b", "qwen3-14b"):
+    for shape in ("long_500k", "decode_32k", "prefill_32k"):
+        pair(arch, shape)
+meta = torch.device("meta")
+for arch in ("qwen3-14b", "mamba2-1.3b"):
+    cfg = get_config(arch)
+    shape = InputShape("phase19_prefill", prompt + 1, batch, "prefill")
+    params = dryrun.build_step(cfg, shape)[1][0]
+    toks = torch.empty((batch, prompt), dtype=torch.int32, device=meta)
+    emit(f"{arch} prefill step", dryrun.dryrun_step(
+        arch, cfg, shape, args=(params, {"tokens": toks})))
+for arch, layers in (("qwen3-14b", qwen_layers), ("mamba2-1.3b", 0)):
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    emit(f"{arch} train step", dryrun.dryrun_step(
+        arch, cfg, InputShape("phase19_train", seq, batch, "train"),
+        microbatches=1))
+"""
+_BACKGROUND: list = []
+
+
+def start_dryrun() -> None:
+    """Start the background dry-run process (see DRYRUN_SCRIPT);
+    ``stop_background`` ends it."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(DRYRUN_LOG, "w") as out:
+        _BACKGROUND.append(subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_SCRIPT, str(SERVE_BATCH),
+             str(SERVE_PROMPT), str(TRAIN_SEQ), str(TRAIN_QWEN_LAYERS)],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10)))
+
+
+def stop_background() -> None:
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def dryrun_records(wait_for) -> dict:
+    """The background records by ``what``, once every ``what`` in
+    ``wait_for`` is there (or the process has failed, or DRYRUN_WAIT_S has
+    passed since the call)."""
+    t0 = time.time()
+    while True:
+        records = {}
+        for line in DRYRUN_LOG.read_text().splitlines():
+            if line.startswith('{"what"'):
+                r = json.loads(line)
+                records[r["what"]] = r
+        missing = set(wait_for) - set(records)
+        if not missing:
+            return records
+        failed = any(p.poll() not in (None, 0) for p in _BACKGROUND)
+        if failed or time.time() - t0 > DRYRUN_WAIT_S:
+            raise AssertionError(f"dry-run records missing: {sorted(missing)}"
+                                 f" (process failed: {failed}, waited "
+                                 f"{time.time() - t0:.0f} s)\n"
+                                 f"{DRYRUN_LOG.read_text()[-3000:]}")
+        time.sleep(2)
+
+
+def _warm_ms(dev, fn, reps: int = P19_STEP_REPS):
+    """(median wall ms of ``reps`` warm ``fn()`` calls, each synchronised,
+    peak bytes ``max_memory_allocated`` over one of them, the last result)."""
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), torch.cuda.max_memory_allocated(dev), out
+
+
+def phase19a_checkpoints(dev, params, cfg) -> dict:
+    """Full-width params saved from the card and loaded back onto it,
+    bit-equal; then run_train with a checkpoint directory."""
+    import shutil
+    import torch
+    from repro_torch.ckpt import latest_checkpoint, load_checkpoint, save_checkpoint
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.launch.train import run_train
+    from repro_torch.models.transformer import flatten_params
+    say(f"== 19a. checkpoints: {cfg.name} at full width ({cfg.dtype}) saved "
+        f"from the card and loaded back onto it; run_train with ckpt_dir")
+    shutil.rmtree(P19_CKPT_DIR, ignore_errors=True)
+    flat = flatten_params(params)
+    nbytes = sum(p.numel() * p.element_size() for p in flat.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(P19_CKPT_DIR), 7, params, {"arch": cfg.name})
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, meta = load_checkpoint(path, abstract_params(cfg), device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    back = flatten_params(back)
+    if list(back) != list(flat) or meta != {"step": 7,
+                                            "extra": {"arch": cfg.name}}:
+        raise AssertionError(f"checkpoint: leaves or sidecar differ ({meta})")
+    for k, p in flat.items():
+        if back[k].device != p.device or not torch.equal(back[k], p):
+            raise AssertionError(f"checkpoint leaf {k} differs after the "
+                                 f"round trip")
+    file_gb = Path(path).stat().st_size / 1e9
+    say(f"{cfg.name}: {len(flat)} leaves, {nbytes / 1e9:.3f} GB of params, "
+        f"file {file_gb:.3f} GB; save {t_save:.2f} s "
+        f"({nbytes / 1e9 / t_save:.2f} GB/s), load onto the card "
+        f"{t_load:.2f} s ({nbytes / 1e9 / t_load:.2f} GB/s); every leaf "
+        f"bit-equal")
+    del back
+    shutil.rmtree(P19_CKPT_DIR)
+    losses = run_train("mamba2-1.3b", steps=2, batch=2, seq=64, reduced=True,
+                       ckpt_dir=str(P19_CKPT_DIR), log_every=10, device=dev)
+    path = latest_checkpoint(str(P19_CKPT_DIR))
+    meta = json.loads(Path(path.replace(".npz", ".json")).read_text())
+    want = {"step": 2, "extra": {"arch": "mamba2-1.3b", "loss": losses[-1]}}
+    if meta != want:
+        raise AssertionError(f"run_train's checkpoint sidecar {meta}, "
+                             f"expected {want}")
+    say(f"run_train(mamba2-1.3b, reduced, 2 steps, ckpt_dir) on the card: "
+        f"{Path(path).name} with extra {meta['extra']}")
+    shutil.rmtree(P19_CKPT_DIR)
+    return {"gb": nbytes / 1e9, "save_s": t_save, "load_s": t_load}
+
+
+def phase19b_steps(dev, params, cfg, kernel: str) -> dict:
+    """make_prefill_step / make_serve_step at phase 11's batch x prompt:
+    tokens bit-equal to prefill's / decode_step's argmax on the same
+    weights, one ``kernel`` launch a layer in the prefill step and none in
+    the serve step; the prefill step timed warm with its peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import decode_step, prefill
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    say(f"== 19b. {cfg.name}: make_prefill_step / make_serve_step at "
+        f"{b} x {s} ({cfg.dtype}, a cache of {s + 1})")
+    pre, _ = make_prefill_step(cfg, InputShape("phase19", s + 1, b,
+                                               "prefill"))
+    serve, _ = make_serve_step(cfg, InputShape("phase19", s + 1, b,
+                                               "decode"))
+    toks = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tok1, caches = pre(params, batch)
+    torch.cuda.synchronize()
+    pre_launches = kernels.launch_counts()
+    with torch.no_grad():
+        logits, ref_caches = prefill(params, cfg, batch, max_len=s + 1)
+        want1 = torch.argmax(logits, dim=-1).to(torch.int32)
+    if tok1.dtype != torch.int32 or not torch.equal(tok1, want1):
+        raise AssertionError(f"{cfg.name}: prefill step tokens differ from "
+                             f"prefill's argmax")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tok2, caches = serve(params, tok1, caches)
+    torch.cuda.synchronize()
+    serve_launches = kernels.launch_counts()
+    with torch.no_grad():
+        logits, _ = decode_step(params, cfg, tok1, ref_caches)
+        want2 = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not torch.equal(tok2, want2):
+        raise AssertionError(f"{cfg.name}: serve step tokens differ from "
+                             f"decode_step's argmax")
+    want = dict.fromkeys(pre_launches, 0)
+    if serve_launches != want:
+        raise AssertionError(f"{cfg.name}: serve step launches "
+                             f"{serve_launches}")
+    want[kernel] = cfg.num_layers
+    if pre_launches != want:
+        raise AssertionError(f"{cfg.name}: prefill step launches "
+                             f"{pre_launches}, expected {want}")
+    del caches, ref_caches, logits
+    ms, peak, out = _warm_ms(dev, lambda: pre(params, batch))
+    del out
+    torch.cuda.empty_cache()
+    say(f"{cfg.name}: prefill step tokens {tok1.tolist()} bit-equal "
+        f"to prefill's argmax, serve step {tok2.tolist()} bit-equal to "
+        f"decode_step's; launches: prefill step {pre_launches[kernel]} "
+        f"{kernel}, serve step none; prefill step {ms:.1f} ms warm (median "
+        f"of {P19_STEP_REPS}), peak {peak / 1e9:.2f} GB")
+    return {"ms": ms, "peak": peak, "launches": pre_launches}
+
+
+def phase19d_assigned(dev, params, arch: str, records: dict) -> dict:
+    """One warm step of every assigned pair of ``arch`` that the dry-run
+    marks fits_one_card: wall, peak and the estimate."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.steps import (config_for_shape, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models import init_caches
+    out = {}
+    for name, shape in SHAPES.items():
+        if shape.kind == "train":          # phase 19c reads those records
+            continue
+        rec = records[f"{arch} {name}"]
+        if not rec["fits_one_card"]:
+            continue
+        cfg = config_for_shape(get_config(arch), shape)
+        b, s = shape.global_batch, shape.seq_len
+        g = np.random.default_rng(19)
+        if shape.kind == "decode":
+            step, _ = make_serve_step(cfg, shape)
+            caches = init_caches(cfg, b, s, dev)
+            for c in caches:
+                c["idx"] = s - 1           # the step reads a full cache
+            toks = torch.from_numpy(g.integers(0, cfg.vocab_size, (b,))
+                                    .astype(np.int32)).to(dev)
+            fn = lambda: step(params, toks, caches)       # noqa: E731
+        else:
+            step, _ = make_prefill_step(cfg, shape)
+            toks = torch.from_numpy(g.integers(0, cfg.vocab_size, (b, s))
+                                    .astype(np.int32)).to(dev)
+            fn = lambda: step(params, {"tokens": toks})   # noqa: E731
+        try:
+            ms, peak, res = _warm_ms(dev, fn, reps=1)
+        except torch.cuda.OutOfMemoryError as e:
+            raise AssertionError(f"{arch} {name}: the dry-run marks it as "
+                                 f"fitting one card, and it ran out of "
+                                 f"memory: {e}") from e
+        del res, fn
+        torch.cuda.empty_cache()
+        est = rec["peak_memory_per_device"]
+        bound = max(rec["t_memory_s"], rec["t_compute_s"])
+        say(f"{arch} {name} ({shape.kind}, batch {b}, seq {s}"
+            f"{', window %d' % cfg.sliding_window if cfg.sliding_window else ''}"
+            f"): one warm step {ms:.2f} ms, peak {peak / 1e9:.2f} GB "
+            f"(max_memory_allocated), dry-run estimate {est / 1e9:.2f} GB "
+            f"({peak / est - 1:+.1%}); dry-run t_memory (least bytes "
+            f"{rec['bytes_per_device'] / 1e9:.2f} GB) "
+            f"{rec['t_memory_s'] * 1e3:.2f} ms, t_compute "
+            f"{rec['t_compute_s'] * 1e3:.3f} ms: the step at "
+            f"{ms * 1e-3 / bound:.1f}x its bound; the eager program's "
+            f"traffic {rec['eager_bytes_per_device'] / 1e9:.1f} GB")
+        out[name] = {"ms": ms, "peak": peak, "estimate": est,
+                     "bound_ms": bound * 1e3}
+    return out
+
+
+def _say_dryrun_vs_card(what: str, rec: dict, ms: float, peak: float,
+                        card: str, extra: str = "") -> dict:
+    tflops = rec["flops_per_device"] / (ms * 1e-3) / 1e12
+    gap = peak / rec["peak_memory_per_device"] - 1
+    say(f"{what}: traced {rec['flops_per_device'] / 1e12:.2f} TFLOP (kernel "
+        f"ops {rec['kernel_launches']}, their FLOPs "
+        f"{ {k: round(v / 1e9, 1) for k, v in rec['kernel_flops'].items()} } "
+        f"GFLOP; model 2/6·N·D {rec['model_flops'] / 1e12:.2f} TFLOP) over "
+        f"{ms:.1f} ms measured = {tflops:.1f} TFLOP/s, {tflops / 989:.1%} of "
+        f"989 TFLOP/s bf16{extra}; peak: dry-run estimate "
+        f"{rec['peak_memory_per_device'] / 1e9:.2f} GB, measured "
+        f"{peak / 1e9:.2f} GB ({gap:+.1%}); traced in {rec['trace_s']:.1f} s "
+        f"({rec['nodes']} nodes, fake {rec['trace_device']}) ({card})")
+    return {"tflops": tflops, "share": tflops / 989, "peak_gap": gap}
+
+
+def phase19(dev, card: str, p16f: dict) -> dict:
+    """The launch tooling on the card: (a) checkpoints, (b) the prefill and
+    serve steps at full width, (c) the dry-run against the card, (d) the
+    assigned shapes that the dry-run says fit one card."""
+    import gc
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import init_model
+    from repro_torch.rng import PRNGKey
+    arch_shapes = {f"{a} {s}" for a in ("qwen3-14b", "mamba2-1.3b")
+                   for s in SHAPES if s != "train_4k"}
+    out = {"steps": {}, "assigned": {}}
+    for arch, kernel in (("mamba2-1.3b", "ssd_scan"),
+                         ("qwen3-14b", "flash_attention")):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_model(PRNGKey(0, dev), cfg, device=dev)
+        torch.cuda.synchronize()
+        say(f"== 19. {arch}: full-width weights drawn in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if arch == "mamba2-1.3b":
+            out["ckpt"] = phase19a_checkpoints(dev, params, cfg)
+        out["steps"][arch] = phase19b_steps(dev, params, cfg, kernel)
+        records = dryrun_records(arch_shapes)
+        fits = [s for s in SHAPES if s != "train_4k"
+                and records[f"{arch} {s}"]["fits_one_card"]]
+        say(f"== 19d. {arch}: the assigned prefill and decode pairs the "
+            f"dry-run marks fits_one_card: {fits}")
+        out["assigned"][arch] = phase19d_assigned(dev, params, arch, records)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    say("== 19c. the dry-run against the card")
+    whats = {f"{a} {k}" for a in ("qwen3-14b", "mamba2-1.3b")
+             for k in ("prefill step", "train step")}
+    records = dryrun_records(whats)
+    for arch in ("qwen3-14b", "mamba2-1.3b"):
+        s = out["steps"][arch]
+        rec = records[f"{arch} prefill step"]
+        if rec["kernel_launches"] != s["launches"]:
+            raise AssertionError(f"{arch}: the traced prefill step's kernel "
+                                 f"ops {rec['kernel_launches']} differ from "
+                                 f"the card's launches {s['launches']}")
+        out[f"{arch} prefill"] = _say_dryrun_vs_card(
+            f"{arch} prefill step ({SERVE_BATCH} x {SERVE_PROMPT})", rec,
+            s["ms"], s["peak"], card)
+    for arch in ("qwen3-14b", "mamba2-1.3b"):
+        r = p16f[arch]
+        rec = records[f"{arch} train step"]
+        launches = {k: int(round(r["launches"][k]))
+                    for k in rec["kernel_launches"]}
+        if rec["kernel_launches"] != launches:
+            raise AssertionError(f"{arch}: the traced train step's kernel ops "
+                                 f"{rec['kernel_launches']} differ from 16f's "
+                                 f"launches a step {launches}")
+        if r["batch"] != TRAIN_BATCH:
+            say(f"{arch}: 16f ran batch {r['batch']}, the trace batch "
+                f"{TRAIN_BATCH}: not compared")
+            continue
+        step_ms = statistics.median(r["step_s"][1:]) * 1e3
+        out[f"{arch} train"] = _say_dryrun_vs_card(
+            f"{arch} train step (16f, {TRAIN_BATCH} x {TRAIN_SEQ}"
+            f"{', %d layers' % TRAIN_QWEN_LAYERS if arch == 'qwen3-14b' else ''})",
+            rec, step_ms, r["peak"], card,
+            extra=f"; without the batch's token draw ({r['draw_s'] * 1e3:.1f}"
+                  f" ms) {rec['flops_per_device'] / (step_ms * 1e-3 - r['draw_s']) / 1e12:.1f}"
+                  f" TFLOP/s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if os.environ.get("REPRO_COMPUTE_BACKEND"):
+        # Any value would send the FL dispatch to the reference formulas (or
+        # raise), and the run would skip the kernels it checks.
+        print("chip_smoke: REPRO_COMPUTE_BACKEND is set; unset it",
+              file=sys.stderr)
+        return 3
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
               file=sys.stderr)
@@ -3066,6 +3471,11 @@ def main() -> int:
     say("== 1. card")
     card = gpu_name_and_power()
     say(card)
+
+    atexit.register(stop_background)
+    start_dryrun()
+    say(f"phase 19's dry-run traces started in the background: "
+        f"{DRYRUN_LOG.relative_to(ROOT)}")
 
     say("== 2. build")
     t0 = time.time()
@@ -3327,6 +3737,8 @@ def main() -> int:
     phase18c_validate(dev, card)
     phase18d_extension(dev, card)
     phase18e_refusal(dev, card)
+    phase19(dev, card, p16f)
+    stop_background()
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [

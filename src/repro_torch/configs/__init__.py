@@ -12,6 +12,7 @@ from typing import List
 
 from ..models.config import ModelConfig
 from .paper_cnn import CONFIG, FL, FLConfig, PaperCNNConfig
+from .shapes import SHAPES, InputShape
 
 _ARCH_MODULES = {
     "qwen3-14b": "qwen3_14b",
@@ -44,5 +45,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "CONFIG", "FL", "FLConfig", "ModelConfig",
-           "PaperCNNConfig", "get_config"]
+__all__ = ["ARCH_IDS", "CONFIG", "FL", "FLConfig", "InputShape",
+           "ModelConfig", "PaperCNNConfig", "SHAPES", "get_config"]

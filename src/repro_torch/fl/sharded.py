@@ -71,6 +71,23 @@ def _static_budget(select_fn: SelectFn, n_select: int, num_clients: int,
     return selection_budget(r, n_select, num_clients)
 
 
+def round_plan(select_fn: SelectFn, n_select: int, num_clients: int,
+               num_groups: int, num_classes: int, mode: str = "gather"
+               ) -> Dict[str, Any]:
+    """The round's static facts for G = ``num_groups`` ranks, read without a
+    process group: the strategy's budget B, the ``slots`` a rank trains
+    (B/G rounded up), the padded gather width ``budget_padded``,
+    ``trained_per_round`` (B_pad gathered, or all N masked) and
+    ``flop_sparsity``, the share of clients that spend no FLOPs."""
+    budget = _static_budget(select_fn, n_select, num_clients, num_classes)
+    slots = max(1, -(-budget // num_groups))     # selected clients a rank
+    budget_padded = slots * num_groups           # static gather width <= N
+    trained = budget_padded if mode == "gather" else num_clients
+    return {"budget": budget, "slots": slots, "budget_padded": budget_padded,
+            "trained_per_round": trained,
+            "flop_sparsity": 1.0 - trained / num_clients}
+
+
 def _slot_bcast(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     """A (S,) per-slot vector shaped against a (S, ...) stacked leaf."""
     return v.reshape(v.shape + (1,) * (leaf.dim() - 1))
@@ -153,10 +170,11 @@ def make_sharded_fl_round(group, local_step: Callable[..., Params],
     per_group = n_clients // n_groups
     select_fn = get_strategy(strategy) if isinstance(strategy, str) else strategy
 
-    budget = _static_budget(select_fn, n_select, n_clients, num_classes)
-    slots = max(1, -(-budget // n_groups))       # selected clients a rank
-    budget_padded = slots * n_groups             # static gather width <= N
-    trained_per_round = budget_padded if mode == "gather" else n_clients
+    plan = round_plan(select_fn, n_select, n_clients, n_groups, num_classes,
+                      mode)
+    budget, slots = plan["budget"], plan["slots"]
+    budget_padded = plan["budget_padded"]
+    trained_per_round = plan["trained_per_round"]
     dt = agg_dtype or torch.float32
 
     def deltas(new: Params, base: Params) -> Params:
@@ -278,7 +296,7 @@ def make_sharded_fl_round(group, local_step: Callable[..., Params],
     round_fn.budget = budget
     round_fn.budget_padded = budget_padded
     round_fn.trained_per_round = trained_per_round
-    round_fn.flop_sparsity = 1.0 - trained_per_round / n_clients
+    round_fn.flop_sparsity = plan["flop_sparsity"]
     round_fn.mode = mode
     round_fn.exchange = exchange if mode == "gather" else None
     round_fn.n_clusters = n_clusters

@@ -7,7 +7,14 @@ through the kernels' plain versions when they lie on the CPU: the device of
 the tensors decides, nothing else does.  ``backend="reference"`` instead
 computes the reference's own formulas (``core.label_stats.histogram``,
 ``core.aggregation.masked_mean``) on any device, which is what the kernels
-are compared with.
+are compared with.  ``backend="auto"`` (the default) reads the
+``REPRO_COMPUTE_BACKEND`` environment variable at each call, as the
+reference does: unset, empty or ``auto`` takes the device's path,
+``reference`` sends every dispatch on CPU tensors to the reference formulas
+and raises on CUDA tensors (nothing on the card falls back to a plain
+version unasked; the explicit ``backend="reference"`` keyword is the way to
+compare there), and any other value raises (the reference's ``pallas`` and
+``pallas_interpret`` name TPU kernels the port does not have).
 
 Numerics:
 
@@ -22,6 +29,7 @@ Numerics:
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,13 +41,26 @@ from .weighted_agg.weighted_agg import weighted_agg_leaves
 
 Params = Dict[str, torch.Tensor]
 BACKENDS = ("auto", "reference")
+ENV_VAR = "REPRO_COMPUTE_BACKEND"
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(backend: str) -> str:
+def _check(backend: str, device: torch.device) -> str:
+    """``backend`` resolved for tensors on ``device``: ``auto`` becomes
+    ``ENV_VAR``'s value when that is set and not empty, and that value may
+    be ``reference`` only off the card."""
     if backend not in BACKENDS:
         raise ValueError(f"compute backend must be one of {BACKENDS}; "
                          f"got {backend!r}")
+    if backend == "auto":
+        backend = os.environ.get(ENV_VAR, "") or "auto"
+        if backend not in BACKENDS:
+            raise ValueError(f"{ENV_VAR} must be one of {BACKENDS} or unset; "
+                             f"got {backend!r}")
+        if backend == "reference" and device.type == "cuda":
+            raise RuntimeError(
+                f"{ENV_VAR}=reference would send CUDA tensors past their "
+                f"kernels; unset it, or pass backend='reference' to compare")
     return backend
 
 
@@ -48,7 +69,7 @@ def client_histograms(labels: torch.Tensor, num_classes: int,
                       backend: str = "auto") -> torch.Tensor:
     """(…, n) integer labels -> (…, C) float32 counts.  Out-of-range labels
     (-1 padding) count toward no bin; ``valid`` masks entries on top."""
-    if _check(backend) == "reference":
+    if _check(backend, labels.device) == "reference":
         return histogram(labels, num_classes, valid)
     labels = labels.to(torch.int32)
     n = labels.shape[-1]
@@ -104,7 +125,7 @@ def masked_weighted_mean(stacked: Params, mask: torch.Tensor,
     each leaf in float32 and divides by Σw in float32 before rounding to the
     leaf's dtype, as the reference's kernel path does, in one launch for the
     whole tree and every trial."""
-    if _check(backend) == "reference":
+    if _check(backend, mask.device) == "reference":
         if mask.dim() == 2:
             return _per_trial(masked_mean, stacked, mask, weights)
         return masked_mean(stacked, mask, weights)
@@ -121,7 +142,7 @@ def weighted_sum_tree(tree: Params, weights: torch.Tensor, *,
     keeps its dtype: the reference reduces in the leaf's dtype, the kernel
     accumulates in float32 and rounds once."""
     w = weights.to(torch.float32)
-    if _check(backend) == "reference":
+    if _check(backend, w.device) == "reference":
         if w.dim() == 2:
             return _per_trial(
                 lambda t, v: weighted_sum_tree(t, v, backend="reference"),

@@ -1,22 +1,27 @@
-"""The train step on one card: microbatch gradient accumulation in float32,
-``clip_by_global_norm(1.0)`` and ``adamw(3e-4)``, as the reference's
-``repro/launch/steps.py:make_train_step`` builds it.
+"""Step builders of the launchers and the dry-run, as the reference's
+``repro/launch/steps.py`` builds them: the train step (microbatch gradient
+accumulation in float32, ``clip_by_global_norm(1.0)``, ``adamw(3e-4)``), the
+prefill step (the prompt -> argmax tokens and the caches) and the serve step
+(one token against resident caches).
 
 The reference returns a function for ``jax.jit`` with its mesh shardings;
-the port runs eagerly on one card, so there is no mesh, no sharding rule and
-no ``jit``.  Its prefill and serve steps wait for the tooling slice (ROADMAP
-Queue 1 item 15); ``launch.serve.run_serve`` serves today.
+the port runs eagerly on one card, so there is no mesh, no sharding and no
+``jit``.  ``make_prefill_step`` and ``make_serve_step`` return the step and
+its abstract arguments (``meta``-device tensors from ``data.specs``), which
+``launch.dryrun`` traces; on real tensors the steps launch the kernels.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
 from ..configs.shapes import InputShape
-from ..models import init_model, loss_fn
+from ..data.specs import input_specs
+from ..models import decode_step, init_model, loss_fn, prefill
 from ..models.config import ModelConfig
 from ..models.transformer import flatten_params, unflatten_params
 from ..optim import (OptState, Optimizer, adamw, apply_updates,
@@ -25,11 +30,16 @@ from ..optim import (OptState, Optimizer, adamw, apply_updates,
 Params = Dict[str, Any]
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """``cfg``'s nested params on the ``meta`` device: shapes and dtypes,
+    nothing allocated or drawn."""
+    return init_model(None, cfg, device="meta")
+
+
 @functools.lru_cache(maxsize=None)
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters of ``cfg``'s model, from its shapes alone (the init runs on
-    the ``meta`` device, which allocates and draws nothing)."""
-    params = flatten_params(init_model(None, cfg, device="meta"))
+    """Parameters of ``cfg``'s model, from :func:`abstract_params`."""
+    params = flatten_params(abstract_params(cfg))
     return sum(math.prod(p.shape) for p in params.values())
 
 
@@ -37,6 +47,15 @@ def opt_state_dtype(cfg: ModelConfig) -> torch.dtype:
     """bfloat16 moments above 10 B parameters (so that the optimizer state of
     the largest configs fits), float32 otherwise."""
     return torch.bfloat16 if param_count(cfg) > 10e9 else torch.float32
+
+
+def abstract_opt_state(cfg: ModelConfig, params: Params) -> OptState:
+    """The train step's AdamW state for ``params`` on the ``meta`` device:
+    moments in :func:`opt_state_dtype` over the flat params, step 0."""
+    dt = opt_state_dtype(cfg)
+    moments = {k: torch.empty(p.shape, dtype=dt, device="meta")
+               for k, p in flatten_params(params).items()}
+    return OptState(step=0, mu=moments, nu=dict(moments))
 
 
 def default_microbatches(cfg: ModelConfig, shape: InputShape) -> int:
@@ -98,3 +117,59 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
                 {"loss": loss, "grad_norm": gnorm})
 
     return train_step, opt
+
+
+def make_prefill_step(cfg: ModelConfig, shape: InputShape
+                      ) -> Tuple[Callable, Tuple[Any, ...]]:
+    """-> (prefill_step, (params, batch) as ``meta`` tensors):
+    ``prefill_step(params, batch) -> (tokens, caches)``, the int32 argmax of
+    the last position's logits (B,) and the caches of ``shape.seq_len``
+    that ``prefill`` fills (one ``flash_attention`` or ``ssd_scan`` launch a
+    layer on the card).  Runs without autograd."""
+    batch_specs, _ = input_specs(cfg, shape)
+
+    def prefill_step(params: Params, batch: Dict[str, torch.Tensor]):
+        with torch.no_grad():
+            logits, caches = prefill(params, cfg, batch,
+                                     max_len=shape.seq_len)
+            return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+    return prefill_step, (abstract_params(cfg), batch_specs)
+
+
+def make_serve_step(cfg: ModelConfig, shape: InputShape
+                    ) -> Tuple[Callable, Tuple[Any, ...]]:
+    """-> (serve_step, (params, tokens, caches) as ``meta`` tensors): ONE
+    new token against caches of ``shape.seq_len``.  ``serve_step(params,
+    tokens, caches) -> (next_tokens, caches)``, int32 (B,) argmax tokens;
+    the caches are updated in place (``decode_step``), and no kernel
+    launches (decode is plain PyTorch, as the reference computes it).  The
+    reference's ``kv_policy`` picks the caches' mesh sharding; one card
+    places nothing, so it lives only in ``sharding.make_rules``."""
+    specs, _ = input_specs(cfg, shape)
+
+    def serve_step(params: Params, tokens: torch.Tensor,
+                   caches: List[Dict[str, Any]]):
+        with torch.no_grad():
+            logits, new_caches = decode_step(params, cfg, tokens, caches)
+            return torch.argmax(logits, dim=-1).to(torch.int32), new_caches
+
+    return serve_step, (abstract_params(cfg), specs["tokens"],
+                        specs["caches"])
+
+
+def arch_shape_applicable(cfg: ModelConfig, shape: InputShape
+                          ) -> Tuple[bool, str]:
+    """long_500k needs sub-quadratic attention: SSM and hybrid archs run
+    natively, pure attention archs run the sliding-window variant."""
+    if shape.name == "long_500k" and cfg.arch_type not in ("ssm", "hybrid"):
+        return True, "sliding_window=4096 variant (sub-quadratic carve-in)"
+    return True, ""
+
+
+def config_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """``cfg`` with ``sliding_window=4096`` at long_500k for attention
+    archs, as :func:`arch_shape_applicable` notes; else ``cfg``."""
+    if shape.name == "long_500k" and cfg.arch_type not in ("ssm", "hybrid"):
+        return dataclasses.replace(cfg, sliding_window=4096)
+    return cfg

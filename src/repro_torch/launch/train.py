@@ -9,8 +9,10 @@ step i's batch from ``fold_in(PRNGKey(0), i)`` (domains by ``randint``,
 tokens from ``TokenDataset``), bit-equal to the reference's draws, and the
 train step of ``launch.steps``.  ``num_layers`` is the port's one addition:
 a depth cut for a full-width config whose weights, gradients and optimizer
-state do not fit one card; it changes no width.  Checkpoints wait for the
-tooling slice (ROADMAP Queue 1 item 15).
+state do not fit one card; it changes no width.  With ``ckpt_dir`` the
+final params are saved there as the reference saves them
+(``ckpt/checkpoint.py``: ``ckpt_{steps:08d}.npz``, ``extra`` holding the
+arch and the last loss).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import rng
+from ..ckpt import save_checkpoint
 from ..configs import ARCH_IDS, get_config
 from ..configs.shapes import InputShape
 from ..data import TokenDataset
@@ -56,11 +59,8 @@ def run_train(arch: str, steps: int, batch: int, seq: int, reduced: bool,
     the config's smoke variant with a 512-token vocabulary; ``num_layers``
     cuts the depth (the port's addition, see the module note).  A
     ``step_times`` list receives each step's wall seconds, the device
-    synchronised at both ends."""
-    if ckpt_dir:
-        raise NotImplementedError("checkpoints are not ported yet: "
-                                  "ckpt/checkpoint.py comes with ROADMAP "
-                                  "Queue 1 item 15")
+    synchronised at both ends.  ``ckpt_dir`` receives the final params
+    (the port's nested tree) at step ``steps``."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -86,6 +86,9 @@ def run_train(arch: str, steps: int, batch: int, seq: int, reduced: bool,
             print(f"step {i:4d} loss {losses[-1]:.4f} "
                   f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)",
                   flush=True)
+    if ckpt_dir:
+        save_checkpoint(ckpt_dir, steps, params,
+                        {"arch": arch, "loss": losses[-1]})
     return losses
 
 

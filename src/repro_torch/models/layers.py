@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import rng
+from .. import sharding as sh
 from ..kernels.flash_attention import gqa_flash_attention
 from ..kernels.ssd_scan import ssd_apply
 from .config import ModelConfig
@@ -208,6 +209,14 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
             "idx": 0}
 
 
+def kv_cache_specs() -> Dict[str, tuple]:
+    """The logical axes of :func:`init_kv_cache`'s leaves; ``idx`` (a host
+    int) is a scalar, ``()``."""
+    return {"k": (sh.BATCH, sh.KV_SEQ, sh.KV_HEADS, None),
+            "v": (sh.BATCH, sh.KV_SEQ, sh.KV_HEADS, None),
+            "idx": ()}
+
+
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     mode: str = "train", cache: Optional[Cache] = None,
                     window: int = 0
@@ -331,6 +340,13 @@ def init_ssm_cache(cfg: ModelConfig, batch: int,
             "state": torch.zeros((batch, h, cfg.ssm_head_dim, n),
                                  dtype=torch.float32, device=device),
             "idx": 0}
+
+
+def ssm_cache_specs() -> Dict[str, tuple]:
+    """The logical axes of :func:`init_ssm_cache`'s leaves."""
+    return {"conv": (sh.BATCH, None, sh.SSM_INNER),
+            "state": (sh.BATCH, None, None, sh.SSM_STATE),
+            "idx": ()}
 
 
 def _mamba_split(cfg: ModelConfig, zxbcdt: torch.Tensor):

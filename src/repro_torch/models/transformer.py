@@ -102,6 +102,11 @@ def block_cache_init(cfg: ModelConfig, kind: Kind, batch: int, max_len: int,
     return L.init_ssm_cache(cfg, batch, device)
 
 
+def block_cache_specs(kind: Kind) -> Dict:
+    """The logical axes of a block's cache (:func:`block_cache_init`)."""
+    return L.kv_cache_specs() if kind[0] == "attn" else L.ssm_cache_specs()
+
+
 # ---------------------------------------------------------------------------
 # The stack
 # ---------------------------------------------------------------------------
@@ -155,6 +160,13 @@ def stack_caches_init(cfg: ModelConfig, batch: int, max_len: int,
                       device: torch.device) -> List[Dict]:
     return [block_cache_init(cfg, kind, batch, max_len, device)
             for kind in cfg.layer_kinds()]
+
+
+def stack_cache_specs(cfg: ModelConfig) -> List[Dict]:
+    """The logical axes of :func:`stack_caches_init`'s caches, a list a
+    layer.  The reference's stacked caches carry a leading repeat axis
+    (logical ``None``); the port's per-layer list has none."""
+    return [block_cache_specs(kind) for kind in cfg.layer_kinds()]
 
 
 def stack_apply_cached(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -307,7 +319,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return L.unembed_apply(params["embed"], x)[:, 0], new_caches
 
 
-__all__ = ["block_apply", "block_cache_init", "block_init", "decode_step",
+__all__ = ["block_apply", "block_cache_init", "block_cache_specs",
+           "block_init", "decode_step",
            "flatten_params", "forward", "init_caches", "init_model",
            "loss_fn", "prefill", "stack_apply_cached", "stack_apply_train",
-           "stack_init", "stack_plan", "token_ce", "unflatten_params"]
+           "stack_cache_specs", "stack_init", "stack_plan", "token_ce",
+           "unflatten_params"]

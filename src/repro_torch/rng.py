@@ -47,8 +47,11 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     broadcast together.  Returns the two output words.  The rounds update
     two buffers in place: a draw of millions of elements then makes no
     new allocation a step."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    if k0.device.type == "meta":      # shapes only (``init_model`` on meta)
+        out = torch.empty(shape, dtype=torch.int64, device="meta")
+        return out, out.clone()
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = ((x0 + ks[0]) & _MASK).expand(shape).contiguous()
     x1 = ((x1 + ks[1]) & _MASK).expand(shape).contiguous()
     tmp = torch.empty_like(x1)

@@ -410,3 +410,79 @@ def test_cpu_tensors_launch_no_kernel():
                                         "ssd_scan": 0}
     with pytest.raises(ValueError):
         tdispatch.client_histograms(_t(labels), 3, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# REPRO_COMPUTE_BACKEND (the reference's process-wide override of "auto")
+# ---------------------------------------------------------------------------
+
+def _reference_calls(monkeypatch):
+    """Counts of the dispatch's calls into the reference formulas."""
+    calls = {"histogram": 0, "masked_mean": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        monkeypatch.setattr(tdispatch, name, wrapped)
+
+    spy("histogram", tdispatch.histogram)
+    spy("masked_mean", tdispatch.masked_mean)
+    return calls
+
+
+def _dispatch_both(labels, valid):
+    tree = {k: _t(v) for k, v in _leaves(5, 3).items()}
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0])
+    return (tdispatch.client_histograms(_t(labels), 10, _t(valid)),
+            tdispatch.masked_weighted_mean(tree, mask))
+
+
+def test_compute_backend_unset_takes_the_device_path(monkeypatch):
+    monkeypatch.delenv(tdispatch.ENV_VAR, raising=False)
+    calls = _reference_calls(monkeypatch)
+    _dispatch_both(*_labels(4, 30, 10, 0))
+    monkeypatch.setenv(tdispatch.ENV_VAR, "auto")
+    _dispatch_both(*_labels(4, 30, 10, 0))
+    assert calls == {"histogram": 0, "masked_mean": 0}
+
+
+def test_compute_backend_reference_sends_every_dispatch_there(monkeypatch):
+    labels, valid = _labels(4, 30, 10, 1)
+    monkeypatch.delenv(tdispatch.ENV_VAR, raising=False)
+    want_h, want_m = _dispatch_both(labels, valid)
+    monkeypatch.setenv(tdispatch.ENV_VAR, "reference")
+    calls = _reference_calls(monkeypatch)
+    got_h, got_m = _dispatch_both(labels, valid)
+    assert calls == {"histogram": 1, "masked_mean": 1}
+    assert torch.equal(got_h, want_h)
+    for k in want_m:
+        torch.testing.assert_close(got_m[k], want_m[k], rtol=1e-6, atol=1e-6)
+
+
+def test_compute_backend_reference_raises_on_cuda_tensors(monkeypatch):
+    """The variable never sends card tensors past their kernels: every
+    dispatch raises on (fake) CUDA tensors before it computes anything."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    monkeypatch.setenv(tdispatch.ENV_VAR, "reference")
+    calls = _reference_calls(monkeypatch)
+    with FakeTensorMode():
+        labels = torch.zeros(2, 8, dtype=torch.int32, device="cuda")
+        tree = {"a": torch.ones(2, 5, device="cuda")}
+        w = torch.ones(2, device="cuda")
+        for call in (lambda: tdispatch.client_histograms(labels, 10),
+                     lambda: tdispatch.masked_weighted_mean(tree, w),
+                     lambda: tdispatch.weighted_sum_tree(tree, w)):
+            with pytest.raises(RuntimeError, match=tdispatch.ENV_VAR):
+                call()
+    assert calls == {"histogram": 0, "masked_mean": 0}
+
+
+@pytest.mark.parametrize("value", ["pallas", "pallas_interpret", "cuda"])
+def test_compute_backend_other_values_raise(monkeypatch, value):
+    monkeypatch.setenv(tdispatch.ENV_VAR, value)
+    labels, valid = _labels(2, 8, 10, 2)
+    with pytest.raises(ValueError, match=tdispatch.ENV_VAR):
+        tdispatch.client_histograms(_t(labels), 10, _t(valid))
+    # An explicit backend does not read the variable.
+    tdispatch.client_histograms(_t(labels), 10, _t(valid), backend="reference")

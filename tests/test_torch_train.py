@@ -36,6 +36,7 @@ the gap measured on this CPU when it was set:
   2.6e-4 measured: the two stacks round bf16 products at other points).
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -486,9 +487,13 @@ def test_train_cli_runs_on_the_cpu():
     assert "final loss" in out.stdout
 
 
-def test_run_train_checkpoints_and_device_policy():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_train("qwen3-14b", 1, 1, 8, True, ckpt_dir="x", device="cpu")
+def test_run_train_checkpoints_and_device_policy(tmp_path):
+    losses = run_train("qwen3-14b", 1, 1, 8, True, ckpt_dir=str(tmp_path),
+                       device="cpu")
+    meta = json.loads((tmp_path / "ckpt_00000001.json").read_text())
+    assert meta == {"step": 1, "extra": {"arch": "qwen3-14b",
+                                         "loss": losses[-1]}}
+    assert (tmp_path / "ckpt_00000001.npz").is_file()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_train("qwen3-14b", 1, 1, 8, True)
