@@ -40,16 +40,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    qwen3-14b's prefill shape (BH=160, S=1024, D=128, bf16), causal and with
    window=256, at an unaligned float32 shape (8, 77, 64), at the bf16
    kernel's edges ((8, 77, 64); (8, 1000, 128) causal and with window=256;
-   both shapes without the causal mask),
-   and through the GQA wrapper at (4, 1024, 40, 128) x (4, 1024, 8, 128) and
-   (2, 333, 40, 128) x (2, 333, 8, 128);
+   both shapes without the causal mask), at head_dim 192 (nemotron-4-340b)
+   in both dtypes (BH=48, S=1024, causal and window=256; S=1000, 333 and
+   77, with and without the mask), and through the GQA wrapper at
+   (4, 1024, 40, 128) x (4, 1024, 8, 128), (2, 333, 40, 128) x
+   (2, 333, 8, 128), nemotron's group of 12 at (4, 1024, 96, 192) and
+   (2, 333, 96, 192) (and float32 at S=333), arctic-480b's group of 7 at
+   (4, 1024, 56, 128) (and float32 at S=333);
 9. hold ``ssd_scan`` (``ssd_apply``) against its plain version on the card at
    mamba2-1.3b's prefill shape (b=4, S=1024, H=64, P=64, G=1, N=128), at
-   reduced shapes and on a long, strongly decaying sequence (S=2048, dt up
-   to 10, A near -10);
-10. serve both archs at ``reduced(dtype="float32")`` on the card and on the
-    CPU from the same weights and tokens, TF32 off: prefill logits, every
-    cache and every decode step's logits within ``SERVE_TOL``;
+   jamba-v0.1-52b's (4, 1024, 128, 64, 1, 16), at reduced shapes and on a
+   long, strongly decaying sequence (S=2048, dt up to 10, A near -10);
+10. serve every arch of ``ARCH_IDS`` (the eight decoder-only archs) at
+    ``reduced(dtype="float32")`` on the card and on the CPU from the same
+    weights and tokens, TF32 off: one ``flash_attention`` launch an
+    attention layer and one ``ssd_scan`` a Mamba layer, prefill logits,
+    every cache and every decode step's logits within ``SERVE_TOL``;
 11. the serving main path: ``run_serve(arch, batch=4, prompt_len=1024,
     gen=16, reduced=False)`` for qwen3-14b, then for mamba2-1.3b, with the
     launch counts set to 0 just before and read just after (40
@@ -60,7 +66,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``SELF_TOL_F32``;
 12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes, the
     forward in turns without and with the row logsumexp it writes for the
-    backward (output bit-identical);
+    backward (output bit-identical); then the bf16 forward at
+    nemotron-4-340b's prefill (4, 1024, 96/8, 192) and ``ssd_scan`` at
+    jamba-v0.1-52b's, each beside its bound, its plain version and (for
+    attention) SDPA;
 13. the grid engine (``run(ExperimentSpec(engine="sim"))``), in four parts:
     (a) ``repro_torch.rng`` on the card against threefry known answers
     taken from JAX (bits, keys and uniforms bit-equal, normals within
@@ -161,6 +170,22 @@ Phases, in order; any failure raises and the script exits non-zero:
     out-of-memory there fails the phase.  The train_4k pairs are not
     traced here (5-10 minutes of host CPU each, to read that they do not
     fit): ``python -m repro_torch.launch.dryrun --all`` records them.
+20. the arch zoo at full width in bf16 with weights from a seed, each arch
+    cut in depth where its weights do not fit the card (``ZOO_LAYERS``:
+    qwen2-72b 8 layers, nemotron-4-340b 2, arctic-480b 1, jamba-v0.1-52b
+    8 = one period of its pattern; minitron-4b and granite-moe-1b-a400m
+    whole), one at a time, each freed before the next: ``run_serve(batch=4,
+    prompt_len=1024, gen=16, num_layers=...)`` with capacity routing, its
+    prefill and decode times, peak memory and launches (one
+    ``flash_attention`` an attention layer and one ``ssd_scan`` a Mamba
+    layer in the prefill, none in decode); then prefill ≡ forward and one
+    decode step ≡ forward on seed-11 weights and a 200-token prompt, the
+    MoE archs with ``moe_dropless`` (capacity routing drops other
+    assignments in a decode step than in a forward, by design), held to
+    ``SELF_TOL_BF16``; then ``run_train`` of granite-moe-1b-a400m at full
+    width and depth, 5 steps of 4 x 1024: finite losses, step time,
+    tokens/s, peak, and one ``flash_attention`` and one
+    ``flash_attention_bwd`` launch an attention layer a step.
 
 Without a CUDA device, without the checkout's ``src/repro_torch`` beside
 this file, or with ``REPRO_COMPUTE_BACKEND`` set, the script exits non-zero
@@ -172,11 +197,13 @@ phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
 ``async_launches`` and ``population_*``; ``weighted_agg``'s also phase 13's
 ``trial_axis_*``, phase 14's ``clustered_*`` and phase 15's ``async_*``;
 ``ssd_scan``'s phase 16's ``train_launches`` and ``backward_*``;
-``flash_attention``'s phase 12's ``lse_ms``; the backward kernels
+``flash_attention``'s phase 12's ``lse_ms``, its ``d192_*`` times at
+nemotron-4-340b's shape and phase 20's ``zoo_launches``; ``ssd_scan``'s
+``jamba_*`` times and phase 20's ``jamba_launches``; the backward kernels
 ``flash_attention_bwd``, its ``launches`` those of phase 16f's qwen3-14b
-run, ``fl_launches`` phase 16e's sim run and ``f32_pair_ms`` the float32
-pair at the same shape); the last line is ``{"ok": true, "device":
-{...}}``.
+run, ``fl_launches`` phase 16e's sim run, ``zoo_train_launches`` phase
+20's granite-moe run and ``f32_pair_ms`` the float32 pair at the same
+shape); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -235,6 +262,39 @@ SSD_TOL = 1e-4
 # that holds the port to the reference on the CPU (tests/test_torch_lm.py);
 # cuBLAS, the kernels and the CPU's BLAS sum in other orders (~1e-6).
 SERVE_TOL = 2e-4
+# Phase 20: the six archs of the arch zoo at full width in bf16, their depth
+# cut (num_layers) where the weights do not fit the card (PERF.md §4; None:
+# full depth), and the one trained at full width and depth.
+ZOO_LAYERS = {"minitron-4b": None, "granite-moe-1b-a400m": None,
+              "qwen2-72b": 8, "nemotron-4-340b": 2, "arctic-480b": 1,
+              "jamba-v0.1-52b": 8}
+ZOO_TRAIN = "granite-moe-1b-a400m"
+# Phase 20's decode ≡ forward checks, as phase 11's below (max |diff| / (1
+# + |forward|) of the logits, prompt 200, seed 11), the MoE archs with
+# moe_dropless on the same weights: capacity routing drops other
+# assignments in a 2-token decode step than in a 402-token forward, by
+# design.  Every arch in bf16; the MoE archs also in float32 on the same
+# weights cast up (TF32 off, held to SELF_TOL_F32), where a fault of the
+# MoE shows: in bf16 a call's
+# row count changes cuBLAS's rounding of the hidden states by an ulp, and
+# where two experts' router probabilities lie that close, the token routes
+# to another expert.  granite-moe-1b-a400m (24 MoE layers, top 8 of 32)
+# meets such near-ties in every call, so its bf16 gaps are of the logits'
+# own size and have no limit; the other limits are set from the sound
+# readings of scripts/torch_serve_drift.py --zoo on H100 80GB HBM3 (PERF.md
+# §6), above which its faults lie.
+ZOO_SELF_DTYPES = {"minitron-4b": ("bfloat16",),
+                   "granite-moe-1b-a400m": ("bfloat16", "float32"),
+                   "qwen2-72b": ("bfloat16",),
+                   "nemotron-4-340b": ("bfloat16",),
+                   "arctic-480b": ("bfloat16", "float32"),
+                   "jamba-v0.1-52b": ("bfloat16", "float32")}
+ZOO_SELF_TOL_BF16 = {
+    "minitron-4b": {"prefill": 1e-2, "decode": 0.05},
+    "qwen2-72b": {"prefill": 0.03, "decode": 0.05},
+    "nemotron-4-340b": {"prefill": 0.03, "decode": 0.05},
+    "arctic-480b": {"prefill": 0.03, "decode": 0.06},
+    "jamba-v0.1-52b": {"prefill": 1e-2, "decode": 0.09}}
 # Phase 11: prefill/decode against forward at full width, as
 # max |diff| / (1 + |forward|) of the logits (the reference's pin is 2e-2,
 # tests/test_arch_smoke.py, set on 2-layer configs in bf16).  Limits from
@@ -258,7 +318,8 @@ SERVE_TOL = 2e-4
 #   and 3.7 (conv tail one token early).
 SELF_TOL_F32 = {"prefill": 1e-3, "decode": 1e-3}
 SELF_TOL_BF16 = {"qwen3-14b": {"prefill": 1e-2, "decode": 0.04},
-                 "mamba2-1.3b": {"prefill": 1e-2, "decode": 0.13}}
+                 "mamba2-1.3b": {"prefill": 1e-2, "decode": 0.13},
+                 **ZOO_SELF_TOL_BF16}
 # Phase 11: the serving main path at full width, cut in depth to 16 tokens.
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
 
@@ -436,7 +497,10 @@ def _assert_close(what: str, got, want, tol: float) -> float:
 
 # Kernels that must run on the tensor cores: name in the SASS, the
 # instruction that shows it, and the template arguments printed beside it.
-TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",)),
+# The last entry, where given, lists the first template argument's values
+# that must be instantiated.
+TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",),
+                        ("64", "128", "192")),
                        ("flash_bwd_dq_wgmma", "HGMMA", ("D",)),
                        ("flash_bwd_dkv_wgmma", "HGMMA", ("D",)),
                        ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
@@ -476,11 +540,15 @@ def tensor_core_report(lib: Path) -> None:
             lines[name] = []
         elif name:
             lines[name].append(line)
-    for kernel, instr, args in TENSOR_CORE_KERNELS:
+    for kernel, instr, args, *expect in TENSOR_CORE_KERNELS:
         names = sorted(n for n in lines if kernel in n)
         if not names or names != sorted(n for n in ptxas if kernel in n):
             raise AssertionError(f"{kernel}: SASS functions {names} do not "
                                  f"match the ptxas log's")
+        firsts = {re.findall(r"Li(\d+)E", n)[0] for n in names}
+        if expect and not set(expect[0]) <= firsts:
+            raise AssertionError(f"{kernel}: instantiations {sorted(firsts)}"
+                                 f", expected {expect[0]}")
         for n in names:
             count = sum(line.count(instr) for line in lines[n])
             info = ptxas[n]
@@ -627,6 +695,16 @@ def phase8_flash(dev) -> float:
              ((8, 1000, 128), torch.bfloat16, True, 256),
              ((8, 77, 64), torch.bfloat16, False, 0),
              ((8, 1000, 128), torch.bfloat16, False, 0)]
+    # head_dim 192 (nemotron-4-340b), three 64-column slabs: causal, windowed,
+    # without the mask and at an S that is no multiple of either tile.
+    cases += [((48, 1024, 192), dtype, causal, window)
+              for dtype in (torch.bfloat16, torch.float32)
+              for causal, window in ((True, 0), (True, 256))]
+    cases += [((8, 1000, 192), torch.bfloat16, True, 0),
+              ((8, 333, 192), torch.bfloat16, True, 40),
+              ((8, 333, 192), torch.float32, True, 40),
+              ((8, 1000, 192), torch.bfloat16, False, 0),
+              ((8, 77, 192), torch.float32, False, 0)]
     for shape, dtype, causal, window in cases:
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                    for _ in range(3))
@@ -643,20 +721,30 @@ def phase8_flash(dev) -> float:
         worst = max(worst, err.max().item())
         say(f"flash_attention {shape} {dtype} causal={causal} window={window}"
             f": max abs err {err.max().item():.3e}")
-    for b, s, h, kvh, d in [(4, 1024, 40, 8, 128), (2, 333, 40, 8, 128)]:
-        q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+    # GQA: qwen3-14b's group of 5; nemotron-4-340b's 96 q-heads over 8
+    # (12) at head_dim 192; arctic-480b's 56 over 8 (7) at 128.
+    for b, s, h, kvh, d, dtype in [
+            (4, 1024, 40, 8, 128, torch.bfloat16),
+            (2, 333, 40, 8, 128, torch.bfloat16),
+            (4, 1024, 96, 8, 192, torch.bfloat16),
+            (2, 333, 96, 8, 192, torch.bfloat16),
+            (1, 333, 96, 8, 192, torch.float32),
+            (4, 1024, 56, 8, 128, torch.bfloat16),
+            (1, 333, 56, 8, 128, torch.float32)]:
+        q = torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
         k, v = (torch.randn((b, s, kvh, d), generator=g,
-                            device=dev).bfloat16() for _ in range(2))
+                            device=dev).to(dtype) for _ in range(2))
         got = gqa_flash_attention(q, k, v).float()
         want = gqa_attention_ref(q, k, v).float()
         torch.cuda.synchronize()
         err = (got - want).abs()
-        if bool((err > 2.0 ** -7 * want.abs() + 1e-5).any()) \
-                or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"gqa_flash_attention {(b, s, h, d)}: max "
-                                 f"|diff| {err.max().item()}")
+        tol = (FLASH_F32_TOL * (1 + want.abs()) if dtype == torch.float32
+               else 2.0 ** -7 * want.abs() + 1e-5)
+        if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"gqa_flash_attention {(b, s, h, d)} "
+                                 f"{dtype}: max |diff| {err.max().item()}")
         worst = max(worst, err.max().item())
-        say(f"gqa_flash_attention {(b, s, h, d)} x {(b, s, kvh, d)} bf16: "
+        say(f"gqa_flash_attention {(b, s, h, d)} x {(b, s, kvh, d)} {dtype}: "
             f"max abs err {err.max().item():.3e}")
     return worst
 
@@ -688,6 +776,7 @@ def phase9_ssd(dev) -> float:
     worst = 0.0
     for b, s, h, p, g_, n, chunk, decaying in [
             (4, 1024, 64, 64, 1, 128, 128, False),
+            (4, 1024, 128, 64, 1, 16, 128, False),    # jamba-v0.1-52b's
             (2, 96, 16, 32, 1, 32, 32, False),
             (2, 64, 4, 8, 2, 64, 16, False),
             (1, 2048, 4, 64, 1, 128, 128, True)]:
@@ -738,10 +827,11 @@ def phase10_serve_card_vs_cpu(dev) -> None:
                 snap.append(_tree_to(caches, "cpu"))
             counts = kernels.launch_counts()
             runs[side] = ([x.cpu() for x in steps], snap, counts)
-        kernel = "flash_attention" if arch == "qwen3-14b" else "ssd_scan"
-        if runs["card"][2][kernel] != cfg.num_layers:
+        want = mixer_launches(cfg)
+        got = {k: runs["card"][2][k] for k in want}
+        if got != want:
             raise AssertionError(f"{arch}: {runs['card'][2]} launches on the "
-                                 f"card, expected {cfg.num_layers} {kernel}")
+                                 f"card, expected {want}")
         (s_gpu, c_gpu, _), (s_cpu, c_cpu, _) = runs["card"], runs["cpu"]
         gaps = [_assert_close(f"{arch} logits step {i}", a, b, SERVE_TOL)
                 for i, (a, b) in enumerate(zip(s_gpu, s_cpu))]
@@ -759,6 +849,15 @@ def phase10_serve_card_vs_cpu(dev) -> None:
         say(f"{arch} reduced: prefill logits max |card - cpu| {gaps[0]:.3e}, "
             f"{gen} decode steps up to {max(gaps[1:]):.3e}, caches up to "
             f"{cache_gap:.3e}; card launches {runs['card'][2]}")
+
+
+def mixer_launches(cfg) -> dict:
+    """The kernel launches of one prefill or forward of ``cfg``: one
+    ``flash_attention`` an attention layer, one ``ssd_scan`` a Mamba
+    layer."""
+    kinds = [mixer for mixer, _ in cfg.layer_kinds()]
+    return {"flash_attention": kinds.count("attn"),
+            "ssd_scan": kinds.count("mamba")}
 
 
 def serve_gaps(params, cfg, toks) -> dict:
@@ -790,7 +889,7 @@ def serve_gaps(params, cfg, toks) -> dict:
                     ("decode_step", step)):
         finite[name] = bool(torch.isfinite(x).all())
     full = full.float()
-    out = {"launches": calls, "finite": finite,
+    out = {"launches": calls, "finite": finite, "prompt": n,
            "scale": full.abs().max().item()}
     for name, got, want in (("prefill", last, full[:, n - 1]),
                             ("decode", step, full[:, n])):
@@ -1023,7 +1122,63 @@ def phase12_times(dev) -> dict:
     say(f"ssd_scan kernels' own tensor-core work: {mma / 1e9:.1f} GFLOP "
         f"(split TF32, each product three times), "
         f"{mma / (ssd['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
-    return {"flash_attention": fa, "ssd_scan": ssd}
+    return {"flash_attention": fa, "ssd_scan": ssd,
+            "flash_d192": _flash_d192_times(dev),
+            "ssd_jamba": _ssd_jamba_times(dev)}
+
+
+def _flash_d192_times(dev) -> dict:
+    """The bf16 forward at nemotron-4-340b's prefill shape, (4, 1024, 96/8,
+    192) causal: the kernel, its bound, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import gqa_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import launch
+    g = torch.Generator(device=dev).manual_seed(121)
+    b, s, h, kvh, d = SERVE_BATCH, SERVE_PROMPT, 96, 8, 192
+    q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = {"ms": time_ms(lambda: launch(q, k, v, causal=True, window=0)),
+           "plain": time_ms(lambda: gqa_attention_ref(q, k, v), reps=3,
+                            trials=5),
+           "lib": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True))}
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    ops = 4 * b * h * d * s * (s + 1) // 2
+    out["bound"], out["by"] = bound(nbytes, ops, BF16_OPS_PER_S)
+    mma = flash_mma_flops(b, s, h, d)
+    say(f"flash_attention (B={b}, S={s}, H={h}, KV={kvh}, D={d}, bf16, "
+        f"causal): kernel {out['ms']:.4f} ms, bound {out['bound']:.4f} ms "
+        f"({out['by']}: {ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
+        f"{nbytes / 1e6:.1f} MB), plain {out['plain']:.4f} ms, "
+        f"scaled_dot_product_attention {out['lib']:.4f} ms; its own "
+        f"tensor-core work {mma / 1e9:.1f} GFLOP, "
+        f"{mma / (out['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
+    return out
+
+
+def _ssd_jamba_times(dev) -> dict:
+    """ssd_scan at jamba-v0.1-52b's prefill shape, (b, S, H, P, G, N) =
+    (4, 1024, 128, 64, 1, 16), chunk 128: the kernel, its bound and the
+    plain version."""
+    from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref
+    b, s, h, p, g_, n, chunk = SERVE_BATCH, SERVE_PROMPT, 128, 64, 1, 16, 128
+    args = _ssd_inputs(dev, b, s, h, p, g_, n, seed=122)
+    out = {"ms": time_ms(lambda: ssd_apply(*args, chunk=chunk)),
+           "plain": time_ms(lambda: ssd_apply_ref(*args), reps=1, trials=3),
+           "lib": None}
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g_ * n
+                  + b * h * p * n)
+    ops = 2 * b * s * (g_ * chunk * n + h * p * (chunk + 2 * n))
+    out["bound"], out["by"] = bound(nbytes, ops, TF32_OPS_PER_S)
+    say(f"ssd_scan (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n}, f32): kernel "
+        f"{out['ms']:.4f} ms, bound {out['bound']:.4f} ms ({out['by']}: "
+        f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; {ops / 1e9:.2f} GFLOP of the "
+        f"chunked form at 495 TFLOP/s TF32 take "
+        f"{ops / TF32_OPS_PER_S * 1e3:.4f} ms), plain {out['plain']:.4f} ms")
+    return out
 
 
 def _ulp_gap(a, b):
@@ -3432,6 +3587,173 @@ def phase19(dev, card: str, p16f: dict) -> dict:
     return out
 
 
+def zoo_config(arch: str, dropless: bool = False):
+    """``arch``'s published config cut to ``ZOO_LAYERS[arch]`` layers; with
+    ``dropless`` a MoE routes without capacity."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    over = {}
+    if ZOO_LAYERS[arch]:
+        over["num_layers"] = ZOO_LAYERS[arch]
+    if dropless and cfg.num_experts:
+        over["moe_dropless"] = True
+    return dataclasses.replace(cfg, **over)
+
+
+def _cast_tree(tree, dtype) -> None:
+    """Every floating leaf of a nested dict/list of tensors to ``dtype``,
+    in place in its container, one leaf at a time (so that a model's
+    weights never live twice)."""
+    import torch
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in list(items):
+        if isinstance(value, (dict, list)):
+            _cast_tree(value, dtype)
+        elif torch.is_tensor(value) and value.is_floating_point():
+            tree[key] = value.to(dtype)
+
+
+def zoo_gaps(dev, arch: str, dtypes) -> dict:
+    """``serve_gaps`` of ``arch`` at its phase-20 depth (a MoE routing
+    dropless) on ``self_consistency_inputs``' weights and prompt, in each
+    of ``dtypes`` in turn: the weights are drawn in the first and cast,
+    leaf by leaf, to the next (TF32 off in float32).  Asserts one kernel
+    launch a mixer layer in forward and prefill, none in decode, and
+    finite logits.  Returns {dtype: gaps}."""
+    import gc
+    import torch
+    cfg = dataclasses.replace(zoo_config(arch, dropless=True),
+                              dtype=dtypes[0])
+    params, toks = self_consistency_inputs(dev, cfg)
+    out = {}
+    for dtype in dtypes:
+        if dtype != cfg.dtype:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+            _cast_tree(params, getattr(torch, dtype))
+            gc.collect()
+            torch.cuda.empty_cache()
+        old = _tf32(False, False) if dtype == "float32" else None
+        try:
+            gaps = serve_gaps(params, cfg, toks)
+        finally:
+            if old is not None:
+                _tf32(*old)
+        mix = mixer_launches(cfg)
+        for call in ("forward", "prefill", "decode_step"):
+            got = {k: gaps["launches"][call][k] for k in mix}
+            if got != (mix if call != "decode_step"
+                       else dict.fromkeys(mix, 0)):
+                raise AssertionError(f"{arch} {dtype}: {call} launches "
+                                     f"{got}")
+        for name, ok in gaps["finite"].items():
+            if not ok:
+                raise AssertionError(f"{arch} {dtype}: non-finite {name} "
+                                     f"logits")
+        out[dtype] = gaps
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase20_zoo(dev) -> dict:
+    """The arch zoo at full width in bf16: each arch's serving main path
+    (``run_serve``, capacity routing), decode ≡ forward, and granite-moe's
+    full-width training."""
+    import gc
+    import math
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+    say(f"== 20. the arch zoo at full width on the card (bf16): run_serve("
+        f"batch={SERVE_BATCH}, prompt_len={SERVE_PROMPT}, gen={SERVE_GEN}),"
+        f" decode ≡ forward, and {ZOO_TRAIN}'s train steps")
+    t_phase = time.time()
+    out = {}
+    for arch, layers in ZOO_LAYERS.items():
+        t0 = time.time()
+        cfg = zoo_config(arch)
+        want = dict.fromkeys(kernels.launch_counts(), 0)
+        want.update(mixer_launches(cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        seqs, t_prefill, t_decode = run_serve(
+            arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+            reduced=False, device=dev, num_layers=layers)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches != want:
+            raise AssertionError(f"{arch}: launches {launches}, expected "
+                                 f"{want} (one a mixer layer of the prefill,"
+                                 f" none in decode)")
+        if seqs.shape != (SERVE_BATCH, SERVE_GEN) or int(seqs.min()) < 0 \
+                or int(seqs.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{arch}: tokens {tuple(seqs.shape)} out of "
+                                 f"range")
+        del seqs
+        say(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} "
+            f"layers{', capacity routing' if cfg.num_experts else ''}; "
+            f"prefill {t_prefill * 1e3:.1f} ms, decode {t_decode * 1e3:.2f} "
+            f"ms/token, peak {peak / 1e9:.2f} GB (max_memory_allocated, the "
+            f"weights' init included), launches {launches}")
+
+        gaps = zoo_gaps(dev, arch, ZOO_SELF_DTYPES[arch])
+        for dtype, g in gaps.items():
+            tol = (SELF_TOL_F32 if dtype == "float32"
+                   else SELF_TOL_BF16.get(arch))
+            say(f"{arch} {dtype}{' (moe_dropless)' if cfg.num_experts else ''}"
+                f", prompt {g['prompt']}: prefill ≡ forward max |diff| "
+                f"{g['prefill']:.3e} (relative {g['prefill_rel']:.3e}, limit "
+                f"{tol['prefill'] if tol else 'none'}), decode_step ≡ forward "
+                f"{g['decode']:.3e} (relative {g['decode_rel']:.3e}, limit "
+                f"{tol['decode'] if tol else 'none'}); |logits| up to "
+                f"{g['scale']:.2f}")
+            for name in ("prefill", "decode"):
+                if tol and not g[name + "_rel"] <= tol[name]:
+                    raise AssertionError(
+                        f"{arch} {dtype}: {name} vs forward differs by "
+                        f"{g[name]} (relative {g[name + '_rel']}) over "
+                        f"{tol[name]}")
+        out[arch] = {"layers": cfg.num_layers, "launches": launches,
+                     "t_prefill": t_prefill, "t_decode": t_decode,
+                     "peak": peak,
+                     "gaps": {dt: {k: g[k] for k in ("prefill_rel",
+                                                     "decode_rel")}
+                              for dt, g in gaps.items()}}
+        say(f"{arch}: phase 20 wall {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    cfg = zoo_config(ZOO_TRAIN)
+    r = _train_run(dev, ZOO_TRAIN)
+    warm = r["step_s"][1:]
+    tok_s = r["batch"] * TRAIN_SEQ / statistics.median(warm)
+    attn = mixer_launches(cfg)["flash_attention"]
+    say(f"{ZOO_TRAIN} run_train at full width and depth, capacity routing: "
+        f"batch {r['batch']} x {TRAIN_SEQ}; losses "
+        f"{[round(x, 4) for x in r['losses']]}; step "
+        f"{[f'{x:.3f}' for x in r['step_s']]} s (first with the kernels' "
+        f"first launches), {tok_s:.0f} tokens/s warm; the batch's token draw "
+        f"alone {r['draw_s']:.3f} s; peak {r['peak'] / 1e9:.2f} GB; launches"
+        f" a step {r['launches']}; wall {time.time() - t0:.1f} s")
+    if not all(math.isfinite(x) for x in r["losses"]) or (
+            r["launches"]["flash_attention"],
+            r["launches"]["flash_attention_bwd"]) != (attn, attn):
+        raise AssertionError(f"{ZOO_TRAIN} training: losses {r['losses']}, "
+                             f"launches {r['launches']} (expected {attn} "
+                             f"flash_attention and flash_attention_bwd a "
+                             f"step, one microbatch)")
+    out["train"] = {"arch": ZOO_TRAIN, "step_s": r["step_s"],
+                    "tokens_s": tok_s, "peak": r["peak"],
+                    "launches": r["launches"], "losses": r["losses"]}
+    say(f"phase 20 wall {time.time() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3712,6 +4034,7 @@ def main() -> int:
     served = phase11_serve(dev)
     times = phase12_times(dev)
     fa, ssd = times["flash_attention"], times["ssd_scan"]
+    fa192, ssd_jamba = times["flash_d192"], times["ssd_jamba"]
     phase13a_threefry(dev)
     grid = phase13b_grid(dev)
     phase13c_grid_vs_host(dev)
@@ -3739,6 +4062,7 @@ def main() -> int:
     phase18e_refusal(dev, card)
     phase19(dev, card, p16f)
     stop_background()
+    p20 = phase20_zoo(dev)
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -3799,7 +4123,13 @@ def main() -> int:
          "launches": served["qwen3-14b"]["launches"],
          "max_abs_err": flash_err, "ms": fa["ms"], "plain_ms": fa["plain"],
          "bound_ms": fa["bound"], "bound_by": fa["by"],
-         "library_ms": fa["lib"], "lse_ms": fa["lse_ms"]},
+         "library_ms": fa["lib"], "lse_ms": fa["lse_ms"],
+         "d192_shape": [SERVE_BATCH, SERVE_PROMPT, 96, 8, 192],
+         "d192_ms": fa192["ms"], "d192_plain_ms": fa192["plain"],
+         "d192_bound_ms": fa192["bound"], "d192_bound_by": fa192["by"],
+         "d192_library_ms": fa192["lib"],
+         "zoo_launches": {a: r["launches"]["flash_attention"]
+                          for a, r in p20.items() if a != "train"}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -3808,6 +4138,11 @@ def main() -> int:
          "bound_ms": ssd["bound"], "bound_by": ssd["by"],
          "library_ms": ssd["lib"],
          "train_launches": p16f["mamba2-1.3b"]["launches"]["ssd_scan"],
+         "jamba_shape": [SERVE_BATCH, SERVE_PROMPT, 128, 64, 1, 16],
+         "jamba_ms": ssd_jamba["ms"], "jamba_plain_ms": ssd_jamba["plain"],
+         "jamba_bound_ms": ssd_jamba["bound"],
+         "jamba_bound_by": ssd_jamba["by"],
+         "jamba_launches": p20["jamba-v0.1-52b"]["launches"]["ssd_scan"],
          "backward_plain_vjp_ms": p16bd["ssd_bwd_ms"],
          "backward_grad_gap": p16bd["ssd_grad_gap"]},
         {"name": "flash_attention_bwd", "route": "cuda",
@@ -3820,7 +4155,9 @@ def main() -> int:
          "max_abs_err": bwd["err"], "ms": bwd["ms"], "plain_ms": bwd["plain"],
          "bound_ms": bwd["bound"], "bound_by": bwd["by"],
          "library_ms": bwd["lib"], "f32_pair_ms": bwd["f32_ms"],
-         "fl_launches": p16e["sim"]["launches"]["flash_attention_bwd"]},
+         "fl_launches": p16e["sim"]["launches"]["flash_attention_bwd"],
+         "zoo_train_launches": int(p20["train"]["launches"][
+             "flash_attention_bwd"] * TRAIN_STEPS)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,17 +2,21 @@
 """Read the bf16 gap between the port's and the reference's LM logits on
 the CPU, the reading behind ``tests/test_torch_lm.py``'s bf16 test.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_bf16_lm_gap.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_bf16_lm_gap.py \
+        [ARCH ...]
 
-Like the parity tests it imports both stacks.  For qwen3-14b and
-mamba2-1.3b at ``reduced()`` (bf16), for five (weights, tokens) seeds:
+Like the parity tests it imports both stacks.  For each arch (qwen3-14b and
+mamba2-1.3b unless named) at ``reduced()`` (bf16; a MoE router stays
+float32), for five (weights, tokens) seeds:
 the test's redrawn weights cast to bf16 on the reference's side and
 converted, a 37-token prompt's prefill and 8 decode steps; per step the
 largest |port − reference| of the logits, that over the step's largest
 |logit| (what the test holds to 2e-2), and the largest ratio of the gap to
 the elementwise allowance ``2e-2 + 2e-2·|reference|`` (above 1 where the
-elementwise form of the pin would fail).  Then one Mamba layer of the
-reference in bf16, jitted against eager, its largest gap and |output|.
+elementwise form of the pin would fail); beside it the same reading of the
+reference's own jitted steps against its eager (op-by-op) ones.  Then one
+Mamba layer of the reference in bf16, jitted against eager, its largest gap
+and |output|.
 """
 from __future__ import annotations
 
@@ -42,12 +46,20 @@ def main() -> int:
     from repro_torch.models import decode_step, prefill
     from test_torch_lm import _np_tree, _t, _tokens
     torch.set_num_threads(1)
-    for arch in ("qwen3-14b", "mamba2-1.3b"):
+    jit_prefill = jax.jit(jprefill, static_argnums=(1, 3))
+    jit_decode = jax.jit(jdecode, static_argnums=(1,))
+
+    def reading(a, b):
+        d = np.abs(a - b)
+        return (d.max(), d.max() / np.abs(b).max(),
+                (d / (2e-2 + 2e-2 * np.abs(b))).max())
+
+    for arch in sys.argv[1:] or ("qwen3-14b", "mamba2-1.3b"):
         for seed, tseed in SEEDS:
             jcfg, tcfg = jget(arch).reduced(), get_config(arch).reduced()
-            tree = _np_tree(jinit(jax.random.PRNGKey(seed), jcfg)[0], seed)
-            tree = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16),
-                                          tree)
+            init = jinit(jax.random.PRNGKey(seed), jcfg)[0]
+            tree = jax.tree_util.tree_map(lambda a, r: a.astype(r.dtype),
+                                          _np_tree(init, seed), init)
             jp = jax.tree_util.tree_map(jnp.asarray, tree)
             tp = lm_params_from_jax(tree, tcfg, device="cpu")
             prompt, gen = 37, 8
@@ -57,20 +69,26 @@ def main() -> int:
             lj, cj = jprefill(jp, jcfg,
                               {"tokens": jnp.asarray(toks[:, :prompt])},
                               prompt + gen)
-            rows = []
+            lk, ck = jit_prefill(jp, jcfg,
+                                 {"tokens": jnp.asarray(toks[:, :prompt])},
+                                 prompt + gen)
+            rows, own = [], []
             for i in range(prompt, prompt + gen + 1):
-                a = lt.float().numpy()
                 b = np.asarray(lj, np.float32)
-                d = np.abs(a - b)
-                rows.append((d.max(), d.max() / np.abs(b).max(),
-                             (d / (2e-2 + 2e-2 * np.abs(b))).max()))
+                rows.append(reading(lt.float().numpy(), b))
+                own.append(reading(np.asarray(lk, np.float32), b))
                 if i < prompt + gen:
                     lt, ct = decode_step(tp, tcfg, _t(toks[:, i]), ct)
                     lj, cj = jdecode(jp, jcfg, jnp.asarray(toks[:, i]), cj)
+                    lk, ck = jit_decode(jp, jcfg, jnp.asarray(toks[:, i]),
+                                        ck)
             gap, rel, ratio = (max(r[j] for r in rows) for j in range(3))
+            ogap, orel, oratio = (max(r[j] for r in own) for j in range(3))
             print(f"{arch} seeds ({seed}, {tseed}): prefill + {gen} decode "
                   f"steps, largest gap {gap:.4f}, of the largest |logit| "
-                  f"{rel:.3e}, of the elementwise allowance {ratio:.3f}")
+                  f"{rel:.3e}, of the elementwise allowance {ratio:.3f}; "
+                  f"the reference jitted against eager: {ogap:.4f}, "
+                  f"{orel:.3e}, {oratio:.3f}")
     jcfg = jget("mamba2-1.3b").reduced()
     tree = jax.tree_util.tree_map(
         lambda a: np.asarray(a).astype(jnp.bfloat16),

@@ -5,6 +5,7 @@ phase 11 limits (``SELF_TOL_BF16``).
 
     python3 scripts/torch_serve_drift.py [--arch qwen3-14b mamba2-1.3b]
                                          [--out build/serve_drift.json]
+    python3 scripts/torch_serve_drift.py --zoo [--arch ARCH ...]
 
 For each arch at full width in bf16, ``chip_smoke.serve_gaps`` (prefill
 against forward at the last prompt position, one decode step against
@@ -29,6 +30,18 @@ logits, prompt 200) under:
   - mamba2-1.3b ``scan_decay_doubled``: the scan decays by exp(2 dt A);
   - mamba2-1.3b ``conv_tail_one_step_early``: prefill leaves the conv
     tail one token early.
+
+With ``--zoo``, the readings behind phase 20's limits instead
+(``chip_smoke.zoo_gaps``): each arch of ``chip_smoke.ZOO_LAYERS`` (or those
+named) at its phase-20 depth on its weights (seed 11), the MoE archs with
+``moe_dropless``, in each dtype of ``chip_smoke.ZOO_SELF_DTYPES``: ``sound``,
+and for the MoE archs two known faults that touch only one-token calls
+(decode steps), as a fault of the decode path would:
+
+  - ``gates_not_renormalised``: the top-k gates are used as the softmax
+    gives them, without dividing by their sum;
+  - ``dense_residual_left_out`` (arctic-480b): a ``moe+dense`` block adds
+    the MoE's output alone.
 
 Needs a CUDA device; prints one line a reading and writes them as JSON.
 """
@@ -117,6 +130,56 @@ def mamba2_patches() -> dict:
             "conv_tail_one_step_early": [("mamba_apply", conv_tail_early)]}
 
 
+def moe_patches(cfg) -> dict:
+    """Faults of the MoE feed-forward that only one-token calls see."""
+    import torch
+    from repro_torch.models import layers, transformer
+
+    moe_apply, block_apply = layers.moe_apply, transformer.block_apply
+
+    def unnormalised(p, x, cfg_):
+        if x.shape[1] != 1:
+            return moe_apply(p, x, cfg_)
+        # The renormalised gates times their sum are the softmax's top k.
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"], dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True,
+                         stable=True)[0][:, :cfg_.experts_per_token]
+        y, aux = moe_apply(p, x, cfg_)
+        return y * top.sum(-1).reshape(x.shape[:2] + (1,)).to(y.dtype), aux
+
+    def without_dense(p, x, cfg_, kind, **kw):
+        if kind[1] == "moe+dense" and x.shape[1] == 1:
+            kind = (kind[0], "moe")
+        return block_apply(p, x, cfg_, kind, **kw)
+
+    out = {"gates_not_renormalised": [(layers, "moe_apply", unnormalised)]}
+    if cfg.dense_residual_d_ff:
+        out["dense_residual_left_out"] = [(transformer, "block_apply",
+                                           without_dense)]
+    return out
+
+
+def drift_zoo_arch(arch: str) -> dict:
+    """Phase 20's readings of ``arch``: sound and with the MoE faults, in
+    each of its checked dtypes (the float32 weights the bf16 ones cast
+    up, as phase 20 takes them)."""
+    import torch
+    from chip_smoke import ZOO_SELF_DTYPES, zoo_config, zoo_gaps
+    dev = torch.device("cuda")
+    cfg = zoo_config(arch, dropless=True)
+    patches = moe_patches(cfg) if cfg.num_experts else {}
+    readings = {}
+    for name, fns in {"sound": [], **patches}.items():
+        with contextlib.ExitStack() as stack:
+            for module, attr, fn in fns:
+                stack.enter_context(patched(module, attr, fn))
+            for dtype, g in zoo_gaps(dev, arch,
+                                     ZOO_SELF_DTYPES[arch]).items():
+                readings[f"{dtype} {name}"] = g
+    return {"arch": arch, "readings": readings}
+
+
 def drift_arch(arch: str) -> dict:
     import torch
     from chip_smoke import self_consistency_inputs, serve_gaps
@@ -128,11 +191,13 @@ def drift_arch(arch: str) -> dict:
     cfg = get_config(arch)
     params, toks = self_consistency_inputs(dev, cfg)
     readings = {"sound": serve_gaps(params, cfg, toks)}
-    patches = qwen3_patches() if arch == "qwen3-14b" else mamba2_patches()
+    patches = {name: [(layers, attr, fn) for attr, fn in fns]
+               for name, fns in (qwen3_patches() if arch == "qwen3-14b"
+                                 else mamba2_patches()).items()}
     for name, fns in patches.items():
         with contextlib.ExitStack() as stack:
-            for attr, fn in fns:
-                stack.enter_context(patched(layers, attr, fn))
+            for module, attr, fn in fns:
+                stack.enter_context(patched(module, attr, fn))
             readings[name] = serve_gaps(params, cfg, toks)
     del params
     gc.collect()
@@ -147,7 +212,9 @@ def drift_arch(arch: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", nargs="+", default=["qwen3-14b", "mamba2-1.3b"])
+    ap.add_argument("--arch", nargs="+", default=None)
+    ap.add_argument("--zoo", action="store_true",
+                    help="phase 20's archs and depths (see the note)")
     ap.add_argument("--out", default=str(ROOT / "build" / "serve_drift.json"))
     args = ap.parse_args(argv)
     import torch
@@ -161,11 +228,16 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     results = {"card": card, "archs": []}
+    if args.arch is None:
+        from chip_smoke import ZOO_LAYERS
+        args.arch = (list(ZOO_LAYERS) if args.zoo
+                     else ["qwen3-14b", "mamba2-1.3b"])
     for arch in args.arch:
-        r = drift_arch(arch)
+        r = drift_zoo_arch(arch) if args.zoo else drift_arch(arch)
         results["archs"].append(r)
         for name, g in r["readings"].items():
-            print(f"{arch} bf16 {name}: prefill vs forward {g['prefill']:.4f}"
+            label = name if args.zoo else f"bf16 {name}"
+            print(f"{arch} {label}: prefill vs forward {g['prefill']:.4f}"
                   f" (rel {g['prefill_rel']:.4f}), decode vs forward "
                   f"{g['decode']:.4f} (rel {g['decode_rel']:.4f}), |logits| "
                   f"up to {g['scale']:.2f}, finite {g['finite']} on {card}",

@@ -1,9 +1,12 @@
 """Configurations: the paper's CNN and FL constants, and the architecture
 registry (``get_config(arch_id)``) for the archs the port serves.
 
-The reference registers ten archs.  This port serves the dense and SSM
-families, ``qwen3-14b`` and ``mamba2-1.3b``; asking for any other reference
-arch raises a ``KeyError`` that says which later slice brings it.
+The reference registers ten archs.  This port serves the eight decoder-only
+ones: the dense (``qwen3-14b``, ``minitron-4b``, ``qwen2-72b``,
+``nemotron-4-340b``), MoE (``granite-moe-1b-a400m``, ``arctic-480b``), SSM
+(``mamba2-1.3b``) and hybrid (``jamba-v0.1-52b``) families.  Asking for the
+VLM or the audio arch raises a ``KeyError`` that says which later slice
+brings it.
 """
 from __future__ import annotations
 
@@ -17,18 +20,18 @@ from .shapes import SHAPES, InputShape
 _ARCH_MODULES = {
     "qwen3-14b": "qwen3_14b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "minitron-4b": "minitron_4b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen2-72b": "qwen2_72b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "arctic-480b": "arctic_480b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 # Reference archs not served yet -> the later slice of the port that brings
 # them (ROADMAP.md Queue 1).
 _LATER = {
-    "phi-3-vision-4.2b": "the VLM slice",
-    "nemotron-4-340b": "the slice of the remaining dense configs",
-    "arctic-480b": "the MoE slice",
-    "whisper-tiny": "the audio (encoder-decoder) slice",
-    "minitron-4b": "the slice of the remaining dense configs",
-    "granite-moe-1b-a400m": "the MoE slice",
-    "qwen2-72b": "the slice of the remaining dense configs",
-    "jamba-v0.1-52b": "the hybrid (attention + Mamba + MoE) slice",
+    "phi-3-vision-4.2b": "the VLM and audio slice",
+    "whisper-tiny": "the VLM and audio slice",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

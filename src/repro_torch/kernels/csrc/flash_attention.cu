@@ -24,7 +24,8 @@
 // Bound on the card: operations.  At qwen3-14b's prefill (B=4, S=1024,
 // H=40, KV=8, D=128, bf16, causal) the live half of Q.K^T and P.V is
 // 43 GFLOP, 43.5 us at the 989 TFLOP/s of the bf16 tensor cores, against
-// 101 MB of q/k/v/o (30 us at 3.35 TB/s).
+// 101 MB of q/k/v/o (30 us at 3.35 TB/s).  At nemotron-4-340b's (4, 1024,
+// 96/8, 192) it is 154.8 GFLOP, 156.5 us.
 //
 // bfloat16, the serving dtype: a tensor-core kernel (flash_attention_wgmma).
 // * A work item is 128 query rows (a q-tile) of one (b, h).  A block of
@@ -41,7 +42,11 @@
 //   another.  The tensor maps span (B, S, KV, D) in place, so GQA makes no
 //   copy; rows past S arrive as zeros.  All tiles use the 128-byte swizzle
 //   that wgmma reads.  64-key tiles keep S (32), P_hi and P_lo (32) and O
-//   (64 at D=128) in a consumer's 240 registers with no spill.
+//   (64 at D=128, 96 at D=192) in a consumer's 240 registers.
+// * D = 192 (nemotron-4-340b) is three 64-column slabs: Q.K^T takes twelve
+//   k16 steps over them, P.V one m64n192k16 product a step whose B operand
+//   steps from slab to slab by the descriptor's leading offset, and Q gets
+//   one buffer instead of two (TcLayout: two do not fit beside the ring).
 // * S = Q.K^T by wgmma m64n64k16 (Q and K K-major in shared memory), the
 //   online softmax on the accumulator fragment (row max and sum over the four
 //   threads of a fragment row by shuffles, alpha = exp(m_old - m_new) applied
@@ -64,7 +69,8 @@
 // FL LM workloads (head_dim 16 to 128), not the serving dtype, stays on a
 // CUDA-core kernel by design (flash_attention_f32_kernel): 256 threads own
 // 64 query rows, 32-key tiles, float32 FMAs, Q/K transposed and V in shared
-// memory.  D is 16, 32, 64 or 128 in float32, 64 or 128 in bfloat16.
+// memory.  D is 16, 32, 64, 128 or 192 in float32, 64, 128 or 192 in
+// bfloat16.  The backward below takes D up to 128.
 //
 // The backward pair for both dtypes is at the end of the file.
 #include <cuda.h>
@@ -103,7 +109,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse, int seq, int heads,
                            int kv_heads, int causal, int window, float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "D is 16, 32, 64 or 128");
+  static_assert(D % 16 == 0 && D <= 192, "D is 16, 32, 64, 128 or 192");
   constexpr int DC = D / 16;      // output columns a thread
   constexpr int D4 = D / 4;       // float4 groups in a row
   extern __shared__ float smem[];
@@ -277,10 +283,15 @@ struct TcLayout {
   static constexpr int kTileBytes = kHalves * kTcBK * kRow;   // K or V
   static constexpr int kRingBytes = kStages * 2 * kTileBytes;
   static constexpr int kBarBytes = 8 * (4 + 2 * kStages);
-  // Q double-buffered; + 1024: the base is rounded up to the swizzle's
-  // 1024-byte period.
+  // The forward's Q buffers: two, so that the next item's Q arrives while
+  // this one's last P.V and epilogue run; one at D = 192, where two Q tiles
+  // and the 3-stage ring (246,864 bytes) exceed the 232,448 a block may opt
+  // into.  One Q (197,712 bytes) keeps the ring's depth, which every tile
+  // waits on, and exposes the Q load once an item instead.
+  static constexpr int kQBufs = D > 128 ? 1 : 2;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period.
   static constexpr int kSmemBytes =
-      1024 + 2 * kQBytes + kRingBytes + kBarBytes;
+      1024 + kQBufs * kQBytes + kRingBytes + kBarBytes;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -456,6 +467,48 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 192, float32 fragment) += A . B: A a bf16 register fragment (64 x 16),
+// B (16 x 192) bf16 in shared memory, MN-major (transposed), 128-byte swizzle:
+// three 64-column slabs one leading offset apart.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 // S = Q . K^T for one 64-key tile of this warpgroup's 64 rows, one wgmma
 // group: over D in steps of 16, +32 bytes inside a 128-byte swizzled row,
@@ -477,7 +530,7 @@ __device__ __forceinline__ void start_scores(float (&sc)[kTcBK / 2],
 }
 
 // O += P_hi . V + P_lo . V for one tile, one wgmma group: 16 keys a step
-// (two 8-row groups of 1024 bytes), the second 64 columns of D one slab
+// (two 8-row groups of 1024 bytes), each further 64 columns of D one slab
 // (kTcBK rows) further.
 template <int D>
 __device__ __forceinline__ void start_pv(float (&acc)[D / 2],
@@ -488,7 +541,10 @@ __device__ __forceinline__ void start_pv(float (&acc)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < kTcBK / 16; ++kk) {
     const uint64_t dv = sw128_desc(vs + kk * 16 * kRow, kTcBK * kRow, 1024);
-    if constexpr (D == 128) {
+    if constexpr (D == 192) {
+      wgmma_rs_n192(acc, p_hi[kk], dv);
+      wgmma_rs_n192(acc, p_lo[kk], dv);
+    } else if constexpr (D == 128) {
       wgmma_rs_n128(acc, p_hi[kk], dv);
       wgmma_rs_n128(acc, p_lo[kk], dv);
     } else {
@@ -625,8 +681,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   constexpr int kSlabKV = kTcBK * kRow;    // bytes of one 64-column K/V slab
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base;                  // [2][slab][128 rows][128 B]
-  const uint32_t ring = sq + 2 * L::kQBytes; // stage: K slabs, V slabs
+  const uint32_t sq = base;          // [kQBufs][slab][128 rows][128 B]
+  const uint32_t ring = sq + L::kQBufs * L::kQBytes;  // stage: K, V slabs
   const uint32_t q_full = ring + L::kRingBytes;        // [2]
   const uint32_t q_empty = q_full + 16;                 // [2]
   const uint32_t full_bar = q_empty + 16;               // [kStages]
@@ -651,7 +707,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   // Every role walks the same items (blockIdx.x, + gridDim.x, ...) and the
-  // same key tiles, counting items j (Q buffer j % 2) and tiles n (ring
+  // same key tiles, counting items j (Q buffer j % kQBufs) and tiles n (ring
   // stage n % kStages) from 0.
   const int wg = tid / 128;
   if (wg == kConsumers) {
@@ -663,8 +719,9 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
            item += gridDim.x, ++j) {
         const Item it = decode_item(item, bh_count, q_tiles, seq, heads,
                                     kv_heads, causal, window);
-        const int qb = j & 1;
-        if (j >= 2) mbar_wait(q_empty + 8 * qb, ((j >> 1) - 1) & 1);
+        const int qb = j % L::kQBufs;
+        if (j >= L::kQBufs)
+          mbar_wait(q_empty + 8 * qb, (j / L::kQBufs - 1) & 1);
         mbar_expect_tx(q_full + 8 * qb, L::kQBytes);
 #pragma unroll
         for (int hf = 0; hf < L::kHalves; ++hf)
@@ -703,7 +760,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const int t_lo = it.t_lo, t_hi = it.t_hi;
       const int row_lo = it.q0 + 64 * wg;
       const int qa = row_lo + r0, qb = qa + 8;
-      const int qbuf = j & 1;
+      const int qbuf = j % L::kQBufs;
       const uint32_t qs = sq + qbuf * L::kQBytes + wg * 64 * kRow;
 
       float acc[D / 2];
@@ -730,7 +787,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         return edge_tile(t, row_lo, seq, causal, window);
       };
 
-      mbar_wait(q_full + 8 * qbuf, (j >> 1) & 1);
+      mbar_wait(q_full + 8 * qbuf, (j / L::kQBufs) & 1);
       for (int t = t_lo; t < a_live; ++t) {
         wait_full(t);
         release(t);
@@ -2027,6 +2084,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (head_dim == 128)
       return launch_bf16<128>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
+    if (head_dim == 192)
+      return launch_bf16<192>(q, k, v, o, lse, batch, seq, heads, kv_heads,
+                              causal, window, s);
   } else {
     switch (head_dim) {
       case 16:
@@ -2040,6 +2100,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                               causal, window, s);
       case 128:
         return launch_f32<128>(q, k, v, o, lse, batch, seq, heads, kv_heads,
+                               causal, window, s);
+      case 192:
+        return launch_f32<192>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                                causal, window, s);
       default:
         break;

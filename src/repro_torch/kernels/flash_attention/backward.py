@@ -11,6 +11,8 @@ units and Δ = rowsum(dO∘O) to a scratch (sized by the library) whose rows
 are padded to the dK/dV kernel's q-tile, then dK/dV a (b, kv-head,
 128-key tile) over the q-heads of its group.  float32 runs the CUDA-core
 pair, which recomputes L itself.  The source note says what bounds them.
+Both take head_dim up to 128 (``BWD_HEAD_DIMS``): the forward's head_dim 192
+(nemotron-4-340b) has no backward kernel yet (ROADMAP.md Queue 2).
 """
 from __future__ import annotations
 
@@ -19,6 +21,10 @@ import torch
 from ..build import check_launch, library
 from .flash_attention import _ENTRY, _on_cpu, check_operands
 from .ref import gqa_attention_bwd_ref
+
+# The head_dims the backward kernels take, by dtype; the forward also takes
+# 192 (``HEAD_DIMS``).
+BWD_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 
 # Launches of the backward kernels since the last reset (repro_torch.kernels);
 # one a call, whatever the number of kernels the call starts.
@@ -33,14 +39,19 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 -> (dq, dk, dv) in that dtype.  The float32 pair recomputes L
     and does not read ``lse``.  Raises on what the kernels do not take."""
     ts = (q, k, v, o, do)
-    if q.device.type != "cuda" or any(t.device != q.device
-                                      for t in ts + (lse,)):
-        raise ValueError(f"flash_attention backward runs on one CUDA device;"
-                         f" got {[str(t.device) for t in ts + (lse,)]}")
     if q.dtype not in _ENTRY or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"need float32 or bfloat16 tensors of one dtype; got "
                         f"{[t.dtype for t in ts]}")
     b, s, h, d = q.shape
+    if d not in BWD_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"the flash_attention backward takes head_dim in "
+                         f"{BWD_HEAD_DIMS[q.dtype]} for {q.dtype}; got {d}: "
+                         f"head_dim 192 has no backward kernel yet "
+                         f"(ROADMAP.md Queue 2)")
+    if q.device.type != "cuda" or any(t.device != q.device
+                                      for t in ts + (lse,)):
+        raise ValueError(f"flash_attention backward runs on one CUDA device;"
+                         f" got {[str(t.device) for t in ts + (lse,)]}")
     kvh = k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or v.shape != k.shape:
         raise ValueError(f"need q/o/do of one shape and k/v of one shape; "

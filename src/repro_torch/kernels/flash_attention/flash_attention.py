@@ -3,8 +3,8 @@ wrapper of ``csrc/flash_attention.cu``.
 
 Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention
 (body ``_flash_kernel``).  bfloat16 runs on the tensor cores (wgmma, TMA) at
-head_dim 64 and 128, float32 on the CUDA cores at head_dim 16, 32, 64 and
-128.  The source note in the .cu file says what bounds
+head_dim 64, 128 and 192, float32 on the CUDA cores at head_dim 16, 32, 64,
+128 and 192.  The source note in the .cu file says what bounds
 the kernel on the card, how the TPU's sequential key-block grid axis became
 a loop inside one CUDA block, and why the bf16 kernel splits P in two.
 """
@@ -17,7 +17,8 @@ from .ref import attention_ref, gqa_attention_ref
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 192),
+             torch.bfloat16: (64, 128, 192)}
 
 # Launches of the CUDA kernel since the last reset (repro_torch.kernels).
 launches = 0

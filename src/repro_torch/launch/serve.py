@@ -8,11 +8,15 @@ Mirrors ``repro/launch/serve.py``.  Weights are random and prompts come
 from ``TokenDataset``, both drawn from ``PRNGKey(0)`` as the reference draws
 them; no checkpoint or tokenizer is involved.  The CLI keeps the
 reference's flags, whose ``--reduced`` is always on; ``run_serve(...,
-reduced=False)`` serves the full-width config.
+reduced=False)`` serves the full-width config.  ``num_layers`` is the
+port's one addition, as in ``launch/train.py``: a depth cut for a
+full-width config whose weights do not fit one card; it changes no
+width.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from typing import Optional
@@ -33,12 +37,13 @@ def _sync(device: torch.device) -> None:
 
 def run_serve(arch: str, batch: int, prompt_len: int, gen: int,
               reduced: bool = True, greedy: bool = True,
-              device: "str | torch.device | None" = None):
+              device: "str | torch.device | None" = None,
+              num_layers: Optional[int] = None):
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode greedily
     to ``gen`` tokens each.  Returns (seqs (batch, gen), t_prefill seconds,
     t_decode seconds per token); the card is synchronised before each clock
     reading.  ``greedy`` is kept from the reference, which also only decodes
-    greedily."""
+    greedily; ``num_layers`` cuts the depth (see the module note)."""
     if not greedy:
         raise NotImplementedError("only greedy decoding is served, as in the "
                                   "reference")
@@ -46,6 +51,8 @@ def run_serve(arch: str, batch: int, prompt_len: int, gen: int,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(vocab_size=512)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     key = rng.PRNGKey(0, device)
     params = init_model(key, cfg, device=device)
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=prompt_len,
@@ -80,12 +87,15 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the depth (full width kept)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     seqs, t_p, t_d = run_serve(args.arch, args.batch, args.prompt_len,
                                args.gen, reduced=args.reduced,
-                               device=args.device)
+                               device=args.device,
+                               num_layers=args.num_layers)
     print(f"generated {tuple(seqs.shape)} tokens; prefill {t_p:.2f}s, "
           f"{t_d * 1000:.1f} ms/token decode")
     print("first sequence:", seqs[0].tolist())

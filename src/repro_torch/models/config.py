@@ -4,9 +4,9 @@ config built here and one built there compare equal as dicts.
 
 A model is a stack of blocks; each block is ``(mixer, ffn)`` where
 mixer ∈ {attn, mamba} and ffn ∈ {dense, moe, moe+dense, none}.  The port runs
-the text pathway of the dense and SSM families (``qwen3-14b``,
-``mamba2-1.3b``); the other families' fields are kept so that every
-reference config can be stated here.
+the text pathway of the dense, MoE, SSM and hybrid families; the VLM and
+audio families' fields are kept so that every reference config can be
+stated here.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Model building blocks of the serving path: norms, RoPE, GQA attention
-(qk-norm / bias / sliding window), gated and relu² MLPs, the Mamba2 SSD
-mixer, embedding and unembedding.
+(qk-norm / bias / sliding window), gated and relu² MLPs, the top-k
+mixture of experts, the Mamba2 SSD mixer, embedding and unembedding.
 
 Mirrors ``repro/models/layers.py`` function for function.  Parameters are
 plain dicts of tensors in the reference's layouts (``wq`` (d, H, hd), ``wo``
@@ -12,7 +12,8 @@ states for normals); a batch of keys (…, 2) gives a batch of models.  The
 reference's ``*_init`` also return logical sharding specs; the port runs on
 one card and returns the params alone.
 
-Where the reference runs plain XLA, the port runs the hand-written kernels:
+Where the reference runs plain XLA, the port runs plain PyTorch (the MoE's
+routing, dispatch and batched expert products) or the hand-written kernels:
 attention in the ``train`` and ``prefill`` modes goes through
 ``gqa_flash_attention`` for both ``attention_impl`` values (``dense`` and
 ``chunked`` compute the same function), and the Mamba mixer's scan through
@@ -67,7 +68,7 @@ def dense_init(key: torch.Tensor, shape: Tuple[int, ...],
                            device="meta")
     std = float(torch.tensor(scale / math.sqrt(shape[in_axis]),
                              dtype=torch.float32))
-    return (rng.normal(key, shape) * std).to(dtype)
+    return rng.normal(key, shape).mul_(std).to(dtype)
 
 
 def _full(key: torch.Tensor, shape: Tuple[int, ...], value: float,
@@ -302,6 +303,116 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         act = _activation(cfg.activation)
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch with capacity, as the reference)
+# ---------------------------------------------------------------------------
+
+def moe_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    """The router (d, E) in float32 whatever ``cfg.dtype``, and the experts'
+    gated MLPs (E, d, ff), (E, d, ff), (E, ff, d), drawn from ``split(key,
+    4)`` as the reference draws them (the gate and up weights scaled by
+    their leading axis, E, as its ``dense_init`` default does)."""
+    d, e, dt = cfg.d_model, cfg.num_experts, _dtype(cfg)
+    ff = cfg.moe_d_ff or cfg.d_ff
+    ks = rng.split(key, 4)
+    return {
+        "router": dense_init(ks[..., 0, :], (d, e), torch.float32),
+        "w_gate": dense_init(ks[..., 1, :], (e, d, ff), dt),
+        "w_up": dense_init(ks[..., 2, :], (e, d, ff), dt),
+        "w2": dense_init(ks[..., 3, :], (e, ff, d), dt, in_axis=1,
+                         scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _expert_act(cfg: ModelConfig):
+    """The experts' gate activation: silu unless ``gelu_glu`` (a relu²
+    config's experts are gated silu MLPs, as in the reference)."""
+    return _activation("gelu_glu" if cfg.activation == "gelu_glu"
+                       else "silu_glu")
+
+
+def _expert_ffn(p: Params, xb: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """xb (E, Cap, d) -> (E, Cap, d): each expert's gated MLP on its buffer,
+    as batched products."""
+    act = _expert_act(cfg)
+    h = act(torch.matmul(xb, p["w_gate"])) * torch.matmul(xb, p["w_up"])
+    return torch.matmul(h, p["w2"])
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots an expert's buffer has for ``tokens`` tokens:
+    ceil(k·t·capacity_factor / E), rounded up to a multiple of 8, at
+    least 8."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = int(math.ceil(k * tokens * cfg.capacity_factor / e))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE over the flattened tokens: x (B, S, d) -> (y, aux).
+
+    The router runs in float32; the gates are the softmax's top k (ties to
+    the lower expert id, as ``jax.lax.top_k``: a stable descending sort)
+    renormalised by max(sum, 1e-9).  aux is the Switch load-balance loss
+    E · Σ_e f_e · p̄_e, f_e counting top-1 choices.  With ``moe_dropless``
+    every token's k experts contribute (an all-experts product weighted by
+    a (t, E) combine matrix); otherwise the assignments, sorted stably by
+    expert, fill (E, cap) buffers in that order, those past ``cap`` are
+    dropped (they contribute exactly zero), the experts run as batched
+    products and the outputs are summed back per token.  Out-of-place
+    scatters only, so ``torch.func.vmap`` and ``grad`` go through; under
+    vmap t and cap are a client's own."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    xt = x.reshape(t, d)
+    logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    sorted_p, sorted_i = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    gate_vals, gate_idx = sorted_p[:, :k], sorted_i[:, :k]       # (t, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    experts = torch.arange(e, device=x.device)
+    me = (gate_idx[:, :1] == experts).float().mean(0)
+    aux = e * torch.sum(me * probs.mean(0))
+
+    if cfg.moe_dropless:
+        combine = torch.zeros((t, e), dtype=torch.float32,
+                              device=x.device).scatter_add(1, gate_idx,
+                                                           gate_vals)
+        # (E, t, ff) products against the weights in place (an einsum
+        # would copy each (E, d, ff) weight into its own layout), then one
+        # contraction over (E, ff) as the reference's einsum takes it.
+        act = _expert_act(cfg)
+        g = torch.matmul(xt, p["w_gate"]).transpose(0, 1)
+        u = torch.matmul(xt, p["w_up"]).transpose(0, 1)
+        h = act(g) * u * combine.to(x.dtype)[..., None]
+        y = torch.einsum("tef,efd->td", h, p["w2"])
+        return y.reshape(b, s, d), aux
+
+    cap = moe_capacity(cfg, t)
+    flat_e = gate_idx.reshape(-1)                                  # (t·k,)
+    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
+    flat_g = gate_vals.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    counts = (flat_e[:, None] == experts).sum(0)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * k, device=x.device) - starts[se]
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, 0)        # dropped: slot 0, x 0
+    xbuf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
+    xbuf = xbuf.index_add(0, slot, xt[st] * keep[:, None].to(x.dtype))
+    ybuf = _expert_ffn(p, xbuf.reshape(e, cap, d), cfg).reshape(e * cap, d)
+    contrib = ybuf[slot] * (sg * keep)[:, None].to(x.dtype)
+    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    y = y.index_add(0, st, contrib)
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

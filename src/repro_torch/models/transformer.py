@@ -1,5 +1,6 @@
 """The decoder stack of the serving path: text input -> N blocks (mixer in
-{attn, mamba} x ffn in {dense, none}) -> final norm -> unembed.
+{attn, mamba} x ffn in {dense, moe, moe+dense, none}) -> final norm ->
+unembed.
 
 Mirrors ``repro/models/transformer.py``.  The reference stacks the blocks of
 a homogeneous stack on a leading repeat axis and ``lax.scan``s over params
@@ -7,8 +8,9 @@ and caches together (``scan_layers=True``); the port keeps a per-layer list
 of block params and a per-layer list of caches and runs a Python loop, so
 ``stack_plan`` here only describes the reference's layout (for
 ``repro_torch.convert``).  The reference's sharding constraints are
-single-device no-ops and are dropped.  MoE, cross-attention, the VLM and the
-audio pathways raise ``NotImplementedError``: they come with later slices.
+single-device no-ops and are dropped.  Cross-attention, the VLM and the
+audio pathways raise ``NotImplementedError``: they come with the VLM and
+audio slice.
 
 Weights are drawn from ``repro_torch.rng`` keys with the reference's split
 tree (``init_model``: ``split(key, 6)``; the stack's blocks as
@@ -43,9 +45,10 @@ def _unsupported(what: str, slice_name: str) -> NotImplementedError:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise _unsupported("the audio (encoder-decoder) pathway",
-                           "the audio slice")
+                           "the audio slice (the VLM and audio slice)")
     if cfg.arch_type == "vlm":
-        raise _unsupported("the VLM pathway", "the VLM slice")
+        raise _unsupported("the VLM pathway",
+                           "the VLM slice (the VLM and audio slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -53,8 +56,9 @@ def _check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def block_init(key: torch.Tensor, cfg: ModelConfig, kind: Kind) -> Params:
-    """One block from ``key``: ``split(key, 6)``, the mixer from slot 0 and
-    the MLP from slot 2, as the reference draws them."""
+    """One block from ``key``: ``split(key, 6)``, the mixer from slot 0, the
+    MLP or the MoE from slot 2 and a ``moe+dense`` block's residual MLP from
+    slot 3, as the reference draws them."""
     mixer, ffn = kind
     dt = L._dtype(cfg)
     ks = rng.split(key, 6)
@@ -63,11 +67,15 @@ def block_init(key: torch.Tensor, cfg: ModelConfig, kind: Kind) -> Params:
         params["attn"] = L.attention_init(ks[..., 0, :], cfg)
     else:
         params["mamba"] = L.mamba_init(ks[..., 0, :], cfg)
-    if ffn in ("moe", "moe+dense"):
-        raise _unsupported("the MoE feed-forward", "the MoE slice")
     if ffn != "none":
         params["ffn_norm"] = L.rmsnorm_init(key, cfg.d_model, dt)
-        params["mlp"] = L.mlp_init(ks[..., 2, :], cfg, cfg.d_ff)
+        if ffn in ("moe", "moe+dense"):
+            params["moe"] = L.moe_init(ks[..., 2, :], cfg)
+            if ffn == "moe+dense":
+                params["dense"] = L.mlp_init(ks[..., 3, :], cfg,
+                                             cfg.dense_residual_d_ff)
+        else:
+            params["mlp"] = L.mlp_init(ks[..., 2, :], cfg, cfg.d_ff)
     return params
 
 
@@ -75,8 +83,11 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Kind, *,
                 mode: str = "train", cache: Optional[Dict] = None,
                 window: int = 0
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (x, new_cache, aux_loss); aux is 0 without MoE."""
+    """Returns (x, new_cache, aux_loss); aux is the MoE's load-balance loss,
+    0 without MoE.  A ``moe+dense`` block adds its residual MLP's output to
+    the MoE's, both on the same normalised input."""
     mixer, ffn = kind
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm_apply(p["mixer_norm"], x, cfg.norm_eps)
     if mixer == "attn":
         mix, new_cache = L.attention_apply(
@@ -85,12 +96,16 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Kind, *,
         mix, new_cache = L.mamba_apply(p["mamba"], h, cfg, mode=mode,
                                        cache=cache)
     x = x + mix
-    if ffn in ("moe", "moe+dense"):
-        raise _unsupported("the MoE feed-forward", "the MoE slice")
     if ffn != "none":
         h2 = L.rmsnorm_apply(p["ffn_norm"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h2, cfg)
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+        if ffn in ("moe", "moe+dense"):
+            mo, aux = L.moe_apply(p["moe"], h2, cfg)
+            if ffn == "moe+dense":
+                mo = mo + L.mlp_apply(p["dense"], h2, cfg)
+            x = x + mo
+        else:
+            x = x + L.mlp_apply(p["mlp"], h2, cfg)
+    return x, new_cache, aux
 
 
 def block_cache_init(cfg: ModelConfig, kind: Kind, batch: int, max_len: int,

@@ -296,6 +296,49 @@ def test_bf16_flash_kernel_edges(cuda, bh, s, d, causal, window):
     assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-5).all())
 
 
+# head_dim 192 (nemotron-4-340b), three 64-column slabs of the bf16 kernel:
+# causal, windowed, without the mask, at an S of no multiple of either tile;
+# float32 on the CUDA cores likewise.
+@pytest.mark.parametrize("bh,s,dtype,causal,window", [
+    (8, 1000, torch.bfloat16, True, 0), (8, 1000, torch.bfloat16, True, 256),
+    (8, 77, torch.bfloat16, False, 0), (4, 333, torch.bfloat16, True, 40),
+    (4, 333, torch.float32, True, 40), (4, 77, torch.float32, False, 0)])
+def test_flash_kernel_at_head_dim_192(cuda, bh, s, dtype, causal, window):
+    q, k, v = (_randn((bh, s, 192), s + i, cuda).to(dtype) for i in range(3))
+    got = flash_attention(q, k, v, causal=causal, window=window).float()
+    want = attention_ref(q, k, v, causal, window).float()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    tol = (2e-5 * (1 + want.abs()) if dtype == torch.float32
+           else 2.0 ** -7 * want.abs() + 1e-5)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqa_kernel_at_head_dim_192_group_of_12(cuda, dtype):
+    """nemotron-4-340b's 96 q-heads over 8 kv-heads, with a lse for the
+    backward that the output does not depend on."""
+    q = _randn((1, 333, 96, 192), 7, cuda).to(dtype)
+    k, v = (_randn((1, 333, 8, 192), i, cuda).to(dtype) for i in (8, 9))
+    got = gqa_flash_attention(q, k, v).float()
+    want = gqa_attention_ref(q, k, v).float()
+    o, lse = FlashAttention.apply(q, k, v, True, 0, True)
+    torch.cuda.synchronize()
+    tol = (2e-5 * (1 + want.abs()) if dtype == torch.float32
+           else 2.0 ** -7 * want.abs() + 1e-5)
+    assert bool(((got - want).abs() <= tol).all())
+    assert torch.equal(o.float(), got)
+    assert lse.shape == (1, 96, 333) and bool(torch.isfinite(lse).all())
+
+
+def test_backward_at_head_dim_192_raises_naming_the_roadmap(cuda):
+    q = _randn((1, 64, 12, 192), 1, cuda).bfloat16()
+    k = _randn((1, 64, 1, 192), 2, cuda).bfloat16()
+    o, lse = FlashAttention.apply(q, k, k, True, 0, True)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        FlashAttentionBackward.apply(q, k, k, o, lse, o, True, 0)
+
+
 def test_bf16_gqa_kernel_matches_plain_version(cuda):
     q = _randn((2, 333, 40, 128), 4, cuda).bfloat16()
     k = _randn((2, 333, 8, 128), 5, cuda).bfloat16()
@@ -384,7 +427,7 @@ def test_ssd_kernel_groups_narrow_heads_and_a_ragged_tail(cuda, b, s, h, g,
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
-    q = _randn((2, 16, 48), 0, cuda)          # head_dim 48: not 64 or 128
+    q = _randn((2, 16, 48), 0, cuda)          # head_dim 48: not in HEAD_DIMS
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     x = _randn((1, 32, 2, 4), 0, cuda)
