@@ -51,11 +51,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    mamba2-1.3b's prefill shape (b=4, S=1024, H=64, P=64, G=1, N=128), at
    jamba-v0.1-52b's (4, 1024, 128, 64, 1, 16), at reduced shapes and on a
    long, strongly decaying sequence (S=2048, dt up to 10, A near -10);
-10. serve every arch of ``ARCH_IDS`` (the eight decoder-only archs) at
+10. serve every arch of ``ARCH_IDS`` (all ten) at
     ``reduced(dtype="float32")`` on the card and on the CPU from the same
-    weights and tokens, TF32 off: one ``flash_attention`` launch an
-    attention layer and one ``ssd_scan`` a Mamba layer, prefill logits,
-    every cache and every decode step's logits within ``SERVE_TOL``;
+    weights, tokens and stub patch or frame embeddings, TF32 off: one
+    ``flash_attention`` launch an attention layer (whisper-tiny's encoder
+    layers too) and one ``ssd_scan`` a Mamba layer, prefill logits, every
+    cache (the cross caches too) and every decode step's logits within
+    ``SERVE_TOL``;
 11. the serving main path: ``run_serve(arch, batch=4, prompt_len=1024,
     gen=16, reduced=False)`` for qwen3-14b, then for mamba2-1.3b, with the
     launch counts set to 0 just before and read just after (40
@@ -129,7 +131,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     backward at ``BWD_SHAPES`` (bf16, the tensor-core kernels, at
     qwen3-14b's (4, 1024, 40/8, 128) causal and window 256, head_dim 64,
     GQA groups 1, 5 and 8, S of 77, 190, 257, 300 and 333, windows of 20,
-    33 and 40, no causal mask; float32, the CUDA-core pair, at head_dim 16,
+    33 and 40, no causal mask, and whisper-tiny's full-width training
+    shapes (16, 1500, 6/6, 64) non-causal and (16, 448, 6/6, 64) causal;
+    float32, the CUDA-core pair, at head_dim 16,
     32, 64 and 128, GQA groups 1, 2 and 5, ragged S, a window of 5, no
     causal mask), each within ``BWD_TOL`` of its max |grad| of the plain
     backward and of a float64 plain backward, with the plain backward's own
@@ -186,6 +190,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     width and depth, 5 steps of 4 x 1024: finite losses, step time,
     tokens/s, peak, and one ``flash_attention`` and one
     ``flash_attention_bwd`` launch an attention layer a step.
+21. the VLM and audio pathways: (a) ``flash_attention`` at
+    phi-3-vision-4.2b's prefill (4, 2048, 32/32, 96) causal and at
+    whisper-tiny's encoder (16, 1500, 6/6, 64) without the causal mask,
+    each in bf16 and float32 against its plain version, the bf16 kernel
+    timed beside its bound, the plain version and SDPA; (b)
+    ``run_serve("phi-3-vision-4.2b", batch=4, prompt_len=1024, gen=16,
+    reduced=False)`` (1024 patches before 1024 tokens, 32 layers) and (c)
+    ``run_serve("whisper-tiny", batch=16, prompt_len=448, gen=16,
+    reduced=False)`` (1500 frames), with the launch counts set to 0 just
+    before and read just after (one ``flash_attention`` an attention layer
+    of the prefill, the encoder's 4 non-causal; none in decode), then
+    prefill ≡ forward and one decode step ≡ forward in bf16
+    (``MODAL_SELF_TOL_BF16``) and in float32 on the weights cast up; (d)
+    whisper-tiny's reduced gradients card against CPU and ``run_train`` at
+    full width and depth, 5 steps of 16 x 448: finite, falling losses,
+    step time, tokens/s, the batch draw's share, peak, launches a step; (e)
+    the dry-run's verdicts for both archs at long_500k, decode_32k and
+    prefill_32k (traced in the background), and one warm step of each pair
+    it marks fits_one_card.
 
 Without a CUDA device, without the checkout's ``src/repro_torch`` beside
 this file, or with ``REPRO_COMPUTE_BACKEND`` set, the script exits non-zero
@@ -198,12 +221,16 @@ phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
 ``trial_axis_*``, phase 14's ``clustered_*`` and phase 15's ``async_*``;
 ``ssd_scan``'s phase 16's ``train_launches`` and ``backward_*``;
 ``flash_attention``'s phase 12's ``lse_ms``, its ``d192_*`` times at
-nemotron-4-340b's shape and phase 20's ``zoo_launches``; ``ssd_scan``'s
+nemotron-4-340b's shape and phase 20's ``zoo_launches``, phase 21's
+``d96_*`` (phi-3-vision-4.2b's prefill shape) and ``noncausal_*``
+(whisper-tiny's encoder), ``modal_launches`` and
+``audio_train_launches``; ``ssd_scan``'s
 ``jamba_*`` times and phase 20's ``jamba_launches``; the backward kernels
 ``flash_attention_bwd``, its ``launches`` those of phase 16f's qwen3-14b
 run, ``fl_launches`` phase 16e's sim run, ``zoo_train_launches`` phase
-20's granite-moe run and ``f32_pair_ms`` the float32 pair at the same
-shape); the last line is ``{"ok": true, "device": {...}}``.
+20's granite-moe run, ``audio_train_launches`` phase 21d's whisper-tiny
+run and ``f32_pair_ms`` the float32 pair at the same shape); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -500,7 +527,7 @@ def _assert_close(what: str, got, want, tol: float) -> float:
 # The last entry, where given, lists the first template argument's values
 # that must be instantiated.
 TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",),
-                        ("64", "128", "192")),
+                        ("64", "96", "128", "192")),
                        ("flash_bwd_dq_wgmma", "HGMMA", ("D",)),
                        ("flash_bwd_dkv_wgmma", "HGMMA", ("D",)),
                        ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
@@ -811,14 +838,17 @@ def phase10_serve_card_vs_cpu(dev) -> None:
         params = init_model(PRNGKey(10), cfg, device="cpu")
         toks = torch.from_numpy(np.random.default_rng(10).integers(
             0, cfg.vocab_size, (2, prompt + gen)))
+        extra = modality_batch(cfg, 2, seed=10)
         runs = {}
         for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
             p = _tree_to(params, d)
             t = toks.to(d)
             kernels.reset_launch_counts()
             with torch.inference_mode():
-                logits, caches = prefill(p, cfg, {"tokens": t[:, :prompt]},
-                                         prompt + gen)
+                logits, caches = prefill(
+                    p, cfg, {"tokens": t[:, :prompt],
+                             **_tree_to(extra, d)},
+                    prompt + gen + patch_tokens(cfg))
                 steps = [logits]
                 snap = [_tree_to(caches, "cpu")]
                 for i in range(prompt, prompt + gen):
@@ -837,7 +867,8 @@ def phase10_serve_card_vs_cpu(dev) -> None:
                 for i, (a, b) in enumerate(zip(s_gpu, s_cpu))]
         cache_gap = 0.0
         for when, (cg, cc) in enumerate(zip(c_gpu, c_cpu)):
-            for layer, (lg, lc) in enumerate(zip(cg, cc)):
+            for layer, (lg, lc) in enumerate(zip(cache_layers(cg),
+                                                 cache_layers(cc))):
                 for key in lc:
                     if key == "idx":
                         if lg[key] != lc[key]:
@@ -853,16 +884,42 @@ def phase10_serve_card_vs_cpu(dev) -> None:
 
 def mixer_launches(cfg) -> dict:
     """The kernel launches of one prefill or forward of ``cfg``: one
-    ``flash_attention`` an attention layer, one ``ssd_scan`` a Mamba
-    layer."""
+    ``flash_attention`` an attention layer (an encoder-decoder's encoder
+    layers too, non-causal), one ``ssd_scan`` a Mamba layer."""
     kinds = [mixer for mixer, _ in cfg.layer_kinds()]
-    return {"flash_attention": kinds.count("attn"),
+    return {"flash_attention": kinds.count("attn") + cfg.encoder_layers,
             "ssd_scan": kinds.count("mamba")}
 
 
-def serve_gaps(params, cfg, toks) -> dict:
+def patch_tokens(cfg) -> int:
+    """Positions a VLM's patches take before its text in the caches and the
+    logits."""
+    return cfg.num_patch_tokens if cfg.arch_type == "vlm" else 0
+
+
+def modality_batch(cfg, b: int, seed: int, device="cpu") -> dict:
+    """The stub frontend inputs of a batch of ``b`` on ``device``, drawn as
+    the launchers draw them (``data.modality_inputs``) under
+    ``PRNGKey(seed)``: a VLM's ``patch_embeds``, an encoder-decoder's
+    ``frames``; none for the text archs."""
+    from repro_torch.data import modality_inputs
+    from repro_torch.rng import PRNGKey
+    return modality_inputs(cfg, PRNGKey(seed, device), b)
+
+
+def cache_layers(caches) -> list:
+    """The per-layer cache dicts of a model's caches: an encoder-decoder's
+    self caches, then its cross caches."""
+    if isinstance(caches, dict):
+        return list(caches["self"]) + list(caches["cross"])
+    return list(caches)
+
+
+def serve_gaps(params, cfg, toks, extra=None) -> dict:
     """``forward`` on toks (B, n + 1), ``prefill`` on the first n tokens and
-    one ``decode_step`` on token n.  Returns each call's kernel launches,
+    one ``decode_step`` on token n, each with the stub frontend inputs
+    ``extra`` (a VLM's logits run P patch positions ahead of its tokens).
+    Returns each call's kernel launches,
     whether its logits are finite, |forward|'s max (``scale``) and the
     max |diff| of prefill against forward at position n - 1 and of the
     decode step against forward at n: absolute (``prefill``, ``decode``) and
@@ -871,14 +928,18 @@ def serve_gaps(params, cfg, toks) -> dict:
     from repro_torch import kernels
     from repro_torch.models import decode_step, forward, prefill
     n = toks.shape[1] - 1
+    extra = extra or {}
+    pt = patch_tokens(cfg)
     calls, finite = {}, {}
     with torch.inference_mode():
         kernels.reset_launch_counts()
-        full, _ = forward(params, cfg, {"tokens": toks})
+        full, _ = forward(params, cfg, {"tokens": toks, **extra})
+        full = full[:, pt:]
         torch.cuda.synchronize()
         calls["forward"] = kernels.launch_counts()
         kernels.reset_launch_counts()
-        last, caches = prefill(params, cfg, {"tokens": toks[:, :n]}, n + 8)
+        last, caches = prefill(params, cfg, {"tokens": toks[:, :n], **extra},
+                               n + 8 + pt)
         torch.cuda.synchronize()
         calls["prefill"] = kernels.launch_counts()
         kernels.reset_launch_counts()
@@ -1122,41 +1183,15 @@ def phase12_times(dev) -> dict:
     say(f"ssd_scan kernels' own tensor-core work: {mma / 1e9:.1f} GFLOP "
         f"(split TF32, each product three times), "
         f"{mma / (ssd['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
-    return {"flash_attention": fa, "ssd_scan": ssd,
-            "flash_d192": _flash_d192_times(dev),
+    # nemotron-4-340b's prefill shape, (4, 1024, 96/8, 192) causal.
+    d192 = _attention_times(dev, SERVE_BATCH, SERVE_PROMPT, 96, 8, 192, True,
+                            seed=121)
+    mma = flash_mma_flops(SERVE_BATCH, SERVE_PROMPT, 96, 192)
+    say(f"flash_attention at head_dim 192, the bf16 kernel's own tensor-core "
+        f"work: {mma / 1e9:.1f} GFLOP, "
+        f"{mma / (d192['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
+    return {"flash_attention": fa, "ssd_scan": ssd, "flash_d192": d192,
             "ssd_jamba": _ssd_jamba_times(dev)}
-
-
-def _flash_d192_times(dev) -> dict:
-    """The bf16 forward at nemotron-4-340b's prefill shape, (4, 1024, 96/8,
-    192) causal: the kernel, its bound, the plain version and SDPA."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import gqa_attention_ref
-    from repro_torch.kernels.flash_attention.flash_attention import launch
-    g = torch.Generator(device=dev).manual_seed(121)
-    b, s, h, kvh, d = SERVE_BATCH, SERVE_PROMPT, 96, 8, 192
-    q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
-    k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
-            for _ in range(2))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out = {"ms": time_ms(lambda: launch(q, k, v, causal=True, window=0)),
-           "plain": time_ms(lambda: gqa_attention_ref(q, k, v), reps=3,
-                            trials=5),
-           "lib": time_ms(lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=True, enable_gqa=True))}
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    ops = 4 * b * h * d * s * (s + 1) // 2
-    out["bound"], out["by"] = bound(nbytes, ops, BF16_OPS_PER_S)
-    mma = flash_mma_flops(b, s, h, d)
-    say(f"flash_attention (B={b}, S={s}, H={h}, KV={kvh}, D={d}, bf16, "
-        f"causal): kernel {out['ms']:.4f} ms, bound {out['bound']:.4f} ms "
-        f"({out['by']}: {ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
-        f"{nbytes / 1e6:.1f} MB), plain {out['plain']:.4f} ms, "
-        f"scaled_dot_product_attention {out['lib']:.4f} ms; its own "
-        f"tensor-core work {mma / 1e9:.1f} GFLOP, "
-        f"{mma / (out['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
-    return out
 
 
 def _ssd_jamba_times(dev) -> dict:
@@ -2170,6 +2205,11 @@ BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
     (1, 190, 6, 6, 64, "bfloat16", False, 0),
     (2, 300, 16, 2, 128, "bfloat16", True, 20),
     (1, 257, 4, 2, 128, "bfloat16", False, 33),
+    # whisper-tiny's training shapes at full width: the encoder's 1500
+    # frames non-causal (11 full 128-row tiles and a 92-row edge) and the
+    # decoder's 448 tokens causal, batch 16.
+    (16, 1500, 6, 6, 64, "bfloat16", False, 0),
+    (16, 448, 6, 6, 64, "bfloat16", True, 0),
 ]
 # (b)–(d): gradients on the card against the CPU (TF32 off) within GRAD_TOL
 # of each leaf's largest magnitude, the limit that holds the port's
@@ -2293,18 +2333,20 @@ def phase16a_flash_backward(dev) -> dict:
     return t
 
 
-def _lm_grads(cfg, device, key, toks, targets):
+def _lm_grads(cfg, device, key, toks, targets, extra=None):
     """d(token_ce(forward)) of the flat params made from ``key`` on the
-    CPU, computed on ``device`` -> CPU tensors."""
+    CPU, computed on ``device`` -> CPU tensors; ``extra`` the stub frontend
+    inputs (CPU tensors) of an encoder-decoder."""
     import torch
     from repro_torch.models import forward, init_model, token_ce
     from repro_torch.models.transformer import (flatten_params,
                                                 unflatten_params)
     flat = flatten_params(init_model(key, cfg, device="cpu"))
+    batch = {"tokens": toks, **(extra or {})}
 
     def loss(p):
         logits, _ = forward(unflatten_params(p), cfg,
-                            {"tokens": toks.to(device)})
+                            {k: v.to(device) for k, v in batch.items()})
         return token_ce(logits, targets.to(device))[0]
 
     grads = torch.func.grad(loss)({k: v.to(device) for k, v in flat.items()})
@@ -3218,8 +3260,9 @@ def phase18e_refusal(dev, card: str) -> dict:
 # step at 16f's shape most of it), so a background process (one torch
 # thread, niced) starts before the build and runs beside phases 2-18: it
 # traces the six assigned prefill and decode pairs, then the steps phase 19
-# runs on the card at phase 11's and 16f's shapes, and prints one JSON
-# record a line to DRYRUN_LOG; phase 19 reads them.
+# runs on the card at phase 11's and 16f's shapes, then phase 21e's pairs
+# of the VLM and audio archs, and prints one JSON record a line to
+# DRYRUN_LOG; phases 19 and 21e read them.
 DRYRUN_LOG = ROOT / "build" / "phase19_dryrun.log"
 DRYRUN_WAIT_S = 450            # the most phase 19 waits for the traces
 P19_STEP_REPS = 3              # warm calls of a step timed (median)
@@ -3262,6 +3305,9 @@ for arch, layers in (("qwen3-14b", qwen_layers), ("mamba2-1.3b", 0)):
     emit(f"{arch} train step", dryrun.dryrun_step(
         arch, cfg, InputShape("phase19_train", seq, batch, "train"),
         microbatches=1))
+for arch in ("phi-3-vision-4.2b", "whisper-tiny"):          # phase 21e
+    for shape in ("long_500k", "decode_32k", "prefill_32k"):
+        pair(arch, shape)
 """
 _BACKGROUND: list = []
 
@@ -3754,6 +3800,353 @@ def phase20_zoo(dev) -> dict:
     return out
 
 
+# Phase 21: the VLM and audio pathways.  phi-3-vision-4.2b served at full
+# width and depth (32 layers, 3.74 B parameters, 7.5 GB in bf16): 4 prompts
+# of 1024 patches + 1024 tokens; whisper-tiny at its published contexts
+# (arXiv:2212.04356: 1500 encoder frames, 448 decoder tokens), served to 16
+# prompts and trained on 16 x 448 tokens, AdamW 3e-4, clip 1.0.
+VLM, AUDIO = "phi-3-vision-4.2b", "whisper-tiny"
+VLM_BATCH, VLM_PROMPT = 4, 1024
+AUDIO_BATCH, AUDIO_CONTEXT = 16, 448
+# Phase 21b-c's decode ≡ forward checks, as phase 20's (max |diff| / (1 +
+# |forward|) of the logits, prompt 200, seed 11, the stub inputs from seed
+# 11); float32 on the same weights cast up, TF32 off, at SELF_TOL_F32.  The
+# bf16 limits lie between the sound readings and the known faults' of
+# ``python3 scripts/torch_serve_drift.py --modal`` on H100 80GB HBM3 at
+# 700 W (PERF.md §6, PR 25).  phi-3-vision-4.2b: prefill bit-equal to
+# forward; decode 0.0235 sound, 0.0384 with the decode RoPE one position
+# off, 0.222 with decode positions that leave out the 1024 patches.
+# whisper-tiny: prefill 0.0038 (cuBLAS rounds calls of other row counts
+# apart); decode 0.0162 sound, 0.125 when a decode step's cross-attention
+# reads half the frames, 3.68 when every layer reads the first layer's
+# cross K/V.  (On NumPy-made stub inputs the same readings were 0.0215 and
+# 0.0322 for phi-3-vision-4.2b's sound and RoPE-fault decode.)
+MODAL_SELF_TOL_BF16 = {VLM: {"prefill": 1e-2, "decode": 0.03},
+                       AUDIO: {"prefill": 1e-2, "decode": 0.05}}
+# Phase 21e: the assigned pairs the card can run a step of (train_4k's
+# traces take minutes of host CPU; ``python -m repro_torch.launch.dryrun``
+# records them).
+MODAL_DRYRUN_SHAPES = ("long_500k", "decode_32k", "prefill_32k")
+
+
+def _attention_times(dev, b, s, h, kvh, d, causal: bool, seed: int) -> dict:
+    """The bf16 forward at (b, s, h/kvh, d): held against its plain version
+    (one bf16 ulp), then timed beside its bound, the plain version and
+    SDPA; float32 at the same shape held at FLASH_F32_TOL (TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import (gqa_attention_ref,
+                                                     gqa_flash_attention)
+    from repro_torch.kernels.flash_attention.flash_attention import launch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=g, device=dev)
+    k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev)
+            for _ in range(2))
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        kernels.reset_launch_counts()
+        got = gqa_flash_attention(qd, kd, vd, causal=causal).float()
+        torch.cuda.synchronize()
+        if kernels.launch_counts()["flash_attention"] != 1:
+            raise AssertionError("flash_attention: not one launch")
+        want = gqa_attention_ref(qd, kd, vd, causal).float()
+        err = (got - want).abs()
+        tol = (FLASH_F32_TOL * (1 + want.abs()) if dtype == torch.float32
+               else 2.0 ** -7 * want.abs() + 1e-5)
+        if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {(b, s, h, kvh, d)} "
+                                 f"{dtype} causal={causal}: max |diff| "
+                                 f"{err.max().item()}")
+        errs[str(dtype).replace("torch.", "")] = err.max().item()
+        del got, want, err
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = {"shape": [b, s, h, kvh, d], "causal": causal, "err": errs,
+           "ms": time_ms(lambda: launch(q, k, v, causal=causal, window=0)),
+           "plain": time_ms(lambda: gqa_attention_ref(q, k, v, causal),
+                            reps=2, trials=5),
+           "lib": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=causal, enable_gqa=h != kvh))}
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    pairs = s * (s + 1) // 2 if causal else s * s   # live (q, k) pairs
+    ops = 4 * b * h * d * pairs
+    out["bound"], out["by"] = bound(nbytes, ops, BF16_OPS_PER_S)
+    say(f"flash_attention (B={b}, S={s}, H={h}, KV={kvh}, D={d}, causal="
+        f"{causal}): bf16 max abs err {errs['bfloat16']:.3e}, float32 "
+        f"{errs['float32']:.3e}; bf16 kernel {out['ms']:.4f} ms, bound "
+        f"{out['bound']:.4f} ms ({out['by']}: {ops / 1e9:.1f} GFLOP at 989 "
+        f"TFLOP/s bf16, {nbytes / 1e6:.1f} MB), plain {out['plain']:.4f} ms,"
+        f" scaled_dot_product_attention {out['lib']:.4f} ms; "
+        f"{ops / (out['ms'] * 1e-3) / 1e12:.0f} TFLOP/s on the live pairs")
+    return out
+
+
+def _modal_serve(dev, arch: str, batch: int, prompt: int) -> dict:
+    """``run_serve`` of ``arch`` at full width and depth with the launch
+    counts set to 0 just before and read just after, then decode ≡
+    forward in bf16 and in float32 on the same weights cast up."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+    cfg = get_config(arch)
+    want = dict.fromkeys(kernels.launch_counts(), 0)
+    want["flash_attention"] = mixer_launches(cfg)["flash_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    seqs, t_prefill, t_decode = run_serve(arch, batch=batch,
+                                          prompt_len=prompt, gen=SERVE_GEN,
+                                          reduced=False, device=dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, expected {want} "
+                             f"(one an attention layer of the prefill, the "
+                             f"encoder's included; none in decode)")
+    if seqs.shape != (batch, SERVE_GEN) or int(seqs.min()) < 0 \
+            or int(seqs.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: tokens {tuple(seqs.shape)} out of "
+                             f"range")
+    del seqs
+    from repro_torch.launch.steps import param_count
+    say(f"{arch}: run_serve(batch={batch}, prompt_len={prompt}, gen="
+        f"{SERVE_GEN}, reduced=False), {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}"
+        f", {param_count(cfg) / 1e9:.3f} B params: prefill "
+        f"{t_prefill * 1e3:.1f} ms, decode {t_decode * 1e3:.2f} ms/token, "
+        f"peak {peak / 1e9:.2f} GB (the weights' init included), launches "
+        f"{launches}")
+    # decode ≡ forward, bf16 then float32 on the same weights cast up.
+    cfg16 = cfg
+    params, toks = self_consistency_inputs(dev, cfg16)
+    extra = modality_batch(cfg16, toks.shape[0], seed=11, device=dev)
+    gaps = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg16, dtype=dtype)
+        if dtype == "float32":
+            _cast_tree(params, torch.float32)
+            gc.collect()
+            torch.cuda.empty_cache()
+        old = _tf32(False, False) if dtype == "float32" else None
+        try:
+            g = serve_gaps(params, c, toks, extra)
+        finally:
+            if old is not None:
+                _tf32(*old)
+        mix = mixer_launches(c)["flash_attention"]
+        got = {call: g["launches"][call]["flash_attention"]
+               for call in ("forward", "prefill", "decode_step")}
+        if got != {"forward": mix, "prefill": mix, "decode_step": 0}:
+            raise AssertionError(f"{arch} {dtype}: launches per call {got}")
+        if not all(g["finite"].values()):
+            raise AssertionError(f"{arch} {dtype}: non-finite logits "
+                                 f"{g['finite']}")
+        tol = (SELF_TOL_F32 if dtype == "float32"
+               else MODAL_SELF_TOL_BF16[arch])
+        say(f"{arch} {dtype}, prompt {g['prompt']}: prefill ≡ forward max "
+            f"|diff| {g['prefill']:.3e} (relative {g['prefill_rel']:.3e}, "
+            f"limit {tol['prefill']}), decode_step ≡ forward {g['decode']:.3e}"
+            f" (relative {g['decode_rel']:.3e}, limit {tol['decode']}); "
+            f"|logits| up to {g['scale']:.2f}")
+        for name in ("prefill", "decode"):
+            if not g[name + "_rel"] <= tol[name]:
+                raise AssertionError(f"{arch} {dtype}: {name} vs forward "
+                                     f"differs by {g[name + '_rel']} over "
+                                     f"{tol[name]}")
+        gaps[dtype] = {k: g[k] for k in ("prefill_rel", "decode_rel")}
+    del params, toks, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "t_prefill": t_prefill,
+            "t_decode": t_decode, "peak": peak, "gaps": gaps}
+
+
+def _audio_train(dev) -> dict:
+    """(d) whisper-tiny's model gradients card against CPU at its reduced
+    config (TF32 off), then ``run_train`` at full width and depth."""
+    import gc
+    import math
+    import numpy as np
+    import torch
+    from repro_torch import kernels, rng
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, modality_inputs
+    from repro_torch.launch.train import run_train, synth_lm_batch
+    old = _tf32(False, False)
+    cfg = get_config(AUDIO).reduced(dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 200)))
+    extra = modality_batch(cfg, 2, seed=3)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = _lm_grads(cfg, dev, rng.PRNGKey(3), toks, _targets(toks), extra)
+    launches = kernels.launch_counts()
+    want = _lm_grads(cfg, torch.device("cpu"), rng.PRNGKey(3), toks,
+                     _targets(toks), extra)
+    _tf32(*old)
+    gap = _leaf_gap(got, want)
+    zero = [k for k in want if not want[k].abs().max() > 0]
+    say(f"{AUDIO} reduced float32 gradients (encoder and decoder, "
+        f"{len(want)} leaves): card vs CPU within {gap:.2e} of each leaf's "
+        f"max |grad| (limit {GRAD_TOL:.0e}); launches {launches}")
+    attn = mixer_launches(cfg)["flash_attention"]
+    if not gap <= GRAD_TOL or zero or (
+            launches["flash_attention"],
+            launches["flash_attention_bwd"]) != (attn, attn):
+        raise AssertionError(f"{AUDIO}: card gradients differ from the "
+                             f"CPU's by {gap}, zero leaves {zero}, launches "
+                             f"{launches}")
+    cfg = get_config(AUDIO)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    times = []
+    losses = run_train(AUDIO, TRAIN_STEPS, AUDIO_BATCH, AUDIO_CONTEXT,
+                       reduced=False, device=dev, step_times=times,
+                       log_every=TRAIN_STEPS)
+    launches = {k: v / TRAIN_STEPS
+                for k, v in kernels.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    tok_s = AUDIO_BATCH * AUDIO_CONTEXT / statistics.median(times[1:])
+    attn = mixer_launches(cfg)["flash_attention"]
+    # A step's synthetic batch alone: the categorical draw hashes batch x
+    # seq x vocab gumbels, the frames batch x 1500 x d normals.
+    ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=AUDIO_CONTEXT,
+                      device=dev)
+    draws = []
+    for i in range(3):
+        key = rng.fold_in(rng.PRNGKey(0, dev), i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synth_lm_batch(ds, key, AUDIO_BATCH)
+        modality_inputs(cfg, key, AUDIO_BATCH)
+        torch.cuda.synchronize()
+        draws.append(time.perf_counter() - t0)
+    draw_s = statistics.median(draws)
+    say(f"{AUDIO} run_train at full width and depth ({cfg.encoder_layers} "
+        f"encoder + {cfg.num_layers} decoder layers, {cfg.num_frames} "
+        f"frames): batch {AUDIO_BATCH} x {AUDIO_CONTEXT}; losses "
+        f"{[round(x, 4) for x in losses]}; step "
+        f"{[f'{x:.3f}' for x in times]} s (first with the kernels' first "
+        f"launches), {tok_s:.0f} tokens/s warm; of a step, the batch's "
+        f"token and frame draws alone {draw_s:.3f} s; peak "
+        f"{peak / 1e9:.2f} GB; launches a step {launches}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0] \
+            or (launches["flash_attention"],
+                launches["flash_attention_bwd"]) != (attn, attn):
+        raise AssertionError(f"{AUDIO} training: losses {losses}, launches "
+                             f"{launches} (expected {attn} flash_attention "
+                             f"and flash_attention_bwd a step)")
+    return {"grad_gap": gap, "losses": losses, "step_s": times,
+            "tokens_s": tok_s, "peak": peak, "launches": launches,
+            "draw_s": draw_s}
+
+
+def _modal_dryrun(dev, records: dict) -> dict:
+    """(e) the dry-run's verdict for both archs at the assigned prefill and
+    decode shapes (traced in the background process, DRYRUN_SCRIPT; the
+    train_4k pairs by the CPU CLI), and one warm step of each pair that it
+    marks fits_one_card."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.steps import (config_for_shape, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models import init_caches, init_model
+    from repro_torch.rng import PRNGKey
+    out = {}
+    for arch in (VLM, AUDIO):
+        params = None
+        for name in MODAL_DRYRUN_SHAPES:
+            shape, rec = SHAPES[name], records[f"{arch} {name}"]
+            row = {"fits": rec["fits_one_card"],
+                   "estimate": rec["peak_memory_per_device"],
+                   "launches": {k: v for k, v in
+                                rec["kernel_launches"].items() if v}}
+            if rec["fits_one_card"]:
+                cfg = config_for_shape(get_config(arch), shape)
+                if params is None:
+                    params = init_model(PRNGKey(21, dev), get_config(arch),
+                                        device=dev)
+                b, sl = shape.global_batch, shape.seq_len
+                g = np.random.default_rng(21)
+                if shape.kind == "decode":
+                    step, _ = make_serve_step(cfg, shape)
+                    caches = init_caches(cfg, b, sl, dev)
+                    for c in cache_layers(caches):
+                        if "idx" in c:
+                            c["idx"] = sl - 1    # a full cache
+                    toks = torch.from_numpy(g.integers(
+                        0, cfg.vocab_size, (b,)).astype(np.int32)).to(dev)
+                    fn = lambda: step(params, toks, caches)  # noqa: E731
+                else:
+                    step, _ = make_prefill_step(cfg, shape)
+                    text = sl - patch_tokens(cfg)
+                    batch = {"tokens": torch.from_numpy(g.integers(
+                        0, cfg.vocab_size, (b, text)).astype(np.int32)).to(
+                            dev), **modality_batch(cfg, b, 21, dev)}
+                    fn = lambda: step(params, batch)         # noqa: E731
+                try:
+                    ms, peak, res = _warm_ms(dev, fn, reps=1)
+                except torch.cuda.OutOfMemoryError as e:
+                    raise AssertionError(f"{arch} {name}: the dry-run marks "
+                                         f"it as fitting one card, and it "
+                                         f"ran out of memory: {e}") from e
+                del res, fn
+                row.update(ms=ms, peak=peak)
+                gc.collect()
+                torch.cuda.empty_cache()
+            out[f"{arch} {name}"] = row
+            say(f"dry-run {arch} x {name} ({shape.kind}, batch "
+                f"{shape.global_batch}, seq {shape.seq_len}): fits_one_card="
+                f"{row['fits']}, estimated peak {row['estimate'] / 1e9:.2f} "
+                f"GB, launches {row['launches']}"
+                + (f"; one warm step {row['ms']:.2f} ms, peak "
+                   f"{row['peak'] / 1e9:.2f} GB (max_memory_allocated, "
+                   f"{row['peak'] / row['estimate'] - 1:+.1%})"
+                   if "ms" in row else ""))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase21_modal(dev, records: dict) -> dict:
+    """The VLM and audio pathways on the card: (a) the kernel at their new
+    shapes, (b) phi-3-vision-4.2b and (c) whisper-tiny served, (d)
+    whisper-tiny trained, (e) the dry-run's verdicts and warm steps."""
+    say("== 21. the VLM and audio pathways: phi-3-vision-4.2b and "
+        "whisper-tiny at full width")
+    t_phase = time.time()
+    out = {}
+    say("-- 21a. flash_attention at head_dim 96 and without the causal mask")
+    out["d96"] = _attention_times(dev, VLM_BATCH, 2 * VLM_PROMPT, 32, 32, 96,
+                                  True, seed=211)
+    out["noncausal"] = _attention_times(dev, AUDIO_BATCH, 1500, 6, 6, 64,
+                                        False, seed=212)
+    say("-- 21b. phi-3-vision-4.2b served at full width and depth")
+    out[VLM] = _modal_serve(dev, VLM, VLM_BATCH, VLM_PROMPT)
+    say("-- 21c. whisper-tiny served at its published contexts")
+    out[AUDIO] = _modal_serve(dev, AUDIO, AUDIO_BATCH, AUDIO_CONTEXT)
+    say("-- 21d. whisper-tiny trained")
+    out["train"] = _audio_train(dev)
+    say("-- 21e. the dry-run at the assigned shapes")
+    out["dryrun"] = _modal_dryrun(dev, records)
+    say(f"phase 21 wall {time.time() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4061,8 +4454,10 @@ def main() -> int:
     phase18d_extension(dev, card)
     phase18e_refusal(dev, card)
     phase19(dev, card, p16f)
-    stop_background()
     p20 = phase20_zoo(dev)
+    p21 = phase21_modal(dev, dryrun_records(
+        [f"{a} {s}" for a in (VLM, AUDIO) for s in MODAL_DRYRUN_SHAPES]))
+    stop_background()
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -4129,7 +4524,17 @@ def main() -> int:
          "d192_bound_ms": fa192["bound"], "d192_bound_by": fa192["by"],
          "d192_library_ms": fa192["lib"],
          "zoo_launches": {a: r["launches"]["flash_attention"]
-                          for a, r in p20.items() if a != "train"}},
+                          for a, r in p20.items() if a != "train"},
+         **{f"{key}_{field}": p21[key][src]
+            for key in ("d96", "noncausal")
+            for field, src in (("shape", "shape"), ("ms", "ms"),
+                               ("plain_ms", "plain"), ("bound_ms", "bound"),
+                               ("bound_by", "by"), ("library_ms", "lib"),
+                               ("max_abs_err", "err"))},
+         "modal_launches": {a: p21[a]["launches"]["flash_attention"]
+                            for a in (VLM, AUDIO)},
+         "audio_train_launches": int(p21["train"]["launches"][
+             "flash_attention"] * TRAIN_STEPS)},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -4157,6 +4562,8 @@ def main() -> int:
          "library_ms": bwd["lib"], "f32_pair_ms": bwd["f32_ms"],
          "fl_launches": p16e["sim"]["launches"]["flash_attention_bwd"],
          "zoo_train_launches": int(p20["train"]["launches"][
+             "flash_attention_bwd"] * TRAIN_STEPS),
+         "audio_train_launches": int(p21["train"]["launches"][
              "flash_attention_bwd"] * TRAIN_STEPS)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

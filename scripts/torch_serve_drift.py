@@ -6,6 +6,7 @@ phase 11 limits (``SELF_TOL_BF16``).
     python3 scripts/torch_serve_drift.py [--arch qwen3-14b mamba2-1.3b]
                                          [--out build/serve_drift.json]
     python3 scripts/torch_serve_drift.py --zoo [--arch ARCH ...]
+    python3 scripts/torch_serve_drift.py --modal
 
 For each arch at full width in bf16, ``chip_smoke.serve_gaps`` (prefill
 against forward at the last prompt position, one decode step against
@@ -42,6 +43,19 @@ and for the MoE archs two known faults that touch only one-token calls
     gives them, without dividing by their sum;
   - ``dense_residual_left_out`` (arctic-480b): a ``moe+dense`` block adds
     the MoE's output alone.
+
+With ``--modal``, the readings behind phase 21's limits
+(``chip_smoke.MODAL_SELF_TOL_BF16``): phi-3-vision-4.2b and whisper-tiny at
+full width and depth in bf16 on phase 21's weights and stub inputs (seed
+11), ``sound`` and with known faults of their decode paths:
+
+  - phi-3-vision-4.2b ``decode_position_without_patches``: a decode step
+    rotates q and k at its text position, as if the cache held no patches;
+  - phi-3-vision-4.2b ``decode_rope_off_by_one`` (as qwen3-14b's);
+  - whisper-tiny ``cross_attention_sees_half_the_frames``: a decode step's
+    cross-attention reads only the first 750 frames' K/V;
+  - whisper-tiny ``cross_kv_of_the_first_layer``: every decoder layer's
+    decode step reads layer 0's cross K/V.
 
 Needs a CUDA device; prints one line a reading and writes them as JSON.
 """
@@ -160,6 +174,70 @@ def moe_patches(cfg) -> dict:
     return out
 
 
+def modal_patches(cfg) -> dict:
+    """Faults of the VLM's and the encoder-decoder's decode paths
+    (one-token calls only)."""
+    from repro_torch import models
+    from repro_torch.models import layers, transformer
+
+    rope = layers.rope
+    if cfg.arch_type == "vlm":
+        def shifted(by):
+            def fn(x, positions, theta):
+                if positions.shape[1] == 1:
+                    positions = positions + by
+                return rope(x, positions, theta)
+            return fn
+        return {"decode_position_without_patches":
+                [(layers, "rope", shifted(-cfg.num_patch_tokens))],
+                "decode_rope_off_by_one": [(layers, "rope", shifted(1))]}
+    cross = layers.cross_attention_apply
+    decode_step = transformer.decode_step
+
+    def half_the_frames(p, x, enc_kv, cfg_):
+        if x.shape[1] == 1:
+            f = enc_kv[0].shape[1] // 2
+            enc_kv = (enc_kv[0][:, :f], enc_kv[1][:, :f])
+        return cross(p, x, enc_kv, cfg_)
+
+    def first_layer_kv(params, cfg_, tokens, caches):
+        first = caches["cross"][0]
+        wrong = {"self": caches["self"],
+                 "cross": [first] * len(caches["cross"])}
+        logits, new = decode_step(params, cfg_, tokens, wrong)
+        return logits, {"self": new["self"], "cross": caches["cross"]}
+
+    return {"cross_attention_sees_half_the_frames":
+            [(layers, "cross_attention_apply", half_the_frames)],
+            "cross_kv_of_the_first_layer":
+            [(models, "decode_step", first_layer_kv)]}
+
+
+def drift_modal_arch(arch: str) -> dict:
+    """Phase 21's bf16 readings of ``arch``: sound and with its decode
+    faults, on phase 21's weights and stub inputs."""
+    import contextlib as cl
+    import torch
+    from chip_smoke import (modality_batch, self_consistency_inputs,
+                            serve_gaps)
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    params, toks = self_consistency_inputs(dev, cfg)
+    extra = modality_batch(cfg, toks.shape[0], seed=11, device=dev)
+    readings = {}
+    for name, fns in {"sound": [], **modal_patches(cfg)}.items():
+        with cl.ExitStack() as stack:
+            for module, attr, fn in fns:
+                stack.enter_context(patched(module, attr, fn))
+            readings[f"bfloat16 {name}"] = serve_gaps(params, cfg, toks,
+                                                      extra)
+    del params, toks, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "readings": readings}
+
+
 def drift_zoo_arch(arch: str) -> dict:
     """Phase 20's readings of ``arch``: sound and with the MoE faults, in
     each of its checked dtypes (the float32 weights the bf16 ones cast
@@ -215,6 +293,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", nargs="+", default=None)
     ap.add_argument("--zoo", action="store_true",
                     help="phase 20's archs and depths (see the note)")
+    ap.add_argument("--modal", action="store_true",
+                    help="phase 21's archs (see the note)")
     ap.add_argument("--out", default=str(ROOT / "build" / "serve_drift.json"))
     args = ap.parse_args(argv)
     import torch
@@ -229,14 +309,16 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     results = {"card": card, "archs": []}
     if args.arch is None:
-        from chip_smoke import ZOO_LAYERS
+        from chip_smoke import AUDIO, VLM, ZOO_LAYERS
         args.arch = (list(ZOO_LAYERS) if args.zoo
+                     else [VLM, AUDIO] if args.modal
                      else ["qwen3-14b", "mamba2-1.3b"])
     for arch in args.arch:
-        r = drift_zoo_arch(arch) if args.zoo else drift_arch(arch)
+        r = (drift_zoo_arch(arch) if args.zoo
+             else drift_modal_arch(arch) if args.modal else drift_arch(arch))
         results["archs"].append(r)
         for name, g in r["readings"].items():
-            label = name if args.zoo else f"bf16 {name}"
+            label = name if args.zoo or args.modal else f"bf16 {name}"
             print(f"{arch} {label}: prefill vs forward {g['prefill']:.4f}"
                   f" (rel {g['prefill_rel']:.4f}), decode vs forward "
                   f"{g['decode']:.4f} (rel {g['decode_rel']:.4f}), |logits| "

@@ -3,14 +3,22 @@
 
     python3 scripts/torch_serve_profile.py [--arch qwen3-14b mamba2-1.3b]
                                            [--out build/serve_profile.json]
+    python3 scripts/torch_serve_profile.py --arch phi-3-vision-4.2b whisper-tiny
 
 For each arch at full width (random weights from seed 0, as ``run_serve``
-draws them; batch 4, prompt 1024, the shapes ``chip_smoke.py`` serves):
+draws them, and its stub patch or frame embeddings; batch 4, prompt 1024,
+the shapes ``chip_smoke.py`` serves; whisper-tiny batch 16, prompt 448, as
+phase 21 serves it):
 
 * prefill: warm wall time (two calls first, then one timed call), and one
   call under ``torch.profiler`` — device time by kernel, device busy share;
 * decode: warm wall time per token over 10 steps, and one step under the
   profiler — device time, host time, kernel launches.
+
+The encoder-decoder's parts are profiler ranges, whose device time is
+that of the kernels launched inside them: ``encoder`` (``encode_audio``),
+``cross_kv`` (``encode_cross_kv``, the decoder layers' K/V of the encoder
+output) and ``cross_attention`` (``cross_attention_apply``, plain PyTorch).
 
 Needs a CUDA device; prints a summary and writes the numbers as JSON.
 """
@@ -32,9 +40,27 @@ def _sync():
     torch.cuda.synchronize()
 
 
+# Profiler ranges around the encoder-decoder's parts (see the note).
+RANGES = {"encoder": ("transformer", "encode_audio"),
+          "cross_kv": ("layers", "encode_cross_kv"),
+          "cross_attention": ("layers", "cross_attention_apply")}
+# (batch, prompt) a served arch takes; the rest take (4, 1024).
+SERVE_SHAPE = {"whisper-tiny": (16, 448)}
+
+
+def _ranged(fn, name: str):
+    from torch.profiler import record_function
+
+    def wrapped(*args, **kw):
+        with record_function(name):
+            return fn(*args, **kw)
+    return wrapped
+
+
 def _profile(fn, top: int = 8) -> dict:
     """Device time by kernel name, device total and host wall time of one
-    ``fn()`` under torch.profiler."""
+    ``fn()`` under torch.profiler, and the device time inside each of
+    ``RANGES``."""
     from torch.profiler import ProfilerActivity, profile
     _sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -43,10 +69,17 @@ def _profile(fn, top: int = 8) -> dict:
         fn()
         _sync()
         wall = time.perf_counter() - t0
-    kernels = {}
+    kernels, ranges = {}, {}
     launches = 0
     for ev in prof.events():
-        if ev.device_type.name == "CUDA":
+        if ev.name in RANGES:
+            # The range's host event carries its kernels' device time; its
+            # device-side copy (the span on the card's timeline) is left
+            # out of the kernel totals.
+            if ev.device_type.name != "CUDA":
+                ranges[ev.name] = (ranges.get(ev.name, 0.0)
+                                   + ev.device_time_total / 1e3)
+        elif ev.device_type.name == "CUDA":
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total
         elif ev.name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
             launches += 1
@@ -54,7 +87,7 @@ def _profile(fn, top: int = 8) -> dict:
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
             "busy_share": device_us / 1e3 / (wall * 1e3),
-            "launches": launches,
+            "launches": launches, "ranges_ms": ranges,
             "top": [(name[:80], us / 1e3) for name, us in ranked]}
 
 
@@ -62,21 +95,25 @@ def profile_arch(arch: str) -> dict:
     import torch
     from repro_torch import rng
     from repro_torch.configs import get_config
-    from repro_torch.data import TokenDataset
+    from repro_torch.data import TokenDataset, modality_inputs
     from repro_torch.models import decode_step, init_model, prefill
 
     dev = torch.device("cuda")
     cfg = get_config(arch)
     params = init_model(rng.PRNGKey(0, dev), cfg, device=dev)
-    batch, prompt_len = 4, 1024
+    batch, prompt_len = SERVE_SHAPE.get(arch, (4, 1024))
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       device=dev)
-    prompts = ds.sample(rng.PRNGKey(0, dev),
-                        torch.arange(batch, device=dev) % ds.num_domains)
+    key = rng.PRNGKey(0, dev)
+    inputs = {"tokens": ds.sample(key, torch.arange(batch, device=dev)
+                                  % ds.num_domains),
+              **modality_inputs(cfg, key, batch)}
+    prompts = inputs["tokens"]
+    patches = cfg.num_patch_tokens if cfg.arch_type == "vlm" else 0
     res = {"arch": arch, "batch": batch, "prompt_len": prompt_len}
     with torch.inference_mode():
-        run = lambda: prefill(params, cfg, {"tokens": prompts},
-                              prompt_len + 16)
+        run = lambda: prefill(params, cfg, inputs,          # noqa: E731
+                              prompt_len + 16 + patches)
         for _ in range(2):
             run()
         _sync()
@@ -122,6 +159,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    from repro_torch.models import layers, transformer
+    modules = {"layers": layers, "transformer": transformer}
+    for name, (module, attr) in RANGES.items():
+        setattr(modules[module], attr,
+                _ranged(getattr(modules[module], attr), name))
     results = {"card": card, "archs": [profile_arch(a) for a in args.arch]}
     for r in results["archs"]:
         pp, dp = r["prefill_profile"], r["decode_profile"]
@@ -130,12 +172,18 @@ def main(argv=None) -> int:
         print(f"  prefill {r['prefill_ms']:.1f} ms warm; profiled: wall "
               f"{pp['wall_ms']:.1f} ms, device {pp['device_ms']:.1f} ms "
               f"(busy {pp['busy_share']:.1%}), {pp['launches']} launches")
+        for name, ms in pp["ranges_ms"].items():
+            print(f"    {ms:9.3f} ms  in the range {name!r} "
+                  f"({ms / pp['device_ms']:.1%} of the device time)")
         for name, ms in pp["top"]:
             print(f"    {ms:9.3f} ms  {name}")
         print(f"  decode {r['decode_ms_per_token']:.2f} ms/token warm; "
               f"profiled: wall {dp['wall_ms']:.1f} ms, device "
               f"{dp['device_ms']:.2f} ms (busy {dp['busy_share']:.1%}), "
               f"{dp['launches']} launches")
+        for name, ms in dp["ranges_ms"].items():
+            print(f"    {ms:9.3f} ms  in the range {name!r} "
+                  f"({ms / dp['device_ms']:.1%} of the device time)")
         for name, ms in dp["top"]:
             print(f"    {ms:9.3f} ms  {name}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

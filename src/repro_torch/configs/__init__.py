@@ -1,12 +1,11 @@
 """Configurations: the paper's CNN and FL constants, and the architecture
 registry (``get_config(arch_id)``) for the archs the port serves.
 
-The reference registers ten archs.  This port serves the eight decoder-only
-ones: the dense (``qwen3-14b``, ``minitron-4b``, ``qwen2-72b``,
-``nemotron-4-340b``), MoE (``granite-moe-1b-a400m``, ``arctic-480b``), SSM
-(``mamba2-1.3b``) and hybrid (``jamba-v0.1-52b``) families.  Asking for the
-VLM or the audio arch raises a ``KeyError`` that says which later slice
-brings it.
+The port serves the reference's ten archs: the dense (``qwen3-14b``,
+``minitron-4b``, ``qwen2-72b``, ``nemotron-4-340b``), MoE
+(``granite-moe-1b-a400m``, ``arctic-480b``), SSM (``mamba2-1.3b``), hybrid
+(``jamba-v0.1-52b``), VLM (``phi-3-vision-4.2b``) and audio encoder-decoder
+(``whisper-tiny``) families.
 """
 from __future__ import annotations
 
@@ -26,22 +25,14 @@ _ARCH_MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "arctic-480b": "arctic_480b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
-}
-# Reference archs not served yet -> the later slice of the port that brings
-# them (ROADMAP.md Queue 1).
-_LATER = {
-    "phi-3-vision-4.2b": "the VLM and audio slice",
-    "whisper-tiny": "the VLM and audio slice",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in _LATER:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: it comes with "
-                       f"{_LATER[arch_id]} (a later slice of the port, "
-                       f"ROADMAP.md Queue 1); have {ARCH_IDS}")
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     mod = importlib.import_module(f"{__name__}.{_ARCH_MODULES[arch_id]}")

@@ -16,7 +16,11 @@ neither needs JAX.  The layout rule belongs to the model:
   become the port's per-layer list, layer ``r * period + j`` = repeat r of
   block j, and back.  ``flat=True`` gives the flat dotted form the ``lm``
   FL workload carries (``transformer.flatten_params``), which
-  ``lm_params_to_jax`` also takes.
+  ``lm_params_to_jax`` also takes.  The other subtrees go leaf for leaf: a
+  VLM's ``projector``, and an encoder-decoder's ``encoder.blocks`` (a tuple
+  a layer there, a list here); its decoder blocks, which carry
+  ``cross_norm``/``cross_attn``, are unrolled on both sides whatever
+  ``scan_layers`` says, as the reference's ``init_model`` builds them.
 """
 from __future__ import annotations
 
@@ -108,15 +112,31 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def _to_torch(node: Any, device: torch.device) -> Any:
+    """A reference subtree -> the port's: dicts stay dicts, a tuple of
+    blocks becomes a list."""
     if isinstance(node, Mapping):
         return {k: _to_torch(v, device) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return [_to_torch(v, device) for v in node]
     return _leaf_to_torch(node, device)
 
 
 def _to_numpy(node: Any) -> Any:
+    """:func:`_to_torch` undone: a list of blocks becomes a tuple."""
     if isinstance(node, Mapping):
         return {k: _to_numpy(v) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return tuple(_to_numpy(v) for v in node)
     return _leaf_to_numpy(node)
+
+
+def _stack_layout(cfg: ModelConfig):
+    """(period, repeats) of the reference's ``stack.blocks``: an
+    encoder-decoder's decoder is unrolled whatever ``scan_layers`` says."""
+    if cfg.is_encoder_decoder:
+        return cfg.num_layers, 1
+    _, period, reps = stack_plan(cfg)
+    return period, reps
 
 
 def _take(node: Any, r: int) -> Any:
@@ -139,7 +159,7 @@ def lm_params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
     -> the port's params on ``device``, with ``stack.blocks`` a per-layer
     list (or, with ``flat``, the ``lm`` workload's flat dotted form)."""
     device = resolve_device(device)
-    _, period, reps = stack_plan(cfg)
+    period, reps = _stack_layout(cfg)
     blocks = tree["stack"]["blocks"]
     if len(blocks) != period:
         raise ValueError(f"expected {period} stacked block trees for "
@@ -158,7 +178,7 @@ def lm_params_to_jax(params: Mapping[str, Any], cfg: ModelConfig
     leading repeat axis as ``scan_layers`` asks."""
     if "stack" not in params:
         params = unflatten_params(dict(params))
-    _, period, reps = stack_plan(cfg)
+    period, reps = _stack_layout(cfg)
     layers = [_to_numpy(b) for b in params["stack"]["blocks"]]
     if len(layers) != period * reps:
         raise ValueError(f"expected {period * reps} layers for {cfg.name}; "

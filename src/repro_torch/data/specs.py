@@ -9,8 +9,8 @@ port's layout: a list a layer, no repeat axis, and a host-int ``idx``
 
 Modality carve-out: for the VLM and audio families the frontend is stubbed;
 the specs give precomputed patch or frame embeddings of the right shape.
-Their batch specs need only config fields; their decode specs wait for the
-slices that port those pathways (``init_caches`` raises, naming the slice).
+An encoder-decoder's decode caches are ``{"self": [...], "cross": [...]}``,
+the cross K/V (B, num_frames, KV, hd) a decoder layer.
 """
 from __future__ import annotations
 
@@ -64,13 +64,21 @@ def decode_specs(cfg: ModelConfig, shape: InputShape
     """Specs of one decode step: a token a sequence and the resident caches
     of ``shape.seq_len`` (a window's ring where ``cfg.sliding_window`` is
     shorter).  Each cache's ``idx`` is ``seq_len - 1``: the step's token is
-    the last the cache holds, and it attends to a full cache."""
+    the last the cache holds, and it attends to a full cache.  An
+    encoder-decoder's cross caches have logical axes ``(BATCH, None,
+    KV_HEADS, None)``, as the reference gives them."""
     b = shape.global_batch
     caches = init_caches(cfg, b, shape.seq_len, device=META)
-    for cache in caches:
+    cache_logical: Any = stack_cache_specs(cfg)
+    for cache in (caches["self"] if cfg.is_encoder_decoder else caches):
         cache["idx"] = shape.seq_len - 1
+    if cfg.is_encoder_decoder:
+        cross = (sh.BATCH, None, sh.KV_HEADS, None)
+        cache_logical = {"self": cache_logical,
+                         "cross": [{"k": cross, "v": cross}
+                                   for _ in range(cfg.num_layers)]}
     specs = {"tokens": _spec((b,), torch.int32), "caches": caches}
-    logical = {"tokens": (sh.BATCH,), "caches": stack_cache_specs(cfg)}
+    logical = {"tokens": (sh.BATCH,), "caches": cache_logical}
     return specs, logical
 
 

@@ -171,3 +171,18 @@ class TokenDataset:
                                                     - key.dim() + 1) + (2,))
         lp = self.log_probs[torch.clamp(domains, min=0)]
         return rng.categorical_rows(keys, seq * per_seq, lp, self.seq_len)
+
+
+def modality_inputs(cfg, key, batch: int) -> dict:
+    """The stub frontends' inputs under ``key``, as the reference's launchers
+    draw them: a VLM's ``patch_embeds`` (B, num_patch_tokens,
+    vision_embed_dim), an encoder-decoder's ``frames`` (B, num_frames,
+    d_model), each ``normal(key, shape)`` in float32; nothing for the text
+    archs.  ``cfg`` is a ``models.config.ModelConfig``."""
+    out = {}
+    if cfg.arch_type == "vlm":
+        out["patch_embeds"] = rng.normal(
+            key, (batch, cfg.num_patch_tokens, cfg.vision_embed_dim))
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.normal(key, (batch, cfg.num_frames, cfg.d_model))
+    return out

@@ -1,4 +1,5 @@
-// Causal / sliding-window attention with online softmax on Hopper:
+// Causal / sliding-window / bidirectional attention with online softmax on
+// Hopper:
 //   o[b, i, h, :] = sum_j softmax_j(q[b, i, h, :] . k[b, j, kh, :] / sqrt(D)) v[b, j, kh, :]
 // over the keys j that query i may see (j <= i when causal, j > i - window
 // when window > 0, j < S always), kh = h / (H / KV).  q (B, S, H, D),
@@ -25,7 +26,9 @@
 // H=40, KV=8, D=128, bf16, causal) the live half of Q.K^T and P.V is
 // 43 GFLOP, 43.5 us at the 989 TFLOP/s of the bf16 tensor cores, against
 // 101 MB of q/k/v/o (30 us at 3.35 TB/s).  At nemotron-4-340b's (4, 1024,
-// 96/8, 192) it is 154.8 GFLOP, 156.5 us.
+// 96/8, 192) it is 154.8 GFLOP, 156.5 us; at phi-3-vision-4.2b's (4, 2048,
+// 32/32, 96) 103.1 GFLOP, 104.3 us; at whisper-tiny's encoder (16, 1500,
+// 6/6, 64, no causal mask: every pair live) 55.3 GFLOP, 55.9 us.
 //
 // bfloat16, the serving dtype: a tensor-core kernel (flash_attention_wgmma).
 // * A work item is 128 query rows (a q-tile) of one (b, h).  A block of
@@ -47,6 +50,16 @@
 //   k16 steps over them, P.V one m64n192k16 product a step whose B operand
 //   steps from slab to slab by the descriptor's leading offset, and Q gets
 //   one buffer instead of two (TcLayout: two do not fit beside the ring).
+// * D = 96 (phi-3-vision-4.2b): a 192-byte row fits no 128-byte swizzled
+//   box, and wgmma's 128-byte MN-major layout steps N in 64-column atoms, so
+//   Q, K and V are three 32-column slabs of 64-byte rows under the 64-byte
+//   swizzle (TMA boxes of 32 columns, descriptors of swizzle mode 2 whose 8
+//   rows span 512 bytes).  Q.K^T takes six k16 steps, two a slab; P.V is one
+//   m64n96k16 product a step, the slabs one leading offset apart, O 48
+//   floats a thread.  A Q tile is 24,576 bytes and a K+V stage 24,576, so
+//   two Q buffers and the 3-stage ring take 123,984 bytes.
+// * causal = 0 (the audio encoder): every key tile below S is live for
+//   every row, and only the last, straddling S, takes the element mask.
 // * S = Q.K^T by wgmma m64n64k16 (Q and K K-major in shared memory), the
 //   online softmax on the accumulator fragment (row max and sum over the four
 //   threads of a fragment row by shuffles, alpha = exp(m_old - m_new) applied
@@ -69,8 +82,9 @@
 // FL LM workloads (head_dim 16 to 128), not the serving dtype, stays on a
 // CUDA-core kernel by design (flash_attention_f32_kernel): 256 threads own
 // 64 query rows, 32-key tiles, float32 FMAs, Q/K transposed and V in shared
-// memory.  D is 16, 32, 64, 128 or 192 in float32, 64, 128 or 192 in
-// bfloat16.  The backward below takes D up to 128.
+// memory.  D is 16, 32, 64, 96, 128 or 192 in float32, 64, 96, 128 or 192
+// in bfloat16.  The backward below takes D of 64 and 128 in bfloat16 and 16
+// to 128 but 96 in float32.
 //
 // The backward pair for both dtypes is at the end of the file.
 #include <cuda.h>
@@ -109,7 +123,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse, int seq, int heads,
                            int kv_heads, int causal, int window, float scale) {
-  static_assert(D % 16 == 0 && D <= 192, "D is 16, 32, 64, 128 or 192");
+  static_assert(D % 16 == 0 && D <= 192, "D is 16, 32, 64, 96, 128 or 192");
   constexpr int DC = D / 16;      // output columns a thread
   constexpr int D4 = D / 4;       // float4 groups in a row
   extern __shared__ float smem[];
@@ -276,11 +290,17 @@ constexpr int kRow = 128;             // bytes of one swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// Q, K and V tiles are column slabs of 64 bf16 (128-byte rows, 128-byte
+// swizzle) where D is a multiple of 64; at D = 96 three slabs of 32 (64-byte
+// rows, 64-byte swizzle), so that P.V is one m64n96k16 product over
+// canonical MN-major slabs (no 64-column layout holds 96 columns).
 template <int D>
 struct TcLayout {
-  static constexpr int kHalves = D / 64;              // 64-column slabs
-  static constexpr int kQBytes = kHalves * kTcBQ * kRow;
-  static constexpr int kTileBytes = kHalves * kTcBK * kRow;   // K or V
+  static constexpr int kSlabCols = D % 64 == 0 ? 64 : 32;
+  static constexpr int kRowBytes = 2 * kSlabCols;      // one swizzled row
+  static constexpr int kHalves = D / kSlabCols;        // column slabs
+  static constexpr int kQBytes = kHalves * kTcBQ * kRowBytes;
+  static constexpr int kTileBytes = kHalves * kTcBK * kRowBytes;  // K or V
   static constexpr int kRingBytes = kStages * 2 * kTileBytes;
   static constexpr int kBarBytes = 8 * (4 + 2 * kStages);
   // The forward's Q buffers: two, so that the next item's Q arrives while
@@ -356,6 +376,21 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor of TcLayout<D>'s slabs: 128-byte swizzle (mode 1) over
+// 128-byte rows, or 64-byte swizzle (mode 2) over 64-byte rows, where 8 rows
+// span 512 bytes and an MN-major operand's next 32 columns lie one slab on.
+template <int D>
+__device__ __forceinline__ uint64_t tc_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  if constexpr (TcLayout<D>::kSlabCols == 64) {
+    return sw128_desc(addr, lbo, sbo);
+  } else {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+  }
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -435,6 +470,34 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 96, float32 fragment) += A . B: A a bf16 register fragment (64 x 16),
+// B (16 x 96) bf16 in shared memory, MN-major (transposed), 64-byte swizzle:
+// three 32-column slabs one leading offset apart.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 128, float32 fragment) += A . B: A a bf16 register fragment (64 x 16),
 // B (16 x 128) bf16 in shared memory, MN-major (transposed), 128-byte swizzle.
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -511,42 +574,51 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
 }
 
 // S = Q . K^T for one 64-key tile of this warpgroup's 64 rows, one wgmma
-// group: over D in steps of 16, +32 bytes inside a 128-byte swizzled row,
-// the next 64-column slab after four steps.
+// group: over D in steps of 16, +32 bytes inside a swizzled row, the next
+// column slab after four steps (two at D = 96).
 template <int D>
 __device__ __forceinline__ void start_scores(float (&sc)[kTcBK / 2],
                                              uint32_t qs, uint32_t ks) {
+  using L = TcLayout<D>;
+  constexpr int kSteps = L::kSlabCols / 16;    // k16 steps a slab
+  constexpr uint32_t kSbo = 8 * L::kRowBytes;  // 8 rows
 #pragma unroll
   for (int j = 0; j < kTcBK / 2; ++j) sc[j] = 0.f;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_ss_n64(sc, sw128_desc(qs + (kk / 4) * kTcBQ * kRow + off, 16, 1024),
-                 sw128_desc(ks + (kk / 4) * kTcBK * kRow + off, 16, 1024),
-                 kk > 0);
+    const uint32_t off = (kk % kSteps) * 32;
+    const int slab = kk / kSteps;
+    wgmma_ss_n64(
+        sc, tc_desc<D>(qs + slab * kTcBQ * L::kRowBytes + off, 16, kSbo),
+        tc_desc<D>(ks + slab * kTcBK * L::kRowBytes + off, 16, kSbo), kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P_hi . V + P_lo . V for one tile, one wgmma group: 16 keys a step
-// (two 8-row groups of 1024 bytes), each further 64 columns of D one slab
-// (kTcBK rows) further.
+// (two 8-row groups), each further slab of D's columns one slab (kTcBK rows)
+// further.
 template <int D>
 __device__ __forceinline__ void start_pv(float (&acc)[D / 2],
                                          const uint32_t (&p_hi)[kTcBK / 16][4],
                                          const uint32_t (&p_lo)[kTcBK / 16][4],
                                          uint32_t vs) {
+  using L = TcLayout<D>;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kTcBK / 16; ++kk) {
-    const uint64_t dv = sw128_desc(vs + kk * 16 * kRow, kTcBK * kRow, 1024);
+    const uint64_t dv = tc_desc<D>(vs + kk * 16 * L::kRowBytes,
+                                   kTcBK * L::kRowBytes, 8 * L::kRowBytes);
     if constexpr (D == 192) {
       wgmma_rs_n192(acc, p_hi[kk], dv);
       wgmma_rs_n192(acc, p_lo[kk], dv);
     } else if constexpr (D == 128) {
       wgmma_rs_n128(acc, p_hi[kk], dv);
       wgmma_rs_n128(acc, p_lo[kk], dv);
+    } else if constexpr (D == 96) {
+      wgmma_rs_n96(acc, p_hi[kk], dv);
+      wgmma_rs_n96(acc, p_lo[kk], dv);
     } else {
       wgmma_rs_n64(acc, p_hi[kk], dv);
       wgmma_rs_n64(acc, p_lo[kk], dv);
@@ -677,8 +749,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       int batch, int seq, int heads, int kv_heads,
                       int causal, int window, float scale_log2) {
   using L = TcLayout<D>;
-  constexpr int kSlabQ = kTcBQ * kRow;     // bytes of one 64-column Q slab
-  constexpr int kSlabKV = kTcBK * kRow;    // bytes of one 64-column K/V slab
+  constexpr int kSlabQ = kTcBQ * L::kRowBytes;   // bytes of one Q slab
+  constexpr int kSlabKV = kTcBK * L::kRowBytes;  // bytes of one K/V slab
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;          // [kQBufs][slab][128 rows][128 B]
@@ -726,7 +798,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int hf = 0; hf < L::kHalves; ++hf)
           tma_load(sq + qb * L::kQBytes + hf * kSlabQ, &tm_q, q_full + 8 * qb,
-                   64 * hf, it.h, it.q0, it.b);
+                   L::kSlabCols * hf, it.h, it.q0, it.b);
         for (int t = it.t_lo; t < it.t_hi; ++t, ++n) {
           const int s = n % kStages;
           if (n >= kStages)
@@ -736,10 +808,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
           mbar_expect_tx(full_bar + 8 * s, 2 * L::kTileBytes);
 #pragma unroll
           for (int hf = 0; hf < L::kHalves; ++hf) {
-            tma_load(ks + hf * kSlabKV, &tm_k, full_bar + 8 * s, 64 * hf,
-                     it.kh, t * kTcBK, it.b);
-            tma_load(vs + hf * kSlabKV, &tm_v, full_bar + 8 * s, 64 * hf,
-                     it.kh, t * kTcBK, it.b);
+            tma_load(ks + hf * kSlabKV, &tm_k, full_bar + 8 * s,
+                     L::kSlabCols * hf, it.kh, t * kTcBK, it.b);
+            tma_load(vs + hf * kSlabKV, &tm_v, full_bar + 8 * s,
+                     L::kSlabCols * hf, it.kh, t * kTcBK, it.b);
           }
         }
       }
@@ -761,7 +833,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const int row_lo = it.q0 + 64 * wg;
       const int qa = row_lo + r0, qb = qa + 8;
       const int qbuf = j % L::kQBufs;
-      const uint32_t qs = sq + qbuf * L::kQBytes + wg * 64 * kRow;
+      const uint32_t qs = sq + qbuf * L::kQBytes + wg * 64 * L::kRowBytes;
 
       float acc[D / 2];
 #pragma unroll
@@ -899,11 +971,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map over a (B, S, heads, D) bf16 tensor in place; one box is 64
-// columns of D of `rows` consecutive positions of one (b, head), written to
-// shared memory with the 128-byte swizzle.  Rows past S read as zeros.
+// Tensor map over a (B, S, heads, D) bf16 tensor in place; one box is
+// `cols` columns of D (64, or 32 at D = 96) of `rows` consecutive positions
+// of one (b, head), written to shared memory with the 128-byte (64-byte)
+// swizzle.  Rows past S read as zeros.
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
-              int heads, int seq, int batch, int rows) {
+              int heads, int seq, int batch, int rows, int cols = 64) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq),
@@ -911,11 +984,14 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
   const cuuint64_t strides[3] = {
       static_cast<cuuint64_t>(d) * 2, static_cast<cuuint64_t>(heads) * d * 2,
       static_cast<cuuint64_t>(seq) * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -941,9 +1017,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(encode, &tm_q, q, D, heads, seq, batch, kTcBQ) ||
-      !make_map(encode, &tm_k, k, D, kv_heads, seq, batch, kTcBK) ||
-      !make_map(encode, &tm_v, v, D, kv_heads, seq, batch, kTcBK))
+  constexpr int cols = TcLayout<D>::kSlabCols;
+  if (!make_map(encode, &tm_q, q, D, heads, seq, batch, kTcBQ, cols) ||
+      !make_map(encode, &tm_k, k, D, kv_heads, seq, batch, kTcBK, cols) ||
+      !make_map(encode, &tm_v, v, D, kv_heads, seq, batch, kTcBK, cols))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_attention_wgmma<D>;
   cudaError_t err = check_reg_split(kern);
@@ -2081,6 +2158,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (head_dim == 64)
       return launch_bf16<64>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                              causal, window, s);
+    if (head_dim == 96)
+      return launch_bf16<96>(q, k, v, o, lse, batch, seq, heads, kv_heads,
+                             causal, window, s);
     if (head_dim == 128)
       return launch_bf16<128>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
@@ -2097,6 +2177,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                               causal, window, s);
       case 64:
         return launch_f32<64>(q, k, v, o, lse, batch, seq, heads, kv_heads,
+                              causal, window, s);
+      case 96:
+        return launch_f32<96>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
       case 128:
         return launch_f32<128>(q, k, v, o, lse, batch, seq, heads, kv_heads,

@@ -11,8 +11,9 @@ units and Δ = rowsum(dO∘O) to a scratch (sized by the library) whose rows
 are padded to the dK/dV kernel's q-tile, then dK/dV a (b, kv-head,
 128-key tile) over the q-heads of its group.  float32 runs the CUDA-core
 pair, which recomputes L itself.  The source note says what bounds them.
-Both take head_dim up to 128 (``BWD_HEAD_DIMS``): the forward's head_dim 192
-(nemotron-4-340b) has no backward kernel yet (ROADMAP.md Queue 2).
+Both take head_dim 64 and 128 in bf16 and 16 to 128 but 96 in float32
+(``BWD_HEAD_DIMS``): the forward's head_dims 96 (phi-3-vision-4.2b) and 192
+(nemotron-4-340b) have no backward kernel yet (ROADMAP.md Queue 2).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from .flash_attention import _ENTRY, _on_cpu, check_operands
 from .ref import gqa_attention_bwd_ref
 
 # The head_dims the backward kernels take, by dtype; the forward also takes
-# 192 (``HEAD_DIMS``).
+# 96 and 192 (``HEAD_DIMS``).
 BWD_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 
 # Launches of the backward kernels since the last reset (repro_torch.kernels);
@@ -46,7 +47,7 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in BWD_HEAD_DIMS[q.dtype]:
         raise ValueError(f"the flash_attention backward takes head_dim in "
                          f"{BWD_HEAD_DIMS[q.dtype]} for {q.dtype}; got {d}: "
-                         f"head_dim 192 has no backward kernel yet "
+                         f"head_dims 96 and 192 have no backward kernel yet "
                          f"(ROADMAP.md Queue 2)")
     if q.device.type != "cuda" or any(t.device != q.device
                                       for t in ts + (lse,)):

@@ -1,12 +1,14 @@
-"""Blockwise causal / sliding-window attention with online softmax: the
-wrapper of ``csrc/flash_attention.cu``.
+"""Blockwise causal / sliding-window / bidirectional attention with online
+softmax: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention
 (body ``_flash_kernel``).  bfloat16 runs on the tensor cores (wgmma, TMA) at
-head_dim 64, 128 and 192, float32 on the CUDA cores at head_dim 16, 32, 64,
-128 and 192.  The source note in the .cu file says what bounds
-the kernel on the card, how the TPU's sequential key-block grid axis became
-a loop inside one CUDA block, and why the bf16 kernel splits P in two.
+head_dim 64, 96, 128 and 192, float32 on the CUDA cores at head_dim 16, 32,
+64, 96, 128 and 192.  ``causal=False`` (the audio encoder's bidirectional
+attention) masks only the keys past S.  The source note in the .cu file
+says what bounds the kernel on the card, how the TPU's sequential key-block
+grid axis became a loop inside one CUDA block, and why the bf16 kernel
+splits P in two.
 """
 from __future__ import annotations
 
@@ -17,8 +19,8 @@ from .ref import attention_ref, gqa_attention_ref
 
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 192),
-             torch.bfloat16: (64, 128, 192)}
+HEAD_DIMS = {torch.float32: (16, 32, 64, 96, 128, 192),
+             torch.bfloat16: (64, 96, 128, 192)}
 
 # Launches of the CUDA kernel since the last reset (repro_torch.kernels).
 launches = 0
@@ -108,7 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q/k/v (BH, S, D) float32 or bfloat16 -> (BH, S, D) in q's dtype;
     scale 1/sqrt(D), float32 softmax and accumulation; ``window=0`` is full
-    causal.  Any S: keys past S are masked in the kernel, not padded.
+    causal, ``causal=False`` attends to every key.  Any S: keys past S are
+    masked in the kernel, not padded.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""

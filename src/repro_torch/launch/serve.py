@@ -6,7 +6,9 @@
 
 Mirrors ``repro/launch/serve.py``.  Weights are random and prompts come
 from ``TokenDataset``, both drawn from ``PRNGKey(0)`` as the reference draws
-them; no checkpoint or tokenizer is involved.  The CLI keeps the
+them, as are a VLM's stub patch embeddings and an encoder-decoder's stub
+frame embeddings (``data.modality_inputs``); no checkpoint or tokenizer is
+involved.  A VLM's caches hold its patches too.  The CLI keeps the
 reference's flags, whose ``--reduced`` is always on; ``run_serve(...,
 reduced=False)`` serves the full-width config.  ``num_layers`` is the
 port's one addition, as in ``launch/train.py``: a depth cut for a
@@ -25,7 +27,7 @@ import torch
 
 from .. import rng
 from ..configs import ARCH_IDS, get_config
-from ..data import TokenDataset
+from ..data import TokenDataset, modality_inputs
 from ..device import resolve_device
 from ..models import decode_step, init_model, prefill
 
@@ -58,13 +60,15 @@ def run_serve(arch: str, batch: int, prompt_len: int, gen: int,
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       device=device)
     domains = torch.arange(batch, device=device) % ds.num_domains
-    prompts = ds.sample(key, domains)
-    max_len = prompt_len + gen
+    inputs = {"tokens": ds.sample(key, domains),
+              **modality_inputs(cfg, key, batch)}
+    max_len = prompt_len + gen + (cfg.num_patch_tokens
+                                  if cfg.arch_type == "vlm" else 0)
 
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, caches = prefill(params, cfg, {"tokens": prompts}, max_len)
+        logits, caches = prefill(params, cfg, inputs, max_len)
         toks = torch.argmax(logits, dim=-1)
         _sync(device)
         t_prefill = time.perf_counter() - t0

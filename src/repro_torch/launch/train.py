@@ -6,10 +6,12 @@ card (or the CPU) on synthetic token batches.
 
 Mirrors ``repro/launch/train.py``: weights from ``init_model(PRNGKey(0))``,
 step i's batch from ``fold_in(PRNGKey(0), i)`` (domains by ``randint``,
-tokens from ``TokenDataset``), bit-equal to the reference's draws, and the
-train step of ``launch.steps``.  ``num_layers`` is the port's one addition:
-a depth cut for a full-width config whose weights, gradients and optimizer
-state do not fit one card; it changes no width.  With ``ckpt_dir`` the
+tokens from ``TokenDataset``; a VLM's ``patch_embeds`` and an
+encoder-decoder's ``frames`` from ``data.modality_inputs`` under the same
+key), bit-equal to the reference's draws, and the train step of
+``launch.steps``.  ``num_layers`` is the port's one addition: a depth cut
+for a full-width config whose weights, gradients and optimizer state do
+not fit one card; it changes no width.  With ``ckpt_dir`` the
 final params are saved there as the reference saves them
 (``ckpt/checkpoint.py``: ``ckpt_{steps:08d}.npz``, ``extra`` holding the
 arch and the last loss).
@@ -29,7 +31,7 @@ from .. import rng
 from ..ckpt import save_checkpoint
 from ..configs import ARCH_IDS, get_config
 from ..configs.shapes import InputShape
-from ..data import TokenDataset
+from ..data import TokenDataset, modality_inputs
 from ..device import resolve_device
 from ..models import init_model
 from ..models.transformer import flatten_params
@@ -77,7 +79,9 @@ def run_train(arch: str, steps: int, batch: int, seq: int, reduced: bool,
     t0 = time.perf_counter()
     for i in range(steps):
         t_step = time.perf_counter()
-        b = synth_lm_batch(ds, rng.fold_in(key, i), batch)
+        kb = rng.fold_in(key, i)
+        b = {**synth_lm_batch(ds, kb, batch),
+             **modality_inputs(cfg, kb, batch)}
         params, opt_state, m = step_fn(params, opt_state, b)
         losses.append(float(m["loss"]))          # synchronises the device
         if step_times is not None:

@@ -13,11 +13,11 @@ reference's ``*_init`` also return logical sharding specs; the port runs on
 one card and returns the params alone.
 
 Where the reference runs plain XLA, the port runs plain PyTorch (the MoE's
-routing, dispatch and batched expert products) or the hand-written kernels:
-attention in the ``train`` and ``prefill`` modes goes through
-``gqa_flash_attention`` for both ``attention_impl`` values (``dense`` and
-``chunked`` compute the same function), and the Mamba mixer's scan through
-``ssd_apply``.  Both are differentiable (``torch.autograd.Function``s whose
+routing, dispatch and batched expert products, cross-attention) or the
+hand-written kernels: attention in the ``train`` and ``prefill`` modes goes
+through ``gqa_flash_attention`` for both ``attention_impl`` values
+(``dense`` and ``chunked`` compute the same function), and the Mamba
+mixer's scan through ``ssd_apply``.  Both are differentiable (``torch.autograd.Function``s whose
 backward is the flash backward kernel pair, and the plain chunked SSD's
 vjp) and batch under ``torch.func.vmap`` into one launch.  Decode stays
 plain PyTorch, as the reference computes it outside any Pallas kernel.
@@ -169,10 +169,11 @@ def _out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: Optional[torch.Tensor], num_kv: int) -> torch.Tensor:
-    """Grouped scaled-dot-product attention, plain (decode only).  q
-    (B, Sq, H, D), k/v (B, Sk, KV, D), mask additive float32 broadcastable
-    to (B, 1, Sq, Sk).  Probabilities are rounded to v's dtype before P·V, as
-    in the reference."""
+    """Grouped scaled-dot-product attention, plain (decode and
+    cross-attention).  q (B, Sq, H, D), k/v (B, Sk, KV, D) with a key length
+    of their own, mask additive float32 broadcastable to (B, 1, Sq, Sk) or
+    None.  Probabilities are rounded to v's dtype before P·V, as in the
+    reference."""
     b, sq, h, d = q.shape
     groups = h // num_kv
     qg = q.reshape(b, sq, num_kv, groups, d)
@@ -270,6 +271,41 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     mask = torch.where(kpos < live, zero, NEG_INF)[None, None, None, :]
     out = _sdpa(q, ck, cv, mask, cfg.num_kv_heads)
     return _out(out, p["wo"]), {"k": ck, "v": cv, "idx": idx + 1}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the whisper decoder)
+# ---------------------------------------------------------------------------
+# The reference computes it with its XLA ``_sdpa`` outside any Pallas kernel,
+# and its flash kernel takes one length for queries and keys, so the port
+# keeps it plain PyTorch (``_sdpa``) in every mode.
+
+def cross_attention_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    """The weights of :func:`attention_init` (same shapes, same draws)."""
+    return attention_init(key, cfg)
+
+
+def cross_attention_apply(p: Params, x: torch.Tensor,
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                          cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) decoder states; enc_kv the precomputed (K, V), each
+    (B, F, KV, hd).  q from ``wq`` (plus ``bq``), no RoPE and no qk-norm,
+    attending to every frame."""
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    out = _sdpa(q, enc_kv[0], enc_kv[1], None, cfg.num_kv_heads)
+    return _out(out, p["wo"])
+
+
+def encode_cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output (B, F, d) -> cross-attention's (K, V), each
+    (B, F, KV, hd), from ``wk``/``wv`` (plus ``bk``/``bv``)."""
+    k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
 
 
 # ---------------------------------------------------------------------------

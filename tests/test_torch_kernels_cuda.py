@@ -331,6 +331,45 @@ def test_gqa_kernel_at_head_dim_192_group_of_12(cuda, dtype):
     assert lse.shape == (1, 96, 333) and bool(torch.isfinite(lse).all())
 
 
+# head_dim 96 (phi-3-vision-4.2b), three 32-column slabs under the 64-byte
+# swizzle in bf16: causal, windowed and without the mask, at an S of no
+# multiple of 64 or 128; float32 on the CUDA cores likewise.
+@pytest.mark.parametrize("bh,s,causal,window", [
+    (8, 1000, True, 0), (8, 333, True, 40), (8, 1000, True, 256),
+    (8, 77, False, 0), (6, 1500, False, 0), (4, 2048, True, 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_at_head_dim_96(cuda, bh, s, dtype, causal, window):
+    q, k, v = (_randn((bh, s, 96), s + 96 + i, cuda).to(dtype)
+               for i in range(3))
+    got = flash_attention(q, k, v, causal=causal, window=window).float()
+    want = attention_ref(q, k, v, causal, window).float()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    tol = (2e-5 * (1 + want.abs()) if dtype == torch.float32
+           else 2.0 ** -7 * want.abs() + 1e-5)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_noncausal_kernel_at_whisper_encoder_shape(cuda, dtype):
+    """whisper-tiny's encoder, (16, 1500, 6/6, 64) without the causal mask:
+    11 full 128-row tiles and a 92-row edge, the keys past S masked; and
+    phi-3-vision's 32 heads of 96 through the GQA wrapper, causal."""
+    q, k, v = (_randn((16, 1500, 6, 64), 30 + i, cuda).to(dtype)
+               for i in range(3))
+    got = gqa_flash_attention(q, k, v, causal=False).float()
+    want = gqa_attention_ref(q, k, v, causal=False).float()
+    q96 = _randn((1, 333, 32, 96), 40, cuda).to(dtype)
+    got96 = gqa_flash_attention(q96, q96, q96).float()
+    want96 = gqa_attention_ref(q96, q96, q96).float()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 2
+    for g, w in ((got, want), (got96, want96)):
+        tol = (2e-5 * (1 + w.abs()) if dtype == torch.float32
+               else 2.0 ** -7 * w.abs() + 1e-5)
+        assert bool(((g - w).abs() <= tol).all())
+
+
 def test_backward_at_head_dim_192_raises_naming_the_roadmap(cuda):
     q = _randn((1, 64, 12, 192), 1, cuda).bfloat16()
     k = _randn((1, 64, 1, 192), 2, cuda).bfloat16()
@@ -441,7 +480,9 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
 # 5, ragged S (no multiple of the 64-row or 32-key tiles), a window shorter
 # than a tile and no causal mask; bf16 (the tensor-core kernels) also at
 # head_dim 64, GQA groups 1 and 8, S of no multiple of 64 or 128, no causal
-# mask (with and without a window) and windows shorter than a tile.
+# mask (with and without a window) and windows shorter than a tile, and
+# whisper-tiny's full-width training shapes: the encoder's 1500 frames
+# non-causal (a 92-row edge tile) and the decoder's 448 tokens causal.
 BWD_SHAPES = [
     (4, 1024, 40, 8, 128, torch.bfloat16, True, 0),
     (4, 1024, 40, 8, 128, torch.bfloat16, True, 256),
@@ -455,6 +496,8 @@ BWD_SHAPES = [
     (1, 190, 6, 6, 64, torch.bfloat16, False, 0),
     (2, 300, 16, 2, 128, torch.bfloat16, True, 20),
     (1, 257, 4, 2, 128, torch.bfloat16, False, 33),
+    (16, 1500, 6, 6, 64, torch.bfloat16, False, 0),
+    (16, 448, 6, 6, 64, torch.bfloat16, True, 0),
 ]
 
 
@@ -509,14 +552,18 @@ def _lm_grads(arch, device):
                                                 unflatten_params)
     cfg = get_config(arch).reduced(dtype="float32")
     flat = flatten_params(init_model(rng.PRNGKey(3), cfg, device="cpu"))
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (2, 40)))
+    g = np.random.default_rng(3)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab_size, (2, 40)))
     targets = torch.roll(toks, -1, 1)
     targets[:, -1] = -1
+    batch = {"tokens": toks}
+    if cfg.is_encoder_decoder:      # the encoder's frames, non-causal
+        batch["frames"] = torch.from_numpy(g.standard_normal(
+            (2, cfg.num_frames, cfg.d_model)).astype(np.float32))
 
     def loss(p):
         logits, _ = forward(unflatten_params(p), cfg,
-                            {"tokens": toks.to(device)})
+                            {k: v.to(device) for k, v in batch.items()})
         return token_ce(logits, targets.to(device))[0]
 
     grads = torch.func.grad(loss)({k: v.to(device) for k, v in flat.items()})
@@ -525,16 +572,20 @@ def _lm_grads(arch, device):
 
 @pytest.mark.parametrize("arch,leaves", [
     ("qwen3-14b", ("attn.wq", "attn.wk", "attn.wv")),
-    ("mamba2-1.3b", ("mamba.in_proj", "mamba.A_log", "mamba.dt_bias"))])
+    ("mamba2-1.3b", ("mamba.in_proj", "mamba.A_log", "mamba.dt_bias")),
+    ("whisper-tiny", ("attn.wq", "attn.wk", "cross_attn.wq",
+                      "cross_attn.wv"))])
 def test_model_gradients_on_the_card_match_the_cpu(cuda, arch, leaves):
     """The attention and SSD branches carry their gradients on the card
     (the kernels' outputs had no grad_fn before they became
-    autograd.Functions, which left these leaves' gradients zero)."""
+    autograd.Functions, which left these leaves' gradients zero); whisper's
+    through its encoder's non-causal backward and its plain
+    cross-attention."""
     got = _lm_grads(arch, cuda)
     counts = kernels.launch_counts()
     want = _lm_grads(arch, torch.device("cpu"))
-    assert counts["flash_attention_bwd" if arch == "qwen3-14b"
-                  else "ssd_scan"] >= 2
+    assert counts["ssd_scan" if arch == "mamba2-1.3b"
+                  else "flash_attention_bwd"] >= 2
     for name in got:
         scale = want[name].abs().max().item()
         assert (got[name] - want[name]).abs().max().item() <= GRAD_TOL * scale

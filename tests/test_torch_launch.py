@@ -203,7 +203,8 @@ def test_input_specs_equal_the_reference(arch, shape_name):
     ("whisper-tiny", "frames", "audio slice")])
 def test_modality_batch_specs_equal_the_reference(arch, extra, slice_name):
     """The VLM and encoder-decoder branches on a port ``ModelConfig`` made
-    from the reference config's fields (the port does not serve them yet)."""
+    from the reference config's fields, and their decode specs: the VLM's
+    as a decoder-only arch's, whisper's ``{"self", "cross"}`` caches."""
     jcfg = jget_config(arch)
     tcfg = ModelConfig(**dataclasses.asdict(jcfg))
     for name in ("train_4k", "prefill_32k"):
@@ -216,8 +217,23 @@ def test_modality_batch_specs_equal_the_reference(arch, extra, slice_name):
             _spec_eq(tspec[k], jspec[k])
             assert tlog[k] == jlog[k]
         assert specs.text_len(tcfg, 4096) == jspecs.text_len(jcfg, 4096)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        specs.decode_specs(tcfg, SHAPES["decode_32k"])
+    tspec, tlog = specs.decode_specs(tcfg, SHAPES["decode_32k"])
+    jshape = JInputShape(*dataclasses.astuple(SHAPES["decode_32k"]))
+    jspec, jlog = jspecs.decode_specs(jcfg, jshape)
+    if tcfg.is_encoder_decoder:
+        assert set(tspec["caches"]) == set(tlog["caches"]) == {"self",
+                                                                "cross"}
+        assert [c["idx"] for c in tspec["caches"]["self"]] == [
+            SHAPES["decode_32k"].seq_len - 1] * tcfg.num_layers
+        cross_t, cross_j = tspec["caches"]["cross"], jspec["caches"]["cross"]
+        assert len(cross_t) == len(cross_j) == tcfg.num_layers
+        for tc, jc, tl, jl in zip(cross_t, cross_j, tlog["caches"]["cross"],
+                                  jlog["caches"]["cross"]):
+            for k in ("k", "v"):
+                _spec_eq(tc[k], jc[k])
+                assert tl[k] == jl[k]
+    else:
+        assert len(tspec["caches"]) == tcfg.num_layers
 
 
 # ---------------------------------------------------------------------------

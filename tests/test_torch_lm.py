@@ -125,25 +125,32 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_covers_this_slice_and_names_the_later_ones():
+    """Every reference arch is served since the VLM and audio slice; the
+    decoder-only ones keep their order first."""
     assert ARCH_IDS == ["qwen3-14b", "mamba2-1.3b", "minitron-4b",
                         "granite-moe-1b-a400m", "qwen2-72b",
-                        "nemotron-4-340b", "arctic-480b", "jamba-v0.1-52b"]
-    assert set(JARCH_IDS) - set(ARCH_IDS) == {"phi-3-vision-4.2b",
-                                               "whisper-tiny"}
-    for arch in set(JARCH_IDS) - set(ARCH_IDS):
-        with pytest.raises(KeyError, match="later slice"):
-            get_config(arch)
-        with pytest.raises(KeyError, match="VLM and audio slice"):
-            get_config(arch)
+                        "nemotron-4-340b", "arctic-480b", "jamba-v0.1-52b",
+                        "phi-3-vision-4.2b", "whisper-tiny"]
+    assert set(JARCH_IDS) == set(ARCH_IDS)
+    for arch in JARCH_IDS:
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 
 def test_other_families_raise_not_implemented():
+    """The VLM and encoder-decoder families, which raised before their
+    slice, build their own subtrees now: a projector, and an encoder with
+    a cross-attending decoder in place of the plain stack."""
     _, tcfg = _cfgs("qwen3-14b")
-    for over in ({"arch_type": "vlm"}, {"is_encoder_decoder": True}):
-        with pytest.raises(NotImplementedError, match="VLM and audio slice"):
-            init_model(None, dataclasses.replace(tcfg, **over), device="cpu")
+    vlm = init_model(None, dataclasses.replace(tcfg, arch_type="vlm"),
+                     device="cpu")
+    assert vlm["projector"]["w1"].shape == (tcfg.vision_embed_dim,
+                                            tcfg.d_model)
+    audio = init_model(None, dataclasses.replace(
+        tcfg, is_encoder_decoder=True, encoder_layers=1), device="cpu")
+    assert len(audio["encoder"]["blocks"]) == 1
+    assert all("cross_attn" in b for b in audio["stack"]["blocks"])
 
 
 # ---------------------------------------------------------------------------

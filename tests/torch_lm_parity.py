@@ -1,6 +1,8 @@
 """Shared checks of the port's LM stack against the JAX reference on the
-CPU, one arch at a time (tests/test_torch_moe.py and
-tests/test_torch_arch_zoo.py parametrise them over their archs).
+CPU, one arch at a time (tests/test_torch_moe.py,
+tests/test_torch_arch_zoo.py and tests/test_torch_vlm_audio.py parametrise
+them over their archs).  A VLM's batches also carry NumPy-made
+``patch_embeds`` and an encoder-decoder's ``frames`` (``extras``).
 
 The conventions are tests/test_torch_lm.py's: both stacks get the same
 NumPy-made weights (the reference init's tree with every leaf redrawn from
@@ -73,6 +75,13 @@ def close(port, ref, tol=TOL):
 
 
 def close_caches(port, ref):
+    """Per-layer caches; an encoder-decoder's ``{"self", "cross"}`` pair
+    of them."""
+    if isinstance(port, dict):
+        assert set(port) == set(ref) == {"self", "cross"}
+        for part in ("self", "cross"):
+            close_caches(port[part], ref[part])
+        return
     assert len(port) == len(ref)
     for pc, rc in zip(port, ref):
         assert set(pc) == set(rc)
@@ -120,6 +129,38 @@ def tokens(b, s, vocab, seed=0):
         np.int32)
 
 
+def extras(cfg, b, seed=0):
+    """The stub frontends' inputs of a batch of ``b``, NumPy normals from
+    ``seed``: a VLM's ``patch_embeds`` (b, num_patch_tokens,
+    vision_embed_dim) and an encoder-decoder's ``frames`` (b, num_frames,
+    d_model), float32; none for the text archs."""
+    g = np.random.default_rng(seed + 1000)
+    out = {}
+    if cfg.arch_type == "vlm":
+        out["patch_embeds"] = g.standard_normal(
+            (b, cfg.num_patch_tokens, cfg.vision_embed_dim)).astype(
+                np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = g.standard_normal(
+            (b, cfg.num_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def batches(cfg, np_batch):
+    """(reference batch, port batch) of one NumPy batch: int32 token ids
+    and float32 embeddings on the reference's side; on the port's the ids
+    as int64, the embeddings float32."""
+    jb = {k: jnp.asarray(v) for k, v in np_batch.items()}
+    tb = {k: t(v).long() if v.dtype == np.int32 else t(v)
+          for k, v in np_batch.items()}
+    return jb, tb
+
+
+def patches(cfg):
+    """Positions a VLM's patches take before its text."""
+    return cfg.num_patch_tokens if cfg.arch_type == "vlm" else 0
+
+
 # The reference's entry points, jitted with the config (and max_len) static.
 _jprefill = jax.jit(jprefill, static_argnums=(1, 3))
 _jdecode = jax.jit(jdecode_step, static_argnums=(1,))
@@ -137,18 +178,19 @@ def check_configs(arch):
         assert red_t.layer_kinds() == red_j.layer_kinds()
 
 
-def check_prefill_and_decode(arch, gen=8):
+def check_prefill_and_decode(arch, gen=8, **over):
     """Prefill of a 37-token prompt (no multiple of the SSD chunk, 32), then
-    ``gen`` decode steps: logits and caches at every step."""
-    jcfg, tcfg, jp, tp = models(arch)
+    ``gen`` decode steps: logits and caches at every step (an
+    encoder-decoder's cross caches too).  ``over`` changes the reduced
+    config."""
+    jcfg, tcfg, jp, tp = models(arch, **over)
     b, prompt = 2, 37
     toks = tokens(b, prompt + gen, jcfg.vocab_size, seed=4)
-    max_len = prompt + gen
-    last_t, caches_t = prefill(tp, tcfg, {"tokens": t(toks[:, :prompt])},
-                               max_len)
-    last_j, caches_j = _jprefill(jp, jcfg,
-                                 {"tokens": jnp.asarray(toks[:, :prompt])},
-                                 max_len)
+    max_len = prompt + gen + patches(jcfg)
+    jb, tb = batches(jcfg, {"tokens": toks[:, :prompt],
+                            **extras(jcfg, b, seed=4)})
+    last_t, caches_t = prefill(tp, tcfg, tb, max_len)
+    last_j, caches_j = _jprefill(jp, jcfg, jb, max_len)
     close(last_t, last_j)
     close_caches(caches_t, caches_j)
     for i in range(prompt, prompt + gen):
@@ -159,14 +201,16 @@ def check_prefill_and_decode(arch, gen=8):
         close_caches(caches_t, caches_j)
 
 
-def check_forward_and_token_ce(arch, scan_layers):
+def check_forward_and_token_ce(arch, scan_layers, **over):
     """``forward`` (logits and the summed aux) and ``token_ce`` at 3
-    layers."""
+    layers (a VLM's logits cover its patches, then its text)."""
     jcfg, tcfg, jp, tp = models(arch, seed=5, scan_layers=scan_layers,
-                                num_layers=3)
+                                num_layers=3, **over)
     toks = tokens(2, 20, jcfg.vocab_size, seed=5)
-    logits_t, aux_t = forward(tp, tcfg, {"tokens": t(toks)})
-    logits_j, aux_j = _jforward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    jb, tb = batches(jcfg, {"tokens": toks, **extras(jcfg, 2, seed=5)})
+    logits_t, aux_t = forward(tp, tcfg, tb)
+    logits_j, aux_j = _jforward(jp, jcfg, jb)
+    assert logits_t.shape[1] == 20 + patches(jcfg)
     close(logits_t, logits_j)
     close(aux_t, aux_j, 1e-5)
     if tcfg.num_experts == 0:
@@ -175,8 +219,9 @@ def check_forward_and_token_ce(arch, scan_layers):
         assert float(aux_t) > 0
     targets = np.roll(toks, -1, axis=1)
     targets[:, -1] = -1
-    loss_t, m_t = token_ce(logits_t, t(targets), with_accuracy=True)
-    loss_j, m_j = jtoken_ce(logits_j, jnp.asarray(targets),
+    text = slice(patches(jcfg), None)
+    loss_t, m_t = token_ce(logits_t[:, text], t(targets), with_accuracy=True)
+    loss_j, m_j = jtoken_ce(logits_j[:, text], jnp.asarray(targets),
                             with_accuracy=True)
     close(loss_t, loss_j, 1e-5)
     assert int(m_t["ntok"]) == int(m_j["ntok"])
@@ -196,19 +241,21 @@ def _leafwise_close(port_tree, ref_tree, tol):
     return worst
 
 
-def check_loss_and_grads(arch):
-    """``loss_fn`` (CE plus ``router_aux_weight`` · aux) and its gradients
-    on a batch of 2 × 45 tokens with an ignored target."""
-    jcfg, tcfg = cfgs(arch)
+def check_loss_and_grads(arch, **over):
+    """``loss_fn`` (CE plus ``router_aux_weight`` · aux; a VLM scoring its
+    text only) and its gradients on a batch of 2 × 45 tokens with an
+    ignored target."""
+    jcfg, tcfg = cfgs(arch, **over)
     tree = np_tree(_jinit(jcfg)(jax.random.PRNGKey(6)), 6)
     toks = tokens(2, 45, jcfg.vocab_size, seed=6)
     targets = np.roll(toks, -1, axis=1)
     targets[:, -1] = -1
     targets[0, 3] = -1
+    jb, tb = batches(jcfg, {"tokens": toks, "targets": targets,
+                            **extras(jcfg, 2, seed=6)})
 
     def jl(p):
-        total, m = jloss_fn(p, jcfg, {"tokens": jnp.asarray(toks),
-                                      "targets": jnp.asarray(targets)})
+        total, m = jloss_fn(p, jcfg, jb)
         return total, m["aux"]
 
     (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(jl, has_aux=True))(
@@ -216,9 +263,7 @@ def check_loss_and_grads(arch):
     flat = lm_params_from_jax(tree, tcfg, device="cpu", flat=True)
 
     def tl(p):
-        total, m = loss_fn(unflatten_params(p), tcfg,
-                           {"tokens": t(toks).long(),
-                            "targets": t(targets).long()})
+        total, m = loss_fn(unflatten_params(p), tcfg, tb)
         return total, m["aux"]
 
     tgrads, (tloss, taux) = torch.func.grad_and_value(tl, has_aux=True)(flat)
@@ -275,6 +320,8 @@ def check_converter_round_trip(arch, scan_layers, **over):
     blocks = port["stack"]["blocks"]
     assert isinstance(blocks, list) and len(blocks) == tcfg.num_layers
     _, period, reps = jsteps_plan(jcfg)
+    if jcfg.is_encoder_decoder:    # the decoder is unrolled in any case
+        period, reps = jcfg.num_layers, 1
     ref_blocks = tree["stack"]["blocks"]
     for i, block in enumerate(blocks):
         r, j = divmod(i, period)
@@ -315,11 +362,11 @@ def check_bf16_pin(arch):
     tp = lm_params_from_jax(tree, tcfg, device="cpu")
     b, prompt, gen = 2, 37, 8
     toks = tokens(b, prompt + gen, jcfg.vocab_size, seed=10)
-    last_t, caches_t = prefill(tp, tcfg, {"tokens": t(toks[:, :prompt])},
-                               prompt + gen)
-    last_j, caches_j = _jprefill(jp, jcfg,
-                                 {"tokens": jnp.asarray(toks[:, :prompt])},
-                                 prompt + gen)
+    max_len = prompt + gen + patches(jcfg)
+    jb, tb = batches(jcfg, {"tokens": toks[:, :prompt],
+                            **extras(jcfg, b, seed=10)})
+    last_t, caches_t = prefill(tp, tcfg, tb, max_len)
+    last_j, caches_j = _jprefill(jp, jcfg, jb, max_len)
 
     def pin(port, ref):
         ref = np.asarray(ref, np.float32)
