@@ -528,8 +528,10 @@ def _assert_close(what: str, got, want, tol: float) -> float:
 # that must be instantiated.
 TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",),
                         ("64", "96", "128", "192")),
-                       ("flash_bwd_dq_wgmma", "HGMMA", ("D",)),
-                       ("flash_bwd_dkv_wgmma", "HGMMA", ("D",)),
+                       ("flash_bwd_dq_wgmma", "HGMMA", ("D",),
+                        ("64", "96", "128", "192")),
+                       ("flash_bwd_dkv_wgmma", "HGMMA", ("D",),
+                        ("64", "96", "128", "192")),
                        ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
                        ("ssd_prep_kernel", "HMMA", ("NP",)))
 
@@ -1076,7 +1078,7 @@ def flash_bwd_mma_flops(b: int, s: int, h: int, d: int) -> int:
     tile up to its frontier (S, dP once, dS.K twice); dK/dV a 64-key
     warpgroup of a 128-key tile over every 64-row q-tile from its diagonal,
     for each q-head of its group (S^T, dP^T once, P^T.dO and dS^T.Q
-    twice).  For information only: the bound counts live (q, k)
+    twice; at head_dim 192 S^T twice, once a walk).  For information only: the bound counts live (q, k)
     pairs and each product once."""
     dq_tiles = dkv_tiles = 0
     for q0 in range(0, s, 128):
@@ -1090,7 +1092,9 @@ def flash_bwd_mma_flops(b: int, s: int, h: int, d: int) -> int:
                 dkv_tiles += sum(1 for q0 in range(k0 // 64 * 64, s, 64)
                                  if q0 + 63 >= kw0)
     per = 2 * 64 * 64 * d
-    return b * h * (dq_tiles * 4 + dkv_tiles * 6) * per
+    # At head_dim 192 the dK/dV kernel walks twice, S^T once more.
+    dkv_products = 7 if d > 128 else 6
+    return b * h * (dq_tiles * 4 + dkv_tiles * dkv_products) * per
 
 
 def ssd_mma_flops(b: int, s: int, h: int, p: int, g_: int, n: int) -> int:
@@ -2210,6 +2214,20 @@ BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
     # decoder's 448 tokens causal, batch 16.
     (16, 1500, 6, 6, 64, "bfloat16", False, 0),
     (16, 448, 6, 6, 64, "bfloat16", True, 0),
+    # head_dim 96 (phi-3-vision-4.2b's training shape at full width, 32-column
+    # slabs) and 192 (nemotron-4-340b's prefill shape: a 2-stage ring, dV
+    # and dK in two walks), then each windowed and with S of no multiple of
+    # 64, and not causal; the float32 pair at both.
+    (4, 2048, 32, 32, 96, "bfloat16", True, 0),
+    (4, 1024, 96, 8, 192, "bfloat16", True, 0),
+    (1, 333, 8, 2, 96, "bfloat16", True, 40),
+    (1, 333, 12, 2, 192, "bfloat16", True, 40),
+    (1, 190, 6, 6, 96, "bfloat16", False, 0),
+    (1, 257, 4, 2, 192, "bfloat16", False, 33),
+    (2, 77, 8, 4, 96, "float32", True, 0),
+    (1, 130, 4, 2, 96, "float32", False, 0),
+    (2, 77, 6, 2, 192, "float32", True, 9),
+    (1, 130, 4, 2, 192, "float32", False, 0),
 ]
 # (b)–(d): gradients on the card against the CPU (TF32 off) within GRAD_TOL
 # of each leaf's largest magnitude, the limit that holds the port's
@@ -2245,9 +2263,9 @@ def _rel(got, want) -> float:
 
 def phase16a_flash_backward(dev) -> dict:
     """The flash backward kernel pair against the plain backward at
-    BWD_SHAPES, and its times at qwen3-14b's prefill shape."""
+    BWD_SHAPES, and its times at qwen3-14b's prefill shape and at head_dim
+    96 and 192."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (FlashAttention,
                                                      FlashAttentionBackward,
                                                      gqa_attention_bwd_ref)
@@ -2284,14 +2302,37 @@ def phase16a_flash_backward(dev) -> dict:
                                  f"{k_vs_64} (float64) > {BWD_TOL[dt]}")
         del q, k, v, do, o, lse, got, plain, exact
     torch.cuda.empty_cache()
-    b, s, h, kvh, d = SERVE_BATCH, SERVE_PROMPT, 40, 8, 128
+    t = _bwd_times(dev, g, SERVE_BATCH, SERVE_PROMPT, 40, 8, 128)
+    t["err"] = worst_abs
+    # phi-3-vision-4.2b's training shape and nemotron-4-340b's prefill
+    # shape, the head_dims 96 and 192.
+    t["d96"] = _bwd_times(dev, g, *BWD_D96)
+    t["d192"] = _bwd_times(dev, g, *BWD_D192)
+    return t
+
+
+# (B, S, H, KV, D) of phase 16a's timings at head_dim 96 and 192, causal.
+BWD_D96 = (4, 2048, 32, 32, 96)
+BWD_D192 = (4, 1024, 96, 8, 192)
+
+
+def _bwd_times(dev, g, b, s, h, kvh, d) -> dict:
+    """The bf16 backward kernels at (b, s, h/kvh, d) causal: their time
+    beside the bound, the plain backward and SDPA's backward, then the
+    float32 pair's time at the same shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                     FlashAttentionBackward,
+                                                     gqa_attention_bwd_ref)
     q = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev).bfloat16()
             for _ in range(2))
     do = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
     o, lse = FlashAttention.apply(q, k, v, True, 0, True)
-    t = {"ms": time_ms(lambda: FlashAttentionBackward.apply(
-        q, k, v, o, lse, do, True, 0), reps=5, trials=7),
+    t = {"shape": [b, s, h, kvh, d],
+         "ms": time_ms(lambda: FlashAttentionBackward.apply(
+             q, k, v, o, lse, do, True, 0), reps=5, trials=7),
          "plain": time_ms(lambda: gqa_attention_bwd_ref(q, k, v, o, do),
                           reps=2, trials=5)}
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -2300,7 +2341,7 @@ def phase16a_flash_backward(dev) -> dict:
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+                                              enable_gqa=h != kvh)
 
     both = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
                    reps=5, trials=7)
@@ -2309,7 +2350,6 @@ def phase16a_flash_backward(dev) -> dict:
     nbytes = 2 * (4 * q.numel() + 4 * k.numel())   # q o do dq, k v dk dv
     ops = 10 * b * h * d * s * (s + 1) // 2   # 5 products of the live pairs
     t["bound"], t["by"] = bound(nbytes, ops, BF16_OPS_PER_S)
-    t["err"] = worst_abs
     say(f"flash_attention backward (B={b}, S={s}, H={h}, KV={kvh}, D={d}, "
         f"bf16, causal): tensor-core kernels {t['ms']:.4f} ms, bound "
         f"{t['bound']:.4f} ms ({t['by']}: {ops / 1e9:.1f} GFLOP, 2.5x the "
@@ -2323,20 +2363,22 @@ def phase16a_flash_backward(dev) -> dict:
         f"{mma / 1e9:.1f} GFLOP (S and dP once, the products with P and dS "
         f"twice for their hi/lo split, whole diagonal tiles), "
         f"{mma / (t['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
-    # The float32 pair (CUDA cores, unchanged) at the same shape.
+    del qt, kt, vt, dot
     q, k, v, do = (x.float() for x in (q, k, v, do))
     o, lse = FlashAttention.apply(q, k, v, True, 0, True)
     t["f32_ms"] = time_ms(lambda: FlashAttentionBackward.apply(
         q, k, v, o, lse, do, True, 0), reps=2, trials=5)
     say(f"flash_attention backward, the float32 pair (CUDA cores) at the "
         f"same shape: {t['f32_ms']:.4f} ms")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
     return t
 
 
 def _lm_grads(cfg, device, key, toks, targets, extra=None):
     """d(token_ce(forward)) of the flat params made from ``key`` on the
     CPU, computed on ``device`` -> CPU tensors; ``extra`` the stub frontend
-    inputs (CPU tensors) of an encoder-decoder."""
+    inputs (CPU tensors) of an encoder-decoder or a VLM."""
     import torch
     from repro_torch.models import forward, init_model, token_ce
     from repro_torch.models.transformer import (flatten_params,
@@ -2347,6 +2389,8 @@ def _lm_grads(cfg, device, key, toks, targets, extra=None):
     def loss(p):
         logits, _ = forward(unflatten_params(p), cfg,
                             {k: v.to(device) for k, v in batch.items()})
+        if cfg.arch_type == "vlm":          # its text, after the patches
+            logits = logits[:, -targets.shape[1]:]
         return token_ce(logits, targets.to(device))[0]
 
     grads = torch.func.grad(loss)({k: v.to(device) for k, v in flat.items()})
@@ -3261,8 +3305,9 @@ def phase18e_refusal(dev, card: str) -> dict:
 # thread, niced) starts before the build and runs beside phases 2-18: it
 # traces the six assigned prefill and decode pairs, then the steps phase 19
 # runs on the card at phase 11's and 16f's shapes, then phase 21e's pairs
-# of the VLM and audio archs, and prints one JSON record a line to
-# DRYRUN_LOG; phases 19 and 21e read them.
+# of the VLM and audio archs, then phase 21f's phi-3-vision-4.2b train
+# steps (batch 4, 2, 1 until one fits), and prints one JSON record a line
+# to DRYRUN_LOG; phases 19 and 21e-f read them.
 DRYRUN_LOG = ROOT / "build" / "phase19_dryrun.log"
 DRYRUN_WAIT_S = 450            # the most phase 19 waits for the traces
 P19_STEP_REPS = 3              # warm calls of a step timed (median)
@@ -3308,6 +3353,15 @@ for arch, layers in (("qwen3-14b", qwen_layers), ("mamba2-1.3b", 0)):
 for arch in ("phi-3-vision-4.2b", "whisper-tiny"):          # phase 21e
     for shape in ("long_500k", "decode_32k", "prefill_32k"):
         pair(arch, shape)
+cfg = get_config("phi-3-vision-4.2b")                        # phase 21f
+for b in (4, 2, 1):
+    rec = dryrun.dryrun_step("phi-3-vision-4.2b", cfg, InputShape(
+        "phase21_train", cfg.num_patch_tokens + prompt, b, "train"),
+        microbatches=1)
+    emit(f"phi-3-vision-4.2b train b{b}", rec)
+    if rec["fits_one_card"]:
+        break
+emit("phi-3-vision-4.2b train", {})
 """
 _BACKGROUND: list = []
 
@@ -3827,6 +3881,19 @@ MODAL_SELF_TOL_BF16 = {VLM: {"prefill": 1e-2, "decode": 0.03},
 # traces take minutes of host CPU; ``python -m repro_torch.launch.dryrun``
 # records them).
 MODAL_DRYRUN_SHAPES = ("long_500k", "decode_32k", "prefill_32k")
+# Phase 21f: phi-3-vision-4.2b trained at full width and depth, AdamW 3e-4,
+# clip 1.0, at the first batch of VLM_TRAIN (rows of VLM_PROMPT patches +
+# VLM_PROMPT tokens, the serving shape first) whose train step the dry-run
+# estimates within the card's memory, for VLM_TRAIN_STEPS steps.  Its first
+# five losses rise (10.904, 10.940, 10.848, 11.179, 11.133 on H100 80GB HBM3
+# at 700 W): AdamW's first steps, with no warm-up, over batches that
+# differ.  With the plain attention in place of the kernels
+# (scripts/torch_train_plain_attention.py) the losses of a 4-layer cut
+# agree with the kernels' within 2e-4 over six steps, so the rise is the
+# recipe's, not the kernels'; at this batch and seed the tenth loss is
+# below the first (10.785).
+VLM_TRAIN = (4, 2, 1)
+VLM_TRAIN_STEPS = 10
 
 
 def _attention_times(dev, b, s, h, kvh, d, causal: bool, seed: int) -> dict:
@@ -3968,88 +4035,155 @@ def _modal_serve(dev, arch: str, batch: int, prompt: int) -> dict:
             "t_decode": t_decode, "peak": peak, "gaps": gaps}
 
 
-def _audio_train(dev) -> dict:
-    """(d) whisper-tiny's model gradients card against CPU at its reduced
-    config (TF32 off), then ``run_train`` at full width and depth."""
+def _reduced_grads(dev, what: str, cfg, seed: int) -> float:
+    """``cfg``'s float32 model gradients on the card against the CPU (TF32
+    off), within GRAD_TOL of each leaf's largest magnitude, with one
+    ``flash_attention`` and one ``flash_attention_bwd`` launch an attention
+    layer -> the gap."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, rng
+    old = _tf32(False, False)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 200)))
+    extra = modality_batch(cfg, 2, seed=seed)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = _lm_grads(cfg, dev, rng.PRNGKey(seed), toks, _targets(toks), extra)
+    launches = kernels.launch_counts()
+    want = _lm_grads(cfg, torch.device("cpu"), rng.PRNGKey(seed), toks,
+                     _targets(toks), extra)
+    _tf32(*old)
+    gap = _leaf_gap(got, want)
+    zero = [k for k in want if not want[k].abs().max() > 0]
+    say(f"{what} reduced float32 gradients (head_dim "
+        f"{cfg.resolved_head_dim}, {len(want)} leaves): card vs CPU within "
+        f"{gap:.2e} of each leaf's max |grad| (limit {GRAD_TOL:.0e}); "
+        f"launches {launches}")
+    attn = mixer_launches(cfg)["flash_attention"]
+    if not gap <= GRAD_TOL or zero or (
+            launches["flash_attention"],
+            launches["flash_attention_bwd"]) != (attn, attn):
+        raise AssertionError(f"{what}: card gradients differ from the "
+                             f"CPU's by {gap}, zero leaves {zero}, launches "
+                             f"{launches}")
+    return gap
+
+
+def _train_full(dev, arch: str, batch: int, seq: int,
+                steps: int = TRAIN_STEPS) -> dict:
+    """``run_train`` of ``arch`` at full width and depth, ``steps`` steps
+    of ``batch`` x ``seq`` text tokens (a VLM's patches before them), with
+    the launch counts set to 0 just before and read just after: finite,
+    falling losses and one ``flash_attention`` and one
+    ``flash_attention_bwd`` launch an attention layer a step; then the
+    step's synthetic batch alone."""
     import gc
     import math
-    import numpy as np
     import torch
     from repro_torch import kernels, rng
     from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset, modality_inputs
     from repro_torch.launch.train import run_train, synth_lm_batch
-    old = _tf32(False, False)
-    cfg = get_config(AUDIO).reduced(dtype="float32")
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (2, 200)))
-    extra = modality_batch(cfg, 2, seed=3)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    got = _lm_grads(cfg, dev, rng.PRNGKey(3), toks, _targets(toks), extra)
-    launches = kernels.launch_counts()
-    want = _lm_grads(cfg, torch.device("cpu"), rng.PRNGKey(3), toks,
-                     _targets(toks), extra)
-    _tf32(*old)
-    gap = _leaf_gap(got, want)
-    zero = [k for k in want if not want[k].abs().max() > 0]
-    say(f"{AUDIO} reduced float32 gradients (encoder and decoder, "
-        f"{len(want)} leaves): card vs CPU within {gap:.2e} of each leaf's "
-        f"max |grad| (limit {GRAD_TOL:.0e}); launches {launches}")
-    attn = mixer_launches(cfg)["flash_attention"]
-    if not gap <= GRAD_TOL or zero or (
-            launches["flash_attention"],
-            launches["flash_attention_bwd"]) != (attn, attn):
-        raise AssertionError(f"{AUDIO}: card gradients differ from the "
-                             f"CPU's by {gap}, zero leaves {zero}, launches "
-                             f"{launches}")
-    cfg = get_config(AUDIO)
+    cfg = get_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     times = []
-    losses = run_train(AUDIO, TRAIN_STEPS, AUDIO_BATCH, AUDIO_CONTEXT,
-                       reduced=False, device=dev, step_times=times,
-                       log_every=TRAIN_STEPS)
-    launches = {k: v / TRAIN_STEPS
-                for k, v in kernels.launch_counts().items()}
+    losses = run_train(arch, steps, batch, seq, reduced=False,
+                       device=dev, step_times=times, log_every=steps)
+    launches = {k: v / steps for k, v in kernels.launch_counts().items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    tok_s = AUDIO_BATCH * AUDIO_CONTEXT / statistics.median(times[1:])
+    tok_s = batch * seq / statistics.median(times[1:])
     attn = mixer_launches(cfg)["flash_attention"]
     # A step's synthetic batch alone: the categorical draw hashes batch x
-    # seq x vocab gumbels, the frames batch x 1500 x d normals.
-    ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=AUDIO_CONTEXT,
-                      device=dev)
+    # seq x vocab gumbels, the stub inputs (a VLM's patches, an
+    # encoder-decoder's frames) are normals.
+    ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=seq, device=dev)
     draws = []
     for i in range(3):
         key = rng.fold_in(rng.PRNGKey(0, dev), i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        synth_lm_batch(ds, key, AUDIO_BATCH)
-        modality_inputs(cfg, key, AUDIO_BATCH)
+        synth_lm_batch(ds, key, batch)
+        modality_inputs(cfg, key, batch)
         torch.cuda.synchronize()
         draws.append(time.perf_counter() - t0)
     draw_s = statistics.median(draws)
-    say(f"{AUDIO} run_train at full width and depth ({cfg.encoder_layers} "
-        f"encoder + {cfg.num_layers} decoder layers, {cfg.num_frames} "
-        f"frames): batch {AUDIO_BATCH} x {AUDIO_CONTEXT}; losses "
+    parts = [f"{cfg.num_layers} layers"]
+    if cfg.is_encoder_decoder:
+        parts.append(f"{cfg.encoder_layers} encoder layers over "
+                     f"{cfg.num_frames} frames")
+    if patch_tokens(cfg):
+        parts.append(f"{patch_tokens(cfg)} patches a row")
+    say(f"{arch} run_train at full width and depth ({', '.join(parts)}): "
+        f"batch {batch} x {seq}; losses "
         f"{[round(x, 4) for x in losses]}; step "
         f"{[f'{x:.3f}' for x in times]} s (first with the kernels' first "
-        f"launches), {tok_s:.0f} tokens/s warm; of a step, the batch's "
-        f"token and frame draws alone {draw_s:.3f} s; peak "
-        f"{peak / 1e9:.2f} GB; launches a step {launches}")
+        f"launches), {tok_s:.0f} text tokens/s warm; of a step, the batch's "
+        f"draws alone {draw_s:.3f} s; peak {peak / 1e9:.2f} GB; launches a "
+        f"step {launches}")
     if not all(math.isfinite(x) for x in losses) \
             or not losses[-1] < losses[0] \
             or (launches["flash_attention"],
                 launches["flash_attention_bwd"]) != (attn, attn):
-        raise AssertionError(f"{AUDIO} training: losses {losses}, launches "
+        raise AssertionError(f"{arch} training: losses {losses}, launches "
                              f"{launches} (expected {attn} flash_attention "
                              f"and flash_attention_bwd a step)")
-    return {"grad_gap": gap, "losses": losses, "step_s": times,
+    return {"batch": batch, "seq": seq, "steps": steps, "losses": losses,
+            "step_s": times,
             "tokens_s": tok_s, "peak": peak, "launches": launches,
             "draw_s": draw_s}
+
+
+def _audio_train(dev) -> dict:
+    """(d) whisper-tiny's model gradients card against CPU at its reduced
+    config (TF32 off), then ``run_train`` at full width and depth."""
+    from repro_torch.configs import get_config
+    gap = _reduced_grads(dev, AUDIO,
+                         get_config(AUDIO).reduced(dtype="float32"), 3)
+    return {"grad_gap": gap,
+            **_train_full(dev, AUDIO, AUDIO_BATCH, AUDIO_CONTEXT)}
+
+
+def _vlm_train(dev, records: dict) -> dict:
+    """(f) the attention backward at head_dim 96 and 192 on a model:
+    phi-3-vision-4.2b's and nemotron-4-340b's reduced float32 gradients
+    card against CPU at their published head_dims; then phi-3-vision-4.2b
+    trained at full width and depth at the largest batch of VLM_TRAIN
+    that the dry-run (the background process) says fits one card."""
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    out = {"grad_gap_d96": _reduced_grads(
+        dev, VLM, get_config(VLM).reduced(dtype="float32", head_dim=96), 5),
+        "grad_gap_d192": _reduced_grads(
+            dev, "nemotron-4-340b", get_config("nemotron-4-340b").reduced(
+                dtype="float32", head_dim=192), 6)}
+    fits = {}
+    for b in VLM_TRAIN:
+        rec = records.get(f"{VLM} train b{b}")
+        if rec is None:
+            continue
+        fits[b] = rec["peak_memory_per_device"]
+        say(f"dry-run {VLM} train step, batch {b} x ({VLM_PROMPT} patches + "
+            f"{VLM_PROMPT} tokens): estimated peak "
+            f"{rec['peak_memory_per_device'] / 1e9:.2f} GB, fits_one_card="
+            f"{rec['fits_one_card']}, launches {rec['kernel_launches']}")
+        if rec["fits_one_card"]:
+            break
+    else:
+        raise AssertionError(f"{VLM}: no batch of {VLM_TRAIN} fits one card "
+                             f"by the dry-run ({fits})")
+    out.update(_train_full(dev, VLM, b, VLM_PROMPT, VLM_TRAIN_STEPS),
+               estimate=fits[b])
+    say(f"{VLM} trained at batch {b}: peak {out['peak'] / 1e9:.2f} GB against"
+        f" the dry-run's {fits[b] / 1e9:.2f} GB "
+        f"({out['peak'] / fits[b] - 1:+.1%}); the draws "
+        f"{out['draw_s'] / statistics.median(out['step_s'][1:]):.1%} of a "
+        f"warm step; 21f wall {time.time() - t0:.1f} s")
+    return out
 
 
 def _modal_dryrun(dev, records: dict) -> dict:
@@ -4125,7 +4259,9 @@ def _modal_dryrun(dev, records: dict) -> dict:
 def phase21_modal(dev, records: dict) -> dict:
     """The VLM and audio pathways on the card: (a) the kernel at their new
     shapes, (b) phi-3-vision-4.2b and (c) whisper-tiny served, (d)
-    whisper-tiny trained, (e) the dry-run's verdicts and warm steps."""
+    whisper-tiny trained, (e) the dry-run's verdicts and warm steps, (f)
+    the attention backward at head_dim 96 and 192 on a model and
+    phi-3-vision-4.2b trained."""
     say("== 21. the VLM and audio pathways: phi-3-vision-4.2b and "
         "whisper-tiny at full width")
     t_phase = time.time()
@@ -4143,6 +4279,9 @@ def phase21_modal(dev, records: dict) -> dict:
     out["train"] = _audio_train(dev)
     say("-- 21e. the dry-run at the assigned shapes")
     out["dryrun"] = _modal_dryrun(dev, records)
+    say("-- 21f. the attention backward at head_dim 96 and 192 on a model; "
+        "phi-3-vision-4.2b trained")
+    out["vlm_train"] = _vlm_train(dev, records)
     say(f"phase 21 wall {time.time() - t_phase:.1f} s")
     return out
 
@@ -4456,7 +4595,8 @@ def main() -> int:
     phase19(dev, card, p16f)
     p20 = phase20_zoo(dev)
     p21 = phase21_modal(dev, dryrun_records(
-        [f"{a} {s}" for a in (VLM, AUDIO) for s in MODAL_DRYRUN_SHAPES]))
+        [f"{a} {s}" for a in (VLM, AUDIO) for s in MODAL_DRYRUN_SHAPES]
+        + [f"{VLM} train"]))
     stop_background()
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
@@ -4534,7 +4674,9 @@ def main() -> int:
          "modal_launches": {a: p21[a]["launches"]["flash_attention"]
                             for a in (VLM, AUDIO)},
          "audio_train_launches": int(p21["train"]["launches"][
-             "flash_attention"] * TRAIN_STEPS)},
+             "flash_attention"] * TRAIN_STEPS),
+         "vlm_train_launches": int(p21["vlm_train"]["launches"][
+             "flash_attention"] * VLM_TRAIN_STEPS)},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -4564,7 +4706,15 @@ def main() -> int:
          "zoo_train_launches": int(p20["train"]["launches"][
              "flash_attention_bwd"] * TRAIN_STEPS),
          "audio_train_launches": int(p21["train"]["launches"][
-             "flash_attention_bwd"] * TRAIN_STEPS)},
+             "flash_attention_bwd"] * TRAIN_STEPS),
+         "vlm_train_launches": int(p21["vlm_train"]["launches"][
+             "flash_attention_bwd"] * VLM_TRAIN_STEPS),
+         **{f"{key}_{field}": bwd[key][src]
+            for key in ("d96", "d192")
+            for field, src in (("shape", "shape"), ("ms", "ms"),
+                               ("plain_ms", "plain"), ("bound_ms", "bound"),
+                               ("bound_by", "by"), ("library_ms", "lib"),
+                               ("f32_pair_ms", "f32_ms"))}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ Each variant is ``csrc/flash_attention.cu`` with one design choice of the
 backward undone (``VARIANTS``): P's exponential by the accurate ``exp2f``
 instead of ``ex2.approx``, P and dS split with a rounded high half
 (``split_p``, as the forward splits P) instead of a truncated one, and a
-K/V (dQ) or Q/dO (dK/dV) ring of 2 or 4 stages instead of 3.  Every
+K/V (dQ) or Q/dO (dK/dV) ring of 2 or 4 stages instead of 3 (``BwdLayout``;
+the forward's ring is left as it is).  Every
 variant is compiled by ``nvcc`` with the build's flags into a library of
 its own (its ``-Xptxas -v`` spills of the backward kernels printed), held
 to the plain backward within ``chip_smoke.BWD_TOL`` at three shapes, and
@@ -36,10 +37,10 @@ VARIANTS = {
     "exp2f": ("fast_exp2(sc[j] * scale_log2 - l2(j))",
               "exp2f(sc[j] * scale_log2 - l2(j))", "all"),
     "rounded_split": ("split_trunc(", "split_p(", "bwd"),
-    "stages2": ("constexpr int kStages = 3;", "constexpr int kStages = 2;",
-                "all"),
-    "stages4": ("constexpr int kStages = 3;", "constexpr int kStages = 4;",
-                "all"),
+    "stages2": ("static constexpr int kStages = D > 128 ? 2 : 3;",
+                "static constexpr int kStages = 2;", "all"),
+    "stages4": ("static constexpr int kStages = D > 128 ? 2 : 3;",
+                "static constexpr int kStages = D > 128 ? 2 : 4;", "all"),
 }
 BWD_START = "// (q) dQ: one block a (b, h, 128-row q-tile)"
 CHECKS = [(2, 77, 8, 1, 64, True, 0), (1, 257, 4, 2, 128, False, 33),

@@ -10,7 +10,7 @@ The port serves the reference's ten archs: the dense (``qwen3-14b``,
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from ..models.config import ModelConfig
 from .paper_cnn import CONFIG, FL, FLConfig, PaperCNNConfig
@@ -39,5 +39,10 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
 __all__ = ["ARCH_IDS", "CONFIG", "FL", "FLConfig", "InputShape",
-           "ModelConfig", "PaperCNNConfig", "SHAPES", "get_config"]
+           "ModelConfig", "PaperCNNConfig", "SHAPES", "all_configs",
+           "get_config"]

@@ -39,6 +39,20 @@ def masked_mean(stacked: Params, mask: torch.Tensor,
             for k, p in stacked.items()}
 
 
+def fedavg_aggregate(stacked_params: Params, mask: torch.Tensor,
+                     num_examples: Optional[torch.Tensor] = None) -> Params:
+    """FedAvg: the selected clients' parameters after local training,
+    averaged by :func:`masked_mean`."""
+    return masked_mean(stacked_params, mask, num_examples)
+
+
+def fedsgd_aggregate(stacked_grads: Params, mask: torch.Tensor,
+                     num_examples: Optional[torch.Tensor] = None) -> Params:
+    """FedSGD: the selected clients' single-step gradients, averaged by
+    :func:`masked_mean`."""
+    return masked_mean(stacked_grads, mask, num_examples)
+
+
 def interpolate(global_params: Params, aggregated: Params,
                 server_lr: float = 1.0) -> Params:
     """θ ← θ + η_s (θ̄ − θ); η_s = 1 broadcasts the mean."""
@@ -138,12 +152,16 @@ def get_aggregator(name: str) -> Aggregator:
                        f"{registered_aggregators()}") from None
 
 
-# Ids 0-5, as in the reference: the two base families, their 2-cluster
-# forms, then the cluster-count sweep.
-register_aggregator("fedavg", Aggregator("fedavg"))
-register_aggregator("fedsgd", Aggregator("fedsgd"))
-register_aggregator("clustered_fedavg", Aggregator("fedavg", n_clusters=2))
-register_aggregator("clustered_fedsgd", Aggregator("fedsgd", n_clusters=2))
+# Ids 0-5, as in the reference: the builtins (the two base families and
+# their 2-cluster forms), then the cluster-count sweep.
+BUILTIN_AGGREGATORS: Tuple[str, ...] = (
+    "fedavg", "fedsgd", "clustered_fedavg", "clustered_fedsgd")
+for _name, _agg in zip(BUILTIN_AGGREGATORS,
+                       (Aggregator("fedavg"), Aggregator("fedsgd"),
+                        Aggregator("fedavg", n_clusters=2),
+                        Aggregator("fedsgd", n_clusters=2))):
+    register_aggregator(_name, _agg)
+del _name, _agg
 register_aggregator("clustered_fedavg4", Aggregator("fedavg", n_clusters=4))
 register_aggregator("clustered_fedavg8", Aggregator("fedavg", n_clusters=8))
 

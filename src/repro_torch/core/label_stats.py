@@ -68,6 +68,13 @@ def coverage(hist: torch.Tensor) -> torch.Tensor:
     return (hist > 0).sum(-1).to(torch.int32)
 
 
+def expected_coverage_per_round(hists: torch.Tensor) -> torch.Tensor:
+    """Union label coverage of a set of clients, n(∪_i ℒ_i) (paper §III-B:
+    trainability tracks the union coverage of a round), over the clients'
+    axis -2."""
+    return (hists > 0).any(-2).sum(-1).to(torch.int32)
+
+
 def empirical_pdf(hist: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     """p(L_i): normalized histogram with ε-smoothing (KL needs full support)."""
     hist = hist.to(torch.float32) + eps

@@ -646,6 +646,14 @@ def engines() -> Tuple[str, ...]:
     return tuple(_ENGINES)
 
 
+def engine_option_keys(name: str) -> Optional[Tuple[str, ...]]:
+    """The declared ``engine_options`` keys of engine ``name`` (None: it
+    accepts any)."""
+    if name not in _ENGINES:
+        raise KeyError(f"unknown engine {name!r}; have {engines()}")
+    return _ENGINE_OPTION_KEYS.get(name)
+
+
 def _clustered_meta(c_acc: np.ndarray, c_loss: np.ndarray,
                     c_assign: np.ndarray) -> Dict[str, Any]:
     """The engines' clustered side facts, as the reference writes them:

@@ -283,3 +283,9 @@ def run_fl_host(plan: np.ndarray, fl_cfg, *, strategy: Optional[str] = None,
                      cluster_assign=c_assign if agg.clustered else None,
                      telemetry=None if series is None else
                      {n: v[0] for n, v in series.items()})
+
+
+def success_rate(histories: List[FLHistory], threshold: float = 0.2) -> float:
+    """Paper Table II: the fraction of trials whose final accuracy exceeds
+    ``threshold``."""
+    return float(np.mean([h.final_accuracy > threshold for h in histories]))

@@ -8,14 +8,22 @@ the LM layers call ``flash_attention.gqa_flash_attention`` and
 ``ssd_scan.ssd_apply``, both differentiable (``flash_attention_bwd`` counts
 the attention backward's calls, one a call of its kernels).
 Nothing here imports a compiler or builds a kernel until a CUDA tensor arrives
-(``build.library``).
+(``build.library``).  The package exports the reference's names
+(``repro.kernels``), and the launch counts.
 """
 from __future__ import annotations
 
 import importlib
 
+from .dispatch import (client_histograms, client_statistics, compute_backend,
+                       masked_weighted_mean, weighted_sum_tree)
+from .flash_attention import attention_ref, gqa_flash_attention
 from .label_hist import label_hist as _label_hist
+from .label_hist import label_hist_kernel, label_hist_ref
+from .ssd_scan import ssd_apply, ssd_ref
 from .weighted_agg import weighted_agg as _weighted_agg
+from .weighted_agg import (aggregate_params, normalized_scales,
+                           weighted_agg_kernel, weighted_agg_ref)
 
 # The wrapper modules that count their kernel's launches (each package's
 # __init__ re-exports a function of the module's own name, so import the
@@ -29,6 +37,18 @@ _MODULES = {
         f"{__name__}.flash_attention.backward"),
     "ssd_scan": importlib.import_module(f"{__name__}.ssd_scan.ssd_scan"),
 }
+
+# Two exported functions share their subpackage's name: bound last, they
+# take the package attribute over the subpackage, as in the reference.
+from .flash_attention import flash_attention  # noqa: E402
+from .ssd_scan import ssd_scan  # noqa: E402
+
+__all__ = ["aggregate_params", "attention_ref", "client_histograms",
+           "client_statistics", "compute_backend", "flash_attention",
+           "gqa_flash_attention", "label_hist_kernel", "label_hist_ref",
+           "launch_counts", "masked_weighted_mean", "normalized_scales",
+           "reset_launch_counts", "ssd_apply", "ssd_ref", "ssd_scan",
+           "weighted_agg_kernel", "weighted_agg_ref", "weighted_sum_tree"]
 
 
 def launch_counts() -> dict[str, int]:

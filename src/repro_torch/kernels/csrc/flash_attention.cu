@@ -83,8 +83,7 @@
 // CUDA-core kernel by design (flash_attention_f32_kernel): 256 threads own
 // 64 query rows, 32-key tiles, float32 FMAs, Q/K transposed and V in shared
 // memory.  D is 16, 32, 64, 96, 128 or 192 in float32, 64, 96, 128 or 192
-// in bfloat16.  The backward below takes D of 64 and 128 in bfloat16 and 16
-// to 128 but 96 in float32.
+// in bfloat16, in the forward and the backward alike.
 //
 // The backward pair for both dtypes is at the end of the file.
 #include <cuda.h>
@@ -286,7 +285,6 @@ constexpr int kConsumers = 2;         // consumer warpgroups of 64 rows
 constexpr int kTcThreads = 128 * (kConsumers + 1);
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kRow = 128;             // bytes of one swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -1062,7 +1060,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // 108.7 us at the tensor cores' 989 TFLOP/s.
 //
 // float32, the check dtype and the FL LM workloads' dtype (head_dim 16 to
-// 128): CUDA cores, float32 throughout, two kernels in order on one stream.
+// 192): CUDA cores, float32 throughout, two kernels in order on one stream.
 // (a) flash_bwd_dq_kernel: one block a (b, h, 64-row q-tile).  A first pass
 //     over the live key tiles recomputes each row's L (online max and sum,
 //     the forward's masking and scale); it forms delta from O and dO,
@@ -1111,6 +1109,29 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 //     other.  Two accumulators of 64 x D leave no registers for a second
 //     tile in flight (a version that started the next S^T behind
 //     dK's products spilled and ran slower).
+// Both kernels take the forward's slab layout (TcLayout<D>) for every
+// operand, K-major or MN-major: D = 96 (phi-3-vision-4.2b) is three
+// 32-column slabs under the 64-byte swizzle, so dS.K, P^T.dO and dS^T.Q
+// are m64n96k16 products whose B operand steps slab by slab as the
+// forward's P.V does, with 48 floats a thread an accumulator.
+// D = 192 (nemotron-4-340b) meets two limits (BwdLayout):
+// * Shared memory.  Two resident 128-row tiles of three 64-column slabs
+//   (98,304 bytes) and a 3-stage ring of two 64-row tiles (147,456) exceed
+//   the 232,448 bytes a block may opt into, in both kernels.  At 192 the
+//   ring has 2 stages (198,696 bytes at most), so a tile's loads overlap
+//   the tile before it only.
+// * Registers.  Two 64 x 192 accumulators are 192 floats a thread, and
+//   with S^T, dP^T and the hi/lo fragments beside them they pass a
+//   consumer warpgroup's 240.  So the dK/dV kernel walks its q-tiles twice
+//   with one accumulator: dV += P^T.dO on the first walk, stored when it
+//   ends, then dK += dS^T.Q on the second, which recomputes S^T (7
+//   products a tile against the one walk's 6, and Q/dO loaded twice).
+//   Splitting D's columns between the consumer warpgroups instead would
+//   halve the keys a block owns and recompute S^T and dP^T in each.  The
+//   dQ kernel's one accumulator is 96 floats a thread, but with tile t's S
+//   and dP beside tile t - 1's dS fragments it spilled (332 bytes of
+//   spill stores and loads, ptxas), so at 192 it runs each tile's
+//   products one after the other, without that overlap.
 // Why P and dS are split: rounding them to bf16 once before their products,
 // as FlashAttention-2/3 do, puts the gradients within 0.999 of BWD_TOL
 // (7e-3 of each gradient's largest magnitude, chip_smoke.py phase 16a) of
@@ -1654,6 +1675,39 @@ __host__ __device__ __forceinline__ int padded_rows(int seq) {
   return (seq + kTcBK - 1) / kTcBK * kTcBK;
 }
 
+// The bf16 backward's shared memory over the forward's slabs: two resident
+// 128-row tiles (Q and dO in the dQ kernel, K and V in the dK/dV kernel), a
+// ring of kStages stages of two 64-row tiles (K and V, or Q and dO), the
+// dK/dV kernel's L and delta slices a stage, and the barriers.  At D = 192
+// three stages do not fit (the source note above), so two.  kPasses: the
+// dK/dV kernel's walks over its q-tiles, one for both accumulators or, at
+// D = 192, where two 64 x D accumulators do not fit the registers, one for
+// dV and one for dK.
+template <int D>
+struct BwdLayout {
+  using L = TcLayout<D>;
+  static constexpr int kStages = D > 128 ? 2 : 3;
+  static constexpr int kPasses = D > 128 ? 2 : 1;
+  // Whether the dQ kernel overlaps tile t's S and dP with tile t - 1's
+  // dS.K: at D = 192 the second set of fragments beside the 96-float
+  // accumulator spills.
+  static constexpr bool kOverlapDq = D <= 128;
+  static constexpr int kRingBytes = kStages * 2 * L::kTileBytes;
+  static constexpr int kStatBytes = 2 * kTcBK * 4;  // a tile's L, delta
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period.
+  static constexpr int kDqBytes = 1024 + 2 * L::kQBytes + kRingBytes +
+                                  kBarBytes;
+  static constexpr int kDkvBytes = kDqBytes + kStages * kStatBytes;
+  static_assert(kDkvBytes <= 232448, "over a block's shared memory");
+};
+
+// An integral constant for the generic lambdas' compile-time switches.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
 // (q) dQ: one block a (b, h, 128-row q-tile), numbered as the forward's
 // items (decode_item), so the causal triangle's longest rows start first.
 template <int D>
@@ -1669,14 +1723,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    int heads, int kv_heads, int causal, int window,
                    float scale_log2, float scale) {
   using L = TcLayout<D>;
-  constexpr int kSlabQ = kTcBQ * kRow;
-  constexpr int kSlabKV = kTcBK * kRow;
+  constexpr int kStages = BwdLayout<D>::kStages;
+  constexpr int kSlabQ = kTcBQ * L::kRowBytes;   // a slab of 128 rows
+  constexpr int kSlabKV = kTcBK * L::kRowBytes;  // a slab of 64 keys
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base;                     // Q: [slab][128 rows][128 B]
+  const uint32_t sq = base;                     // Q: [slab][128 rows][row]
   const uint32_t sdo = sq + L::kQBytes;         // dO, likewise
   const uint32_t ring = sdo + L::kQBytes;       // stage: K slabs, V slabs
-  const uint32_t q_full = ring + L::kRingBytes;
+  const uint32_t q_full = ring + BwdLayout<D>::kRingBytes;
   const uint32_t full_bar = q_full + 8;              // [kStages]
   const uint32_t empty_bar = full_bar + 8 * kStages; // [kStages]
 
@@ -1703,9 +1758,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(q_full, 2 * L::kQBytes);
 #pragma unroll
       for (int hf = 0; hf < L::kHalves; ++hf) {
-        tma_load(sq + hf * kSlabQ, &tm_q, q_full, 64 * hf, it.h, it.q0, it.b);
-        tma_load(sdo + hf * kSlabQ, &tm_do, q_full, 64 * hf, it.h, it.q0,
-                 it.b);
+        tma_load(sq + hf * kSlabQ, &tm_q, q_full, L::kSlabCols * hf, it.h,
+                 it.q0, it.b);
+        tma_load(sdo + hf * kSlabQ, &tm_do, q_full, L::kSlabCols * hf, it.h,
+                 it.q0, it.b);
       }
       for (int t = it.t_lo, n = 0; t < it.t_hi; ++t, ++n) {
         const int s = n % kStages;
@@ -1715,10 +1771,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(full_bar + 8 * s, 2 * L::kTileBytes);
 #pragma unroll
         for (int hf = 0; hf < L::kHalves; ++hf) {
-          tma_load(ks + hf * kSlabKV, &tm_k, full_bar + 8 * s, 64 * hf,
-                   it.kh, t * kTcBK, it.b);
-          tma_load(vs + hf * kSlabKV, &tm_v, full_bar + 8 * s, 64 * hf,
-                   it.kh, t * kTcBK, it.b);
+          tma_load(ks + hf * kSlabKV, &tm_k, full_bar + 8 * s,
+                   L::kSlabCols * hf, it.kh, t * kTcBK, it.b);
+          tma_load(vs + hf * kSlabKV, &tm_v, full_bar + 8 * s,
+                   L::kSlabCols * hf, it.kh, t * kTcBK, it.b);
         }
       }
     }
@@ -1770,8 +1826,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         stats[bh_count * seq_pad + bh * seq_pad + row] = d;
       }
     }
-    const uint32_t qs = sq + wg * 64 * kRow;
-    const uint32_t dos = sdo + wg * 64 * kRow;
+    const uint32_t qs = sq + wg * 64 * L::kRowBytes;
+    const uint32_t dos = sdo + wg * 64 * L::kRowBytes;
     int a_live, b_live;
     live_tiles(row_lo, it.t_lo, it.t_hi, seq, causal, window, a_live, b_live);
 
@@ -1812,7 +1868,28 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wait_full(t);
       release(t);
     }
-    if (a_live < b_live) {
+    if constexpr (!BwdLayout<D>::kOverlapDq) {
+      if (a_live < b_live) {
+        // One tile's products after the other: S and dP, then dS.K.
+        float sc[kTcBK / 2], dp[kTcBK / 2];
+        uint32_t ds_hi[kTcBK / 16][4], ds_lo[kTcBK / 16][4];
+        for (int t = a_live; t < b_live; ++t) {
+          wait_full(t);
+          start_s_dp(sc, dp, t);
+          wgmma_wait<0>();
+          reg_fence(sc);
+          reg_fence(dp);
+          ds_tile(sc, dp, t);
+          split_trunc(dp, ds_hi, ds_lo);
+          start_pv<D>(acc, ds_hi, ds_lo, k_tile(t));
+          wgmma_wait<0>();
+          reg_fence(acc);
+          reg_fence(ds_hi);
+          reg_fence(ds_lo);
+          release(t);
+        }
+      }
+    } else if (a_live < b_live) {
       float sc[kTcBK / 2], dp[kTcBK / 2];
       uint32_t ds_hi[kTcBK / 16][4], ds_lo[kTcBK / 16][4];
       wait_full(a_live);
@@ -1897,16 +1974,18 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_k,
                     int heads, int kv_heads, int causal, int window,
                     float scale_log2, float scale) {
   using L = TcLayout<D>;
-  constexpr int kSlabK = kTcBQ * kRow;     // a 64-column slab of 128 keys
-  constexpr int kSlabQ = kTcBK * kRow;     // a 64-column slab of 64 q rows
-  constexpr int kStatBytes = 2 * kTcBK * 4;  // a tile's L and delta slices
+  using B = BwdLayout<D>;
+  constexpr int kStages = B::kStages;
+  constexpr int kSlabK = kTcBQ * L::kRowBytes;   // a slab of 128 keys
+  constexpr int kSlabQ = kTcBK * L::kRowBytes;   // a slab of 64 q rows
+  constexpr int kStatBytes = B::kStatBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t sk = base;                     // K: [slab][128 keys][128 B]
+  const uint32_t sk = base;                     // K: [slab][128 keys][row]
   const uint32_t sv = sk + L::kQBytes;          // V, likewise
   const uint32_t ring = sv + L::kQBytes;        // stage: Q slabs, dO slabs
-  const uint32_t sstat = ring + L::kRingBytes;  // [kStages][L, delta][64]
+  const uint32_t sstat = ring + B::kRingBytes;  // [kStages][L, delta][64]
   const uint32_t kv_full = sstat + kStages * kStatBytes;
   const uint32_t full_bar = kv_full + 8;              // [kStages]
   const uint32_t empty_bar = full_bar + 8 * kStages;  // [kStages]
@@ -1928,8 +2007,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_k,
   }
   __syncthreads();
 
-  // Both roles walk the item's tiles in order, tile n in ring stage
-  // n % kStages.
+  // Both roles walk the item's tiles in order, kPasses times: ring count
+  // u = pass * walk + n for tile n, in stage u % kStages.
   const int wg = tid / 128;
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
@@ -1937,14 +2016,17 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_k,
       mbar_expect_tx(kv_full, 2 * L::kQBytes);
 #pragma unroll
       for (int hf = 0; hf < L::kHalves; ++hf) {
-        tma_load(sk + hf * kSlabK, &tm_k, kv_full, 64 * hf, it.kh, it.k0, it.b);
-        tma_load(sv + hf * kSlabK, &tm_v, kv_full, 64 * hf, it.kh, it.k0, it.b);
+        tma_load(sk + hf * kSlabK, &tm_k, kv_full, L::kSlabCols * hf, it.kh,
+                 it.k0, it.b);
+        tma_load(sv + hf * kSlabK, &tm_v, kv_full, L::kSlabCols * hf, it.kh,
+                 it.k0, it.b);
       }
-      for (int n = 0; n < it.walk; ++n) {
+      for (int u = 0; u < B::kPasses * it.walk; ++u) {
+        const int n = u % it.walk;
         const int h = it.kh * group + n / it.tiles;
         const int q0 = (it.qt_lo + n % it.tiles) * kTcBK;
-        const int s = n % kStages;
-        if (n >= kStages) mbar_wait(empty_bar + 8 * s, (n / kStages - 1) & 1);
+        const int s = u % kStages;
+        if (u >= kStages) mbar_wait(empty_bar + 8 * s, (u / kStages - 1) & 1);
         const uint32_t qs = ring + s * 2 * L::kTileBytes;
         const uint32_t dos = qs + L::kTileBytes;
         const uint32_t st = sstat + s * kStatBytes;
@@ -1953,10 +2035,10 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_k,
         mbar_expect_tx(full_bar + 8 * s, 2 * L::kTileBytes + kStatBytes);
 #pragma unroll
         for (int hf = 0; hf < L::kHalves; ++hf) {
-          tma_load(qs + hf * kSlabQ, &tm_q, full_bar + 8 * s, 64 * hf, h, q0,
-                   it.b);
-          tma_load(dos + hf * kSlabQ, &tm_do, full_bar + 8 * s, 64 * hf, h, q0,
-                   it.b);
+          tma_load(qs + hf * kSlabQ, &tm_q, full_bar + 8 * s,
+                   L::kSlabCols * hf, h, q0, it.b);
+          tma_load(dos + hf * kSlabQ, &tm_do, full_bar + 8 * s,
+                   L::kSlabCols * hf, h, q0, it.b);
         }
         bulk_load(st, lrow, kStatBytes / 2, full_bar + 8 * s);
         bulk_load(st + kStatBytes / 2, lrow + delta_at, kStatBytes / 2,
@@ -1969,84 +2051,111 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_k,
     const int lane = tid % 32, warp = (tid % 128) / 32;
     const int r0 = 16 * warp + lane / 4;
     const int c0 = 2 * (lane % 4);
-    const uint32_t ks = sk + wg * 64 * kRow;
-    const uint32_t vs = sv + wg * 64 * kRow;
+    const uint32_t ks = sk + wg * 64 * L::kRowBytes;
+    const uint32_t vs = sv + wg * 64 * L::kRowBytes;
     const int kw0 = it.k0 + 64 * wg;
     const int ka = kw0 + r0, kb = ka + 8;
-    float acc_dk[D / 2], acc_dv[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-    mbar_wait(kv_full, 0);
-    for (int n = 0; n < it.walk; ++n) {
-      const int q0 = (it.qt_lo + n % it.tiles) * kTcBK;
-      const int s = n % kStages;
-      mbar_wait(full_bar + 8 * s, (n / kStages) & 1);
-      // Skip a tile none of whose (q, key) pairs is visible to these keys;
-      // mask the elements of one that straddles the diagonal, the window's
-      // edge or S.
-      const bool live = kw0 < seq && (!causal || q0 + kTcBK - 1 >= kw0) &&
-                        (!window || q0 < kw0 + 63 + window);
-      if (live) {
-        const uint32_t qs = ring + s * 2 * L::kTileBytes;
-        const uint32_t dos = qs + L::kTileBytes;
-        const float* st = reinterpret_cast<const float*>(
-            smem_raw + (sstat + s * kStatBytes - raw));
-        const bool edge = (causal && q0 < kw0 + 63) ||
-                          (window && q0 + kTcBK - 1 >= kw0 + window) ||
-                          q0 + kTcBK > seq || kw0 + 64 > seq;
-        // S^T, then P^T, which feeds dV's products while dP^T = V.dO^T
-        // runs; then dS^T (from P^T's split halves, so that the float32 P^T
-        // is not live beside dP^T), which feeds dK's.
-        float sc[kTcBK / 2], dp[kTcBK / 2];
-        start_scores<D>(sc, ks, qs);     // S^T = K.Q^T
-        wgmma_wait<0>();
-        reg_fence(sc);
-        probs_tile(
-            sc,
-            [&](int j) {
-              const float2 l =
-                  *reinterpret_cast<const float2*>(st + 8 * (j / 4) + c0);
-              return (j & 1) ? l.y : l.x;
-            },
-            [&](int j) {
-              return !edge || visible(q0 + 8 * (j / 4) + c0 + (j & 1),
-                                      (j & 2) ? kb : ka, seq, causal, window);
-            },
-            scale_log2);
-        uint32_t p_hi[kTcBK / 16][4], p_lo[kTcBK / 16][4];
-        split_trunc(sc, p_hi, p_lo);
-        start_pv<D>(acc_dv, p_hi, p_lo, dos);    // dV += P^T.dO
-        start_scores<D>(dp, vs, dos);            // dP^T = V.dO^T
-        wgmma_wait<0>();
-        reg_fence(acc_dv);
-        reg_fence(dp);
-        reg_fence(p_hi);
-        reg_fence(p_lo);
-        dscores_tile(
-            dp, [&](int j) { return unsplit(p_hi, p_lo, j); },
-            [&](int j) {
-              const float2 d = *reinterpret_cast<const float2*>(
-                  st + kTcBK + 8 * (j / 4) + c0);
-              return (j & 1) ? d.y : d.x;
-            });
-        uint32_t ds_hi[kTcBK / 16][4], ds_lo[kTcBK / 16][4];
-        split_trunc(dp, ds_hi, ds_lo);
-        start_pv<D>(acc_dk, ds_hi, ds_lo, qs);   // dK += dS^T.Q
-        wgmma_wait<0>();
-        reg_fence(acc_dk);
-        reg_fence(ds_hi);
-        reg_fence(ds_lo);
+    // One walk over the item's tiles, ring counts u0 + n: dV's products
+    // (dv_on), dK's (dk_on), or both.
+    auto walk = [&](auto dv_on, auto dk_on, float (&acc_dv)[D / 2],
+                    float (&acc_dk)[D / 2], int u0) {
+      constexpr bool kDv = decltype(dv_on)::value;
+      constexpr bool kDk = decltype(dk_on)::value;
+      for (int n = 0; n < it.walk; ++n) {
+        const int u = u0 + n;
+        const int q0 = (it.qt_lo + n % it.tiles) * kTcBK;
+        const int s = u % kStages;
+        mbar_wait(full_bar + 8 * s, (u / kStages) & 1);
+        // Skip a tile none of whose (q, key) pairs is visible to these
+        // keys; mask the elements of one that straddles the diagonal, the
+        // window's edge or S.
+        const bool live = kw0 < seq && (!causal || q0 + kTcBK - 1 >= kw0) &&
+                          (!window || q0 < kw0 + 63 + window);
+        if (live) {
+          const uint32_t qs = ring + s * 2 * L::kTileBytes;
+          const uint32_t dos = qs + L::kTileBytes;
+          const float* st = reinterpret_cast<const float*>(
+              smem_raw + (sstat + s * kStatBytes - raw));
+          const bool edge = (causal && q0 < kw0 + 63) ||
+                            (window && q0 + kTcBK - 1 >= kw0 + window) ||
+                            q0 + kTcBK > seq || kw0 + 64 > seq;
+          // S^T, then P^T, which feeds dV's products while dP^T = V.dO^T
+          // runs; then dS^T (from P^T's split halves, so that the float32
+          // P^T is not live beside dP^T), which feeds dK's.
+          float sc[kTcBK / 2], dp[kTcBK / 2];
+          start_scores<D>(sc, ks, qs);     // S^T = K.Q^T
+          wgmma_wait<0>();
+          reg_fence(sc);
+          probs_tile(
+              sc,
+              [&](int j) {
+                const float2 l =
+                    *reinterpret_cast<const float2*>(st + 8 * (j / 4) + c0);
+                return (j & 1) ? l.y : l.x;
+              },
+              [&](int j) {
+                return !edge || visible(q0 + 8 * (j / 4) + c0 + (j & 1),
+                                        (j & 2) ? kb : ka, seq, causal,
+                                        window);
+              },
+              scale_log2);
+          uint32_t p_hi[kTcBK / 16][4], p_lo[kTcBK / 16][4];
+          split_trunc(sc, p_hi, p_lo);
+          if constexpr (kDv) start_pv<D>(acc_dv, p_hi, p_lo, dos);  // dV
+          if constexpr (kDk) start_scores<D>(dp, vs, dos);  // dP^T = V.dO^T
+          wgmma_wait<0>();
+          reg_fence(p_hi);
+          reg_fence(p_lo);
+          if constexpr (kDv) reg_fence(acc_dv);
+          if constexpr (kDk) {
+            reg_fence(dp);
+            dscores_tile(
+                dp, [&](int j) { return unsplit(p_hi, p_lo, j); },
+                [&](int j) {
+                  const float2 d = *reinterpret_cast<const float2*>(
+                      st + kTcBK + 8 * (j / 4) + c0);
+                  return (j & 1) ? d.y : d.x;
+                });
+            uint32_t ds_hi[kTcBK / 16][4], ds_lo[kTcBK / 16][4];
+            split_trunc(dp, ds_hi, ds_lo);
+            start_pv<D>(acc_dk, ds_hi, ds_lo, qs);   // dK += dS^T.Q
+            wgmma_wait<0>();
+            reg_fence(acc_dk);
+            reg_fence(ds_hi);
+            reg_fence(ds_lo);
+          }
+        }
+        mbar_arrive(empty_bar + 8 * s);
       }
-      mbar_arrive(empty_bar + 8 * s);
-    }
+    };
     const long long row_stride = static_cast<long long>(kv_heads) * D;
     const long long at = (static_cast<long long>(it.b) * seq + ka) *
                              row_stride +
                          static_cast<long long>(it.kh) * D + c0;
-    store_rows<D>(dk + at, dk + at + 8 * row_stride, acc_dk, scale, ka < seq,
-                  kb < seq);
-    store_rows<D>(dv + at, dv + at + 8 * row_stride, acc_dv, 1.f, ka < seq,
-                  kb < seq);
+    mbar_wait(kv_full, 0);
+    if constexpr (B::kPasses == 1) {
+      float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+      walk(Flag<true>(), Flag<true>(), acc_dv, acc_dk, 0);
+      store_rows<D>(dk + at, dk + at + 8 * row_stride, acc_dk, scale,
+                    ka < seq, kb < seq);
+      store_rows<D>(dv + at, dv + at + 8 * row_stride, acc_dv, 1.f, ka < seq,
+                    kb < seq);
+    } else {
+      // dV on the first walk, then dK on the second, in one accumulator.
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      walk(Flag<true>(), Flag<false>(), acc, acc, 0);
+      store_rows<D>(dv + at, dv + at + 8 * row_stride, acc, 1.f, ka < seq,
+                    kb < seq);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      walk(Flag<false>(), Flag<true>(), acc, acc, it.walk);
+      store_rows<D>(dk + at, dk + at + 8 * row_stride, acc, scale, ka < seq,
+                    kb < seq);
+    }
   }
 }
 
@@ -2059,21 +2168,22 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   // dQ reads Q/dO in 128-row boxes and K/V in 64-key boxes; dK/dV the
-  // other way round.
+  // other way round; a box is one slab of TcLayout<D>'s columns.
+  constexpr int cols = TcLayout<D>::kSlabCols;
   CUtensorMap q128, do128, k64, v64, k128, v128, q64, do64;
-  if (!make_map(encode, &q128, q, D, heads, seq, batch, kTcBQ) ||
-      !make_map(encode, &do128, dout, D, heads, seq, batch, kTcBQ) ||
-      !make_map(encode, &k64, k, D, kv_heads, seq, batch, kTcBK) ||
-      !make_map(encode, &v64, v, D, kv_heads, seq, batch, kTcBK) ||
-      !make_map(encode, &k128, k, D, kv_heads, seq, batch, kTcBQ) ||
-      !make_map(encode, &v128, v, D, kv_heads, seq, batch, kTcBQ) ||
-      !make_map(encode, &q64, q, D, heads, seq, batch, kTcBK) ||
-      !make_map(encode, &do64, dout, D, heads, seq, batch, kTcBK))
+  if (!make_map(encode, &q128, q, D, heads, seq, batch, kTcBQ, cols) ||
+      !make_map(encode, &do128, dout, D, heads, seq, batch, kTcBQ, cols) ||
+      !make_map(encode, &k64, k, D, kv_heads, seq, batch, kTcBK, cols) ||
+      !make_map(encode, &v64, v, D, kv_heads, seq, batch, kTcBK, cols) ||
+      !make_map(encode, &k128, k, D, kv_heads, seq, batch, kTcBQ, cols) ||
+      !make_map(encode, &v128, v, D, kv_heads, seq, batch, kTcBQ, cols) ||
+      !make_map(encode, &q64, q, D, heads, seq, batch, kTcBK, cols) ||
+      !make_map(encode, &do64, dout, D, heads, seq, batch, kTcBK, cols))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kdq = flash_bwd_dq_wgmma<D>;
   auto kdkv = flash_bwd_dkv_wgmma<D>;
-  constexpr int dq_bytes = TcLayout<D>::kSmemBytes;
-  constexpr int dkv_bytes = TcLayout<D>::kSmemBytes + kStages * 2 * kTcBK * 4;
+  constexpr int dq_bytes = BwdLayout<D>::kDqBytes;
+  constexpr int dkv_bytes = BwdLayout<D>::kDkvBytes;
   cudaError_t err = check_reg_split(kdq);
   if (err == cudaSuccess) err = check_reg_split(kdkv);
   if (err == cudaSuccess)
@@ -2114,16 +2224,23 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    float* stats = static_cast<float*>(scratch);
-    if (head_dim == 64)
-      return launch_bwd_bf16<64>(q, k, v, o, lse, dout, dq, dk, dv, stats,
-                                 batch, seq, heads, kv_heads, causal, window,
-                                 s);
-    if (head_dim == 128)
-      return launch_bwd_bf16<128>(q, k, v, o, lse, dout, dq, dk, dv, stats,
-                                  batch, seq, heads, kv_heads, causal, window,
-                                  s);
-    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_BWD_BF16(D)                                                  \
+  return launch_bwd_bf16<D>(q, k, v, o, lse, dout, dq, dk, dv,             \
+                            static_cast<float*>(scratch), batch, seq, heads, \
+                            kv_heads, causal, window, s)
+    switch (head_dim) {
+      case 64:
+        REPRO_BWD_BF16(64);
+      case 96:
+        REPRO_BWD_BF16(96);
+      case 128:
+        REPRO_BWD_BF16(128);
+      case 192:
+        REPRO_BWD_BF16(192);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef REPRO_BWD_BF16
   }
 #define REPRO_BWD(D)                                                        \
   return launch_bwd_d<float, D>(q, k, v, o, dout, dq, dk, dv, scratch,     \
@@ -2136,8 +2253,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       REPRO_BWD(32);
     case 64:
       REPRO_BWD(64);
+    case 96:
+      REPRO_BWD(96);
     case 128:
       REPRO_BWD(128);
+    case 192:
+      REPRO_BWD(192);
     default:
       break;
   }

@@ -45,10 +45,12 @@ ENV_VAR = "REPRO_COMPUTE_BACKEND"
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(backend: str, device: torch.device) -> str:
-    """``backend`` resolved for tensors on ``device``: ``auto`` becomes
-    ``ENV_VAR``'s value when that is set and not empty, and that value may
-    be ``reference`` only off the card."""
+def compute_backend(backend: str = "auto") -> str:
+    """``backend`` resolved as a dispatch call resolves it: ``auto`` becomes
+    ``ENV_VAR``'s value when that is set and not empty.  Returns ``auto``
+    (each call's tensors decide: the kernel on a CUDA device, its plain
+    version on the CPU) or ``reference``; raises on any other value (the
+    reference's ``pallas`` and ``pallas_interpret`` name TPU kernels)."""
     if backend not in BACKENDS:
         raise ValueError(f"compute backend must be one of {BACKENDS}; "
                          f"got {backend!r}")
@@ -57,11 +59,20 @@ def _check(backend: str, device: torch.device) -> str:
         if backend not in BACKENDS:
             raise ValueError(f"{ENV_VAR} must be one of {BACKENDS} or unset; "
                              f"got {backend!r}")
-        if backend == "reference" and device.type == "cuda":
-            raise RuntimeError(
-                f"{ENV_VAR}=reference would send CUDA tensors past their "
-                f"kernels; unset it, or pass backend='reference' to compare")
     return backend
+
+
+def _check(backend: str, device: torch.device) -> str:
+    """``backend`` resolved for tensors on ``device``
+    (:func:`compute_backend`); the environment may ask for ``reference``
+    only off the card."""
+    resolved = compute_backend(backend)
+    if backend == "auto" and resolved == "reference" \
+            and device.type == "cuda":
+        raise RuntimeError(
+            f"{ENV_VAR}=reference would send CUDA tensors past their "
+            f"kernels; unset it, or pass backend='reference' to compare")
+    return resolved
 
 
 def client_histograms(labels: torch.Tensor, num_classes: int,

@@ -10,22 +10,21 @@ row logsumexp L: dQ a (b, h, 128-row q-tile), which also writes L in log2
 units and Δ = rowsum(dO∘O) to a scratch (sized by the library) whose rows
 are padded to the dK/dV kernel's q-tile, then dK/dV a (b, kv-head,
 128-key tile) over the q-heads of its group.  float32 runs the CUDA-core
-pair, which recomputes L itself.  The source note says what bounds them.
-Both take head_dim 64 and 128 in bf16 and 16 to 128 but 96 in float32
-(``BWD_HEAD_DIMS``): the forward's head_dims 96 (phi-3-vision-4.2b) and 192
-(nemotron-4-340b) have no backward kernel yet (ROADMAP.md Queue 2).
+pair, which recomputes L itself.  Both take the forward's head_dims
+(``BWD_HEAD_DIMS`` is ``HEAD_DIMS``): 64, 96, 128 and 192 in bf16, 16 to 192
+in float32.  The source note says what bounds them and how head_dim 96 and
+192 fit the tensor-core pair's shared memory and registers.
 """
 from __future__ import annotations
 
 import torch
 
 from ..build import check_launch, library
-from .flash_attention import _ENTRY, _on_cpu, check_operands
+from .flash_attention import HEAD_DIMS, _ENTRY, _on_cpu, check_operands
 from .ref import gqa_attention_bwd_ref
 
-# The head_dims the backward kernels take, by dtype; the forward also takes
-# 96 and 192 (``HEAD_DIMS``).
-BWD_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
+# The head_dims the backward kernels take, by dtype: the forward's.
+BWD_HEAD_DIMS = HEAD_DIMS
 
 # Launches of the backward kernels since the last reset (repro_torch.kernels);
 # one a call, whatever the number of kernels the call starts.
@@ -44,11 +43,7 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"need float32 or bfloat16 tensors of one dtype; got "
                         f"{[t.dtype for t in ts]}")
     b, s, h, d = q.shape
-    if d not in BWD_HEAD_DIMS[q.dtype]:
-        raise ValueError(f"the flash_attention backward takes head_dim in "
-                         f"{BWD_HEAD_DIMS[q.dtype]} for {q.dtype}; got {d}: "
-                         f"head_dims 96 and 192 have no backward kernel yet "
-                         f"(ROADMAP.md Queue 2)")
+    check_operands("flash_attention backward", ts, d, window)
     if q.device.type != "cuda" or any(t.device != q.device
                                       for t in ts + (lse,)):
         raise ValueError(f"flash_attention backward runs on one CUDA device;"
@@ -62,7 +57,6 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"need the forward's lse, contiguous float32 of "
                          f"shape {(b, h, s)}; got {lse.dtype} "
                          f"{tuple(lse.shape)}")
-    check_operands("flash_attention backward", ts, d, window)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv

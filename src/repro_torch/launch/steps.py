@@ -80,7 +80,15 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     ``opt.init(flatten_params(params))`` makes its state (moments in
     :func:`opt_state_dtype`).  With ``mb`` microbatches the batch splits
     into ``mb`` equal parts along B; their gradients are summed in float32
-    and divided by ``mb``, their losses averaged."""
+    and divided by ``mb``, their losses averaged.
+
+    The step writes the new params and moments into the tensors it is given,
+    a leaf at a time, and returns them: it consumes its arguments.  The
+    reference's functional step leaves the buffers to XLA; built anew here,
+    a full-width step would hold the old and new params and moments and the
+    whole tree's float32 updates at once (83 GB by the dry-run at
+    phi-3-vision-4.2b's 3.7 B params with float32 moments).  The arithmetic
+    is the optimizer's, leaf by leaf, so the values are the same bits."""
     mb = microbatches or default_microbatches(cfg, shape)
     opt = adamw(3e-4, state_dtype=opt_state_dtype(cfg))
 
@@ -111,9 +119,16 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
         else:
             grads, loss = grad_fn(flat, batch)
         grads, gnorm = clip_by_global_norm(grads, 1.0)
-        ups, opt_state = opt.update(grads, opt_state, flat)
-        new = apply_updates(flat, ups)
-        return (unflatten_params(new), opt_state,
+        for k, p in flat.items():
+            mu, nu = opt_state.mu[k], opt_state.nu[k]
+            ups, one = opt.update({k: grads.pop(k)},
+                                  OptState(opt_state.step, {k: mu}, {k: nu}),
+                                  {k: p})
+            p.copy_(apply_updates({k: p}, ups)[k])
+            mu.copy_(one.mu[k])
+            nu.copy_(one.nu[k])
+        opt_state = OptState(opt_state.step + 1, opt_state.mu, opt_state.nu)
+        return (unflatten_params(flat), opt_state,
                 {"loss": loss, "grad_norm": gnorm})
 
     return train_step, opt

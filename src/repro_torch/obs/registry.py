@@ -111,6 +111,11 @@ def get_metric(name: str) -> Metric:
     return _METRICS[name]
 
 
+def metrics_registry() -> Dict[str, Metric]:
+    """Live name → Metric view (the analysis layer iterates it)."""
+    return _METRICS
+
+
 def resolve_telemetry_request(spec_telemetry: Sequence[str] = ()
                               ) -> Tuple[str, ...]:
     """The effective metric request: the spec's own ``telemetry`` when

@@ -101,6 +101,13 @@ def events() -> List[Dict[str, Any]]:
         return [dict(e) for e in _EVENTS]
 
 
+def reset() -> None:
+    """Clear the buffered events and memory snapshots (tests)."""
+    with _LOCK:
+        _EVENTS.clear()
+        _MEMORY.clear()
+
+
 def span_summary() -> Dict[str, Dict[str, float]]:
     """name -> {count, total_s} over the complete events so far."""
     out: Dict[str, Dict[str, float]] = {}

@@ -21,7 +21,6 @@ from repro.models import layers as JL  # noqa: E402
 
 import torch_lm_parity as P  # noqa: E402
 from repro_torch.kernels.flash_attention import gqa_flash_attention  # noqa: E402,E501
-from repro_torch.kernels.flash_attention.backward import launch_backward  # noqa: E402,E501
 from repro_torch.launch.serve import run_serve  # noqa: E402
 
 ARCHS = ("minitron-4b", "qwen2-72b", "nemotron-4-340b", "jamba-v0.1-52b")
@@ -122,15 +121,12 @@ def test_plain_attention_at_head_dim_192_matches(window):
     P.close(got, want)
 
 
-def test_backward_at_head_dim_192_raises_naming_the_roadmap():
-    """The backward kernels take head_dim up to 128: the kernels' wrapper
-    refuses 192 before it looks at the device, naming ROADMAP.md."""
-    q = torch.zeros((1, 8, 2, 192), dtype=torch.bfloat16)
-    lse = torch.zeros((1, 2, 8), dtype=torch.float32)
-    for dtype in (torch.bfloat16, torch.float32):
-        x = q.to(dtype)
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-            launch_backward(x, x, x, x, lse, x, causal=True, window=0)
+def test_nemotron_gradients_at_head_dim_192_match():
+    """``loss_fn`` and its gradients of nemotron-4-340b at
+    ``reduced(head_dim=192)``, its published head_dim, through the
+    attention backward at 192 (on the CPU its plain version), against
+    ``jax.grad`` of the reference, at tests/torch_lm_parity.py's limits."""
+    P.check_loss_and_grads("nemotron-4-340b", head_dim=192)
 
 
 def test_run_serve_and_num_layers_on_the_cpu():

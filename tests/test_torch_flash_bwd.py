@@ -37,12 +37,17 @@ OUT_TOL = 2e-5
 
 # (B, S, H, KV, D, causal, window): GQA groups 1 and 2, causal, windowed and
 # not causal, ragged S (no multiple of the kernels' 64-row tiles), head_dim
-# 16 and 64.
+# 16 and 64, and 96 (phi-3-vision-4.2b) and 192 (nemotron-4-340b), each
+# causal with a window and not causal.
 CASES = [
     (2, 24, 4, 4, 16, True, 0),
     (1, 37, 4, 2, 16, True, 5),
     (2, 20, 2, 1, 64, False, 0),
     (1, 33, 4, 2, 64, False, 6),
+    (1, 37, 4, 2, 96, True, 9),
+    (1, 33, 4, 2, 96, False, 0),
+    (1, 37, 4, 2, 192, True, 9),
+    (1, 33, 4, 2, 192, False, 0),
 ]
 IDS = [f"S{c[1]}-H{c[2]}/{c[3]}-D{c[4]}-{'causal' if c[5] else 'full'}"
        f"-w{c[6]}" for c in CASES]

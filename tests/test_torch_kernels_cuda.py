@@ -370,12 +370,18 @@ def test_noncausal_kernel_at_whisper_encoder_shape(cuda, dtype):
         assert bool(((g - w).abs() <= tol).all())
 
 
-def test_backward_at_head_dim_192_raises_naming_the_roadmap(cuda):
-    q = _randn((1, 64, 12, 192), 1, cuda).bfloat16()
-    k = _randn((1, 64, 1, 192), 2, cuda).bfloat16()
-    o, lse = FlashAttention.apply(q, k, k, True, 0, True)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        FlashAttentionBackward.apply(q, k, k, o, lse, o, True, 0)
+def test_backward_refuses_a_head_dim_the_kernels_do_not_take(cuda):
+    """A head_dim outside the kernels' raises on the card before any
+    launch: no path gives way to the plain backward."""
+    from repro_torch.kernels.flash_attention.backward import launch_backward
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn((1, 64, 4, 48), 1, cuda).to(dtype)
+        lse = torch.zeros((1, 4, 64), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            FlashAttentionBackward.apply(x, x, x, x, lse, x, True, 0)
+        with pytest.raises(ValueError, match="head_dim"):
+            launch_backward(x, x, x, x, lse, x, causal=True, window=0)
+    assert kernels.launch_counts()["flash_attention_bwd"] == 0
 
 
 def test_bf16_gqa_kernel_matches_plain_version(cuda):
@@ -498,6 +504,19 @@ BWD_SHAPES = [
     (1, 257, 4, 2, 128, torch.bfloat16, False, 33),
     (16, 1500, 6, 6, 64, torch.bfloat16, False, 0),
     (16, 448, 6, 6, 64, torch.bfloat16, True, 0),
+    # head_dim 96 (phi-3-vision-4.2b's training shape at full width) and
+    # 192 (nemotron-4-340b's prefill shape), then each windowed and with S
+    # of no multiple of 64, and not causal; the float32 pair at both.
+    (4, 2048, 32, 32, 96, torch.bfloat16, True, 0),
+    (4, 1024, 96, 8, 192, torch.bfloat16, True, 0),
+    (1, 333, 8, 2, 96, torch.bfloat16, True, 40),
+    (1, 333, 12, 2, 192, torch.bfloat16, True, 40),
+    (1, 190, 6, 6, 96, torch.bfloat16, False, 0),
+    (1, 257, 4, 2, 192, torch.bfloat16, False, 33),
+    (2, 77, 8, 4, 96, torch.float32, True, 0),
+    (1, 130, 4, 2, 96, torch.float32, False, 0),
+    (2, 77, 6, 2, 192, torch.float32, True, 9),
+    (1, 130, 4, 2, 192, torch.float32, False, 0),
 ]
 
 
@@ -515,11 +534,14 @@ def test_flash_backward_kernels_match_plain_backward(cuda, b, s, h, kv, d,
     o, lse = FlashAttention.apply(q, k, v, causal, window, True)
     got = FlashAttentionBackward.apply(q, k, v, o, lse, do, causal, window)
     want = gqa_attention_bwd_ref(q, k, v, o, do, causal, window)
+    exact = gqa_attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
+                                  causal, window)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention_bwd"] == 1
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    for name, g, w, e in zip(("dq", "dk", "dv"), got, want, exact):
         assert g.dtype == dtype and g.shape == w.shape
         assert _rel_err(g, w) <= BWD_TOL[dtype], name
+        assert _rel_err(g, e) <= BWD_TOL[dtype], name
 
 
 @pytest.mark.parametrize("b,s,h,kv,d,dtype,causal,window", [

@@ -12,7 +12,9 @@ magnitude; keyed init within 3 ulps; the converter, checkpoints and configs
 equal; bf16 prefill and 8 decode steps within 2e-2 of the step's largest
 |logit|), their batches carrying NumPy-made ``patch_embeds`` and
 ``frames``.  ``reduced()`` forces head_dim 64, so phi-3-vision is also held
-at ``reduced(head_dim=96)``.
+at ``reduced(head_dim=96)``, there also through one ``make_train_step`` step
+against the reference's (the loss within 1e-5 relative, the parameters
+within 1e-3 of the update, as tests/test_torch_train.py holds qwen3-14b's).
 
 The encoder's attention is the flash wrapper with ``causal=False`` (on a
 CPU tensor its plain version), held at 2e-4 to the function the
@@ -30,12 +32,16 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from jax.sharding import AxisType  # noqa: E402
+
+from repro import sharding as jsh  # noqa: E402
 from repro.ckpt import load_checkpoint as jload_checkpoint  # noqa: E402
 from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention as jflash)
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.configs.shapes import InputShape as JInputShape  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro.optim import OptState as JOptState  # noqa: E402
 
 import torch_lm_parity as P  # noqa: E402
 from repro_torch import kernels  # noqa: E402
@@ -56,6 +62,9 @@ from repro_torch.models.transformer import flatten_params  # noqa: E402
 ARCHS = ("phi-3-vision-4.2b", "whisper-tiny")
 # phi-3-vision's head_dim at full width (3072 / 32), which reduced() drops.
 HD96 = {"head_dim": 96}
+# One train step against the reference's, as tests/test_torch_train.py.
+LOSS_RTOL = 1e-5
+STEP_REL = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -222,15 +231,65 @@ def test_noncausal_attention_matches_the_pallas_kernel_at_256():
     P.close(got, want)
 
 
-def test_backward_at_head_dim_96_raises_naming_the_roadmap():
-    """The backward kernels take head_dim 64 and 128 in bf16 (and up to 128
-    in float32, but not 96): phi-3-vision is served, not trained, on the
-    card; the wrapper refuses before it looks at the device."""
-    lse = torch.zeros((1, 2, 8), dtype=torch.float32)
+def test_backward_takes_the_forwards_head_dims_and_refuses_others():
+    """The backward kernels take the forward's head_dims in both dtypes
+    (96 for phi-3-vision, 192 for nemotron), so every arch trains on the
+    card; any other head_dim raises on the kernels' path before it looks
+    at the device, and never gives way to the plain backward."""
+    from repro_torch.kernels.flash_attention.backward import BWD_HEAD_DIMS
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
     for dtype in (torch.bfloat16, torch.float32):
-        x = torch.zeros((1, 8, 2, 96), dtype=dtype)
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+        assert BWD_HEAD_DIMS[dtype] == HEAD_DIMS[dtype]
+        assert {96, 192} <= set(BWD_HEAD_DIMS[dtype])
+    lse = torch.zeros((1, 2, 8), dtype=torch.float32)
+    kernels.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((1, 8, 2, 48), dtype=dtype)
+        with pytest.raises(ValueError, match="head_dim in"):
             launch_backward(x, x, x, x, lse, x, causal=True, window=0)
+    assert kernels.launch_counts()["flash_attention_bwd"] == 0
+
+
+def test_train_step_at_head_dim_96_matches_reference():
+    """One ``make_train_step`` step of phi-3-vision at
+    ``reduced(head_dim=96)`` (loss over the text, clip, AdamW over the flat
+    params) against the reference's, jitted on a one-device mesh, on the
+    same redrawn weights and batch: the step the card trains with, through
+    the attention backward at head_dim 96.  The loss within ``LOSS_RTOL``;
+    the parameters' gap within ``STEP_REL`` of the update, as
+    tests/test_torch_train.py holds qwen3-14b's steps."""
+    jcfg, tcfg = P.cfgs("phi-3-vision-4.2b", **HD96)
+    tree = P.np_tree(P._jinit(jcfg)(jax.random.PRNGKey(9)), 9)
+    b, text = 2, 24
+    toks = P.tokens(b, text, jcfg.vocab_size, seed=9)
+    targets = np.roll(toks, -1, axis=1)
+    targets[:, -1] = -1
+    jb, tb = P.batches(jcfg, {"tokens": toks, "targets": targets,
+                              **P.extras(jcfg, b, seed=9)})
+    seq = text + P.patches(jcfg)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    fn, in_sh, out_sh, _, rules = jsteps.make_train_step(
+        jcfg, mesh, JInputShape("custom", seq, b, "train"), microbatches=1)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    zeros = jax.tree_util.tree_map(
+        lambda p: jnp.zeros(p.shape, jnp.float32), jparams)
+    state = JOptState(step=jnp.zeros((), jnp.int32), mu=zeros, nu=zeros)
+    with mesh, jsh.shard_ctx(mesh, rules):
+        jnew, _, jm = jax.jit(fn, in_shardings=in_sh,
+                              out_shardings=out_sh)(jparams, state, jb)
+    step, opt = steps.make_train_step(
+        tcfg, InputShape("custom", seq, b, "train"), 1)
+    init = [np.array(x) for x in jax.tree_util.tree_leaves(tree)]
+    params = lm_params_from_jax(tree, tcfg, device="cpu")
+    new, _, m = step(params, opt.init(flatten_params(params)), tb)
+    assert abs(float(m["loss"]) - float(jm["loss"])) <= \
+        LOSS_RTOL * abs(float(jm["loss"]))
+    got = jax.tree_util.tree_leaves(lm_params_to_jax(new, tcfg))
+    want = [np.asarray(w) for w in jax.tree_util.tree_leaves(jnew)]
+    gap = np.sqrt(sum(((g - w) ** 2).sum() for g, w in zip(got, want)))
+    upd = np.sqrt(sum(((w - i) ** 2).sum() for w, i in zip(want, init)))
+    assert gap <= STEP_REL * upd, gap / upd
 
 
 @pytest.mark.parametrize("arch", ARCHS)
