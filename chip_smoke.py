@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time and the compiler's register report;
    check from ``cuobjdump -sass`` that the bf16 flash kernels (the forward
-   and the backward's dQ and dK/dV kernels) and both SSD scan kernels run
-   on the tensor cores (``HGMMA``, ``HMMA``) and from the ``-Xptxas -v``
-   log that they spill nothing;
+   and the backward's dQ and dK/dV kernels), both SSD scan kernels and the
+   SSD backward's state and chunk kernels run on the tensor cores
+   (``HGMMA``, ``HMMA``) and from the ``-Xptxas -v`` log that they spill
+   nothing;
 3. hold ``label_hist`` against its plain version on the card, bit-equal, at
    the round's shapes, the batched grid's (10500, 290, 10), long rows
    (8, 2^20, 10), C = 1 and 33, n = 0, 1 and 31, rows shared by 8 and 4
@@ -140,11 +141,17 @@ Phases, in order; any failure raises and the script exits non-zero:
     error against float64 printed beside it; the bf16 kernels' time at
     qwen3-14b's shape beside their bound, the plain backward, SDPA's
     backward and the float32 pair at the same shape; (b) the SSD
-    Function's gradients at mamba2-1.3b's widths, card against CPU, and the
-    time of its backward (the plain chunked form's vjp); (c) ``vmap(grad)`` of a reduced LM over 6 clients: equal
+    Function's gradients at mamba2-1.3b's widths, card against CPU, then
+    ``ssd_scan_bwd`` against the plain vjp and a float64 one at
+    ``SSD_BWD_SHAPES`` (mamba2-1.3b's and jamba-v0.1-52b's shapes, three
+    heads a group, P 4 and 68, N 16 and 72, S 16 and 1000, phase 9's
+    strongly decaying S = 2048) within ``SSD_BWD_TOL``, two calls
+    bit-identical, and its time at both full shapes beside its bound and the
+    plain vjp; (c) ``vmap(grad)`` of a reduced LM over 6 clients: equal
     to 6 separate calls and one flash launch each way a layer; (d) the
     model's gradients card against CPU (the attention and SSD branches
-    carry their gradients); (e) the ``lm`` FL workload through ``run``:
+    carry their gradients; one ``ssd_scan_bwd`` launch a Mamba layer and no
+    plain vjp); (e) the ``lm`` FL workload through ``run``:
     examples/fl_lm_pretrain.py's spec for 3 rounds on ``sim`` (1
     ``label_hist`` and 1 ``weighted_agg`` launch a round) and ``host``, the
     registered micro ``lm`` (head_dim 16) for 2 rounds, each card against
@@ -152,7 +159,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     (N = 100, 30 a round) with its wall a round and peak memory; (f)
     ``run_train`` at full width, mamba2-1.3b at full depth and qwen3-14b cut
     to 4 layers, 5 steps of 4 x 1024 tokens: step time, tokens/s, the
-    token draw's share, peak memory and launches a step; losses finite and
+    token draw's share, peak memory and launches a step (mamba2-1.3b: 48
+    ``ssd_scan`` and 48 ``ssd_scan_bwd``, no plain vjp); losses finite and
     the last below the first.
 19. the launch tooling: (a) mamba2-1.3b's full-width bf16 params saved
     from the card (``ckpt.save_checkpoint``) and loaded back onto it
@@ -219,7 +227,7 @@ The line before the last is a JSON object with each kernel's numbers
 phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
 ``async_launches`` and ``population_*``; ``weighted_agg``'s also phase 13's
 ``trial_axis_*``, phase 14's ``clustered_*`` and phase 15's ``async_*``;
-``ssd_scan``'s phase 16's ``train_launches`` and ``backward_*``;
+``ssd_scan``'s phase 16's ``train_launches`` and ``backward_grad_gap``;
 ``flash_attention``'s phase 12's ``lse_ms``, its ``d192_*`` times at
 nemotron-4-340b's shape and phase 20's ``zoo_launches``, phase 21's
 ``d96_*`` (phi-3-vision-4.2b's prefill shape) and ``noncausal_*``
@@ -229,8 +237,10 @@ nemotron-4-340b's shape and phase 20's ``zoo_launches``, phase 21's
 ``flash_attention_bwd``, its ``launches`` those of phase 16f's qwen3-14b
 run, ``fl_launches`` phase 16e's sim run, ``zoo_train_launches`` phase
 20's granite-moe run, ``audio_train_launches`` phase 21d's whisper-tiny
-run and ``f32_pair_ms`` the float32 pair at the same shape); the last line
-is ``{"ok": true, "device": {...}}``.
+run and ``f32_pair_ms`` the float32 pair at the same shape; and
+``ssd_scan_bwd``, its ``launches`` those of phase 16f's mamba2-1.3b run,
+its times at mamba2-1.3b's shape and ``jamba_*`` at jamba-v0.1-52b's); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -424,7 +434,12 @@ POP_CHECK_N = 1 << 13
 POP_CHUNK_ALT = 5
 
 
+_START = time.time()
+
+
 def say(msg: str) -> None:
+    if msg.startswith("== "):      # a phase's header: the time so far
+        msg = f"{msg} [{time.time() - _START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -533,7 +548,11 @@ TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",),
                        ("flash_bwd_dkv_wgmma", "HGMMA", ("D",),
                         ("64", "96", "128", "192")),
                        ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
-                       ("ssd_prep_kernel", "HMMA", ("NP",)))
+                       ("ssd_prep_kernel", "HMMA", ("NP",)),
+                       ("ssd_bwd_state_kernel", "HMMA", ("NP",),
+                        ("16", "32", "64", "128")),
+                       ("ssd_bwd_chunk_kernel", "HMMA", ("NP",),
+                        ("16", "32", "64", "128")))
 
 
 def tensor_core_report(lib: Path) -> None:
@@ -1345,7 +1364,7 @@ def phase13b_grid(dev) -> dict:
         f"bit-equal to the one pass (TF32 as PyTorch's defaults)")
     want = {"label_hist": GRID_ROUNDS, "weighted_agg": GRID_ROUNDS,
             "flash_attention": 0, "flash_attention_bwd": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     if launches != want:
         raise AssertionError(f"grid launch counts {launches}, expected {want}")
     if not (np.isfinite(res.accuracy).all() and np.isfinite(res.loss).all()):
@@ -1625,7 +1644,7 @@ def phase14ab_grid(dev, base_round_s: float) -> dict:
         clus = _grid_run(dev, ds, aggregation=CLUSTERED)
         want = {"label_hist": GRID_ROUNDS, "weighted_agg": m_c * GRID_ROUNDS,
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "ssd_scan": 0}
+                "ssd_scan": 0, "ssd_scan_bwd": 0}
         if clus["launches"] != want:
             raise AssertionError(f"clustered grid launches {clus['launches']}"
                                  f", expected {want}")
@@ -1671,7 +1690,7 @@ def phase14ab_grid(dev, base_round_s: float) -> dict:
             g = _grid_run(dev, ds, aggregation=name, adversary=ATTACK)
             want = {"label_hist": GRID_ROUNDS, "weighted_agg": 0,
                     "flash_attention": 0, "flash_attention_bwd": 0,
-                    "ssd_scan": 0}
+                    "ssd_scan": 0, "ssd_scan_bwd": 0}
             if g["launches"] != want:
                 raise AssertionError(f"{name} grid launches {g['launches']}, "
                                      f"expected {want}")
@@ -1895,7 +1914,7 @@ def _pop_run(dev, ds, spec, want: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
-            **want}
+            "ssd_scan_bwd": 0, **want}
     if launches != want:
         raise AssertionError(f"{spec.engine}: launches {launches}, expected "
                              f"{want}")
@@ -2061,7 +2080,7 @@ def phase15c_population(dev) -> dict:
         # rows' payload; the two-tier sum is a plain product.
         want = {"label_hist": chunks + 1, "weighted_agg": 0,
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "ssd_scan": 0}
+                "ssd_scan": 0, "ssd_scan_bwd": 0}
         if launches != want:
             raise AssertionError(f"population N={n}: launches {launches}, "
                                  f"expected {want}")
@@ -2233,6 +2252,29 @@ BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
 # of each leaf's largest magnitude, the limit that holds the port's
 # gradients to the reference's (tests/test_torch_train.py).
 GRAD_TOL = 1e-4
+# (b): the SSD backward kernels (ssd_scan_bwd) against the plain backward
+# (the vjp of the chunked form) in float32 and float64, each gradient's max
+# |diff| over its max |value|.  The limit is twice the plain float32 vjp's
+# own error against float64 on the first two shapes, as BWD_TOL (H100 80GB
+# HBM3 at 700 W, PERF.md): at most 7.21e-6, the kernels' own error against
+# float64 then at most 3.17e-6 on any shape of the list.
+SSD_BWD_TOL = 1.5e-5
+SSD_BWD_SHAPES = [      # (b, S, H, P, G, N, the plain form's chunk, decaying)
+    (4, 1024, 64, 64, 1, 128, 128, False),      # mamba2-1.3b's
+    (4, 1024, 128, 64, 1, 16, 128, False),      # jamba-v0.1-52b's
+    # Three heads a group and a ragged tail (S of no multiple of the
+    # kernels' 32-step chunk); P 4 and N 16; P 68 (two 64-row slabs) and
+    # N 72 at S 16; S 1000.
+    (2, 80, 6, 8, 2, 16, 16, False),
+    (2, 64, 4, 4, 2, 16, 32, False),
+    (1, 16, 3, 68, 1, 72, 16, False),
+    (1, 1000, 4, 64, 1, 128, 8, False),
+    # Phase 9's long, strongly decaying sequence.  The plain form is taken
+    # at chunk 1 (the step recurrence): at 128 it takes each exponent as a
+    # difference of running sums, which cancels in float32 (9.6e-3 of
+    # float64 on such an input in tests/test_torch_attention_ssd.py).
+    (1, 2048, 4, 64, 1, 128, 1, True),
+]
 VMAP_CLIENTS = 6
 # (e) the lm FL workload: examples/fl_lm_pretrain.py's spec (fl-lm-12m, 16
 # clients, 6 a round, 8 domains, 8 sequences of 64 tokens, 2 local epochs,
@@ -2415,8 +2457,8 @@ def phase16bd_gradients(dev) -> dict:
     import torch
     from repro_torch import kernels, rng
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan import ssd_apply, ssd_chunked_ref
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import backward as ssd_backward
+    from repro_torch.kernels.ssd_scan import ssd_apply
     say("== 16b. the SSD Function's gradients, card against CPU (TF32 off)")
     old = _tf32(False, False)
     b, s, h, p, g_, n, chunk = 2, 1024, 64, 64, 1, 128, 128
@@ -2436,22 +2478,7 @@ def phase16bd_gradients(dev) -> dict:
         f"{GRAD_TOL:.0e})")
     if not gap <= GRAD_TOL:
         raise AssertionError(f"SSD gradients card vs CPU: {gap}")
-    # The backward's time at the serving phase's shape: a vjp of the chunked
-    # form (forward recompute and backward), plain PyTorch.
-    big = list(_ssd_inputs(dev, SERVE_BATCH, SERVE_PROMPT, h, p, g_, n,
-                           seed=17))
-    big[2] = big[2].expand(SERVE_BATCH, h)
-    gy = torch.randn((SERVE_BATCH, SERVE_PROMPT, h, p), device=dev)
-    gf = torch.randn((SERVE_BATCH, h, p, n), device=dev)
-
-    def ssd_bwd():
-        _, vjp = torch.func.vjp(lambda *a: ssd_chunked_ref(*a, chunk), *big)
-        return vjp((gy, gf))
-
-    ssd_bwd_ms = time_ms(ssd_bwd, reps=2, trials=5)
-    say(f"ssd_scan backward (b={SERVE_BATCH}, S={SERVE_PROMPT}, H={h}, "
-        f"P={p}, N={n}, chunk {chunk}): the plain chunked form's vjp "
-        f"{ssd_bwd_ms:.4f} ms")
+    bwd = phase16b_ssd_backward(dev)
 
     say("== 16d. the repaired fault: model gradients, card against CPU")
     fault = {}
@@ -2462,9 +2489,10 @@ def phase16bd_gradients(dev) -> dict:
             0, cfg.vocab_size, (2, 200)))
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        ssd_ops.vjp_calls = 0
+        ssd_backward.vjp_calls = 0
         got = _lm_grads(cfg, dev, rng.PRNGKey(3), toks, _targets(toks))
-        launches = {**kernels.launch_counts(), "ssd_vjp": ssd_ops.vjp_calls}
+        launches = {**kernels.launch_counts(),
+                    "ssd_vjp": ssd_backward.vjp_calls}
         want = _lm_grads(cfg, torch.device("cpu"), rng.PRNGKey(3), toks,
                          _targets(toks))
         gap = _leaf_gap(got, want)
@@ -2478,9 +2506,128 @@ def phase16bd_gradients(dev) -> dict:
                 want[k].abs().max() > 0 for k in named):
             raise AssertionError(f"{arch}: card gradients differ from the "
                                  f"CPU's by {gap} of their scale")
+        mamba = arch == "mamba2-1.3b"
+        if launches["ssd_vjp"] or (mamba and launches["ssd_scan_bwd"]
+                                   != cfg.num_layers):
+            raise AssertionError(f"{arch}: the SSD backward on the card ran "
+                                 f"{launches['ssd_scan_bwd']} kernel "
+                                 f"launches and {launches['ssd_vjp']} plain "
+                                 f"vjps; expected one launch a layer and no "
+                                 f"vjp")
         fault[arch] = gap
     _tf32(*old)
-    return {"ssd_grad_gap": gap, "ssd_bwd_ms": ssd_bwd_ms, "fault": fault}
+    return {"ssd_grad_gap": gap, "ssd_bwd": bwd, "fault": fault}
+
+
+def ssd_bwd_mma_flops(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Tensor-core operations the SSD backward kernels run
+    (csrc/ssd_scan_bwd.cu), each product three times for the split TF32, N
+    padded to 16/32/64/128 and P to 64-row slabs, over chunks of 32 steps:
+    per slab and chunk the entering state's update, then C.B^T, gy.X^T, the
+    intra-chunk dx, X.G, gy.S_in, B.G^T, dS.B, dS^T.C and G's update.  For
+    information only: the bound counts the chunked form's products once."""
+    np_ = next(w for w in (16, 32, 64, 128) if n <= w)
+    q, ps = 32, 64
+    per = 2 * q * (5 * ps * np_ + 3 * q * np_ + 2 * q * ps)
+    return 3 * per * b * h * -(-p // ps) * -(-s // q)
+
+
+def _ssd_bwd_case(dev, b, s, h, p, g_, n, chunk, decaying, seed) -> dict:
+    """ssd_scan_bwd at one shape against the plain vjp in float32 and
+    float64; two calls bit-identical."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan.backward import launch_backward
+    x, dt, A, B, C = _ssd_inputs(dev, b, s, h, p, g_, n, seed=seed,
+                                 decaying=decaying)
+    args = [x, dt, A.expand(b, h).contiguous(), B, C]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    gy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    gf = torch.randn((b, h, p, n), generator=gen, device=dev)
+
+    def plain(dtype):
+        _, vjp = torch.func.vjp(lambda *a: ssd_chunked_ref(*a, chunk),
+                                *(t.to(dtype) for t in args))
+        return vjp((gy.to(dtype), gf.to(dtype)))
+
+    got = launch_backward(*args, gy, gf)
+    again = launch_backward(*args, gy, gf)
+    p32, p64 = plain(torch.float32), plain(torch.float64)
+    torch.cuda.synchronize()
+    return {"k_vs_p": max(_rel(a, c) for a, c in zip(got, p32)),
+            "k_vs_64": max(_rel(a, e) for a, e in zip(got, p64)),
+            "p_vs_64": max(_rel(c, e) for c, e in zip(p32, p64)),
+            "abs": max((a - c).abs().max().item() for a, c in zip(got, p32)),
+            "same": all(torch.equal(a, c) for a, c in zip(got, again)),
+            "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+
+
+def _ssd_bwd_times(dev, b, s, h, p, g_, n, chunk) -> dict:
+    """ssd_scan_bwd at (b, s, h, p, g_, n): its time, its bound (bytes: x,
+    gy, dt, A, B, C and gfin read and dx, ddt, dA, dB, dC written once;
+    operations: the chunked form's backward products once at ``chunk``) and
+    the plain vjp's time."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan.backward import launch_backward
+    from repro_torch.launch.roofline import ssd_bwd_flops
+    x, dt, A, B, C = _ssd_inputs(dev, b, s, h, p, g_, n, seed=17)
+    args = [x, dt, A.expand(b, h).contiguous(), B, C]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    gy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    gf = torch.randn((b, h, p, n), generator=gen, device=dev)
+
+    def plain():
+        _, vjp = torch.func.vjp(lambda *a: ssd_chunked_ref(*a, chunk), *args)
+        return vjp((gy, gf))
+
+    out = {"shape": [b, s, h, p, g_, n],
+           "ms": time_ms(lambda: launch_backward(*args, gy, gf)),
+           "plain": time_ms(plain, reps=2, trials=5), "lib": None}
+    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * b * h
+                  + 4 * b * s * g_ * n + b * h * p * n)
+    ops = ssd_bwd_flops((b, s, h, p), (b, s, g_, n), chunk)
+    out["bound"], out["by"] = bound(nbytes, ops, TF32_OPS_PER_S)
+    mma = ssd_bwd_mma_flops(b, s, h, p, n)
+    say(f"ssd_scan_bwd (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n}, f32): "
+        f"kernel {out['ms']:.4f} ms, bound {out['bound']:.4f} ms "
+        f"({out['by']}: {nbytes / 1e6:.1f} MB at 3.35 TB/s take "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; the chunked form's "
+        f"backward products at chunk {chunk}, {ops / 1e9:.2f} GFLOP, take "
+        f"{ops / TF32_OPS_PER_S * 1e3:.4f} ms at 495 TFLOP/s TF32), plain "
+        f"vjp {out['plain']:.4f} ms; no single PyTorch call computes it, so "
+        f"no library time; the kernels' own tensor-core work {mma / 1e9:.1f} "
+        f"GFLOP (split TF32), {mma / (out['ms'] * 1e-3) / 1e12:.0f} TFLOP/s "
+        f"achieved")
+    return out
+
+
+def phase16b_ssd_backward(dev) -> dict:
+    """ssd_scan_bwd against the plain backward at SSD_BWD_SHAPES, then timed
+    at mamba2-1.3b's and jamba-v0.1-52b's shapes."""
+    import torch
+    say("== 16b. ssd_scan_bwd against the plain vjp (float32 and float64)")
+    worst_abs = 0.0
+    for i, (b, s, h, p, g_, n, chunk, decaying) in enumerate(SSD_BWD_SHAPES):
+        r = _ssd_bwd_case(dev, b, s, h, p, g_, n, chunk, decaying,
+                          seed=160 + i)
+        what = (b, s, h, p, g_, n, chunk, decaying)
+        say(f"ssd_scan_bwd {what}: kernel vs plain {r['k_vs_p']:.2e}, plain "
+            f"vs float64 {r['p_vs_64']:.2e}, kernel vs float64 "
+            f"{r['k_vs_64']:.2e} (of max |grad|; limit {SSD_BWD_TOL:.1e}); "
+            f"two calls bit-identical: {r['same']}")
+        if not max(r["k_vs_p"], r["k_vs_64"]) <= SSD_BWD_TOL \
+                or not r["same"] or not r["finite"]:
+            raise AssertionError(f"ssd_scan_bwd {what}: {r}")
+        worst_abs = max(worst_abs, r["abs"])
+        torch.cuda.empty_cache()
+    out = {"err": worst_abs,
+           "mamba": _ssd_bwd_times(dev, SERVE_BATCH, SERVE_PROMPT, 64, 64,
+                                   1, 128, 128),
+           "jamba": _ssd_bwd_times(dev, SERVE_BATCH, SERVE_PROMPT, 128, 64,
+                                   1, 16, 128)}
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase16c_vmap_grad(dev) -> dict:
@@ -2653,7 +2800,7 @@ def _train_run(dev, arch, **kw) -> dict:
     from repro_torch import kernels, rng
     from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import backward as ssd_backward
     from repro_torch.launch.train import run_train, synth_lm_batch
     for batch in (TRAIN_BATCH, TRAIN_BATCH // 2):
         gc.collect()                 # a failed attempt's tensors, if any
@@ -2661,7 +2808,7 @@ def _train_run(dev, arch, **kw) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launch_counts()
-        ssd_ops.vjp_calls = 0
+        ssd_backward.vjp_calls = 0
         times, losses = [], None
         try:
             losses = run_train(arch, TRAIN_STEPS, batch, TRAIN_SEQ,
@@ -2674,7 +2821,7 @@ def _train_run(dev, arch, **kw) -> dict:
             continue
         launches = {k: v / TRAIN_STEPS
                     for k, v in kernels.launch_counts().items()}
-        launches["ssd_vjp"] = ssd_ops.vjp_calls / TRAIN_STEPS
+        launches["ssd_vjp"] = ssd_backward.vjp_calls / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated(dev)
         # The step's synthetic batch alone: the categorical draw hashes
         # batch x seq x vocab gumbels.
@@ -2717,6 +2864,14 @@ def phase16f_full_width(dev) -> dict:
         if not all(math.isfinite(x) for x in r["losses"]) \
                 or not r["losses"][-1] < r["losses"][0]:
             raise AssertionError(f"{arch}: losses {r['losses']}")
+        if arch == "mamba2-1.3b" and (
+                r["launches"]["ssd_vjp"] or r["launches"]["ssd_scan_bwd"]
+                != r["launches"]["ssd_scan"]):
+            raise AssertionError(f"{arch}: the backward ran "
+                                 f"{r['launches']['ssd_vjp']} plain vjps and "
+                                 f"{r['launches']['ssd_scan_bwd']} kernel "
+                                 f"launches a step; expected none and one a "
+                                 f"layer")
         out[arch] = {**r, "tokens_s": tok_s}
         gc.collect()
         torch.cuda.empty_cache()
@@ -2799,7 +2954,7 @@ def _expect(what: str, launches: dict, label_hist: int,
     got = (launches["label_hist"], launches["weighted_agg"])
     if got != (label_hist, weighted_agg) or (not lm and any(
             launches[k] for k in ("flash_attention", "flash_attention_bwd",
-                                  "ssd_scan"))):
+                                  "ssd_scan", "ssd_scan_bwd"))):
         raise AssertionError(f"{what}: launches {launches}, expected "
                              f"{label_hist} label_hist and {weighted_agg} "
                              f"weighted_agg")
@@ -4506,7 +4661,7 @@ def main() -> int:
     say(f"wall_s={hist.wall_s:.3f} launches={launches}")
     want = {"label_hist": rounds, "weighted_agg": rounds,
             "flash_attention": 0, "flash_attention_bwd": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not all(math.isfinite(v) for v in hist.accuracy + hist.loss):
@@ -4582,6 +4737,7 @@ def main() -> int:
     pop_hist, pop_agg = p15d["label_hist"], p15d["weighted_agg"]
     bwd = phase16a_flash_backward(dev)
     p16bd = phase16bd_gradients(dev)
+    ssd_bwd = p16bd["ssd_bwd"]
     phase16c_vmap_grad(dev)
     p16e = phase16e_lm_fl(dev)
     p16f = phase16f_full_width(dev)
@@ -4690,8 +4846,23 @@ def main() -> int:
          "jamba_bound_ms": ssd_jamba["bound"],
          "jamba_bound_by": ssd_jamba["by"],
          "jamba_launches": p20["jamba-v0.1-52b"]["launches"]["ssd_scan"],
-         "backward_plain_vjp_ms": p16bd["ssd_bwd_ms"],
          "backward_grad_gap": p16bd["ssd_grad_gap"]},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71 (no TPU "
+                     "backward kernel: the reference differentiates XLA's "
+                     "_ssd_chunked, src/repro/models/layers.py:462)",
+         "launches": int(p16f["mamba2-1.3b"]["launches"]["ssd_scan_bwd"]
+                         * TRAIN_STEPS),
+         "max_abs_err": ssd_bwd["err"], "ms": ssd_bwd["mamba"]["ms"],
+         "plain_ms": ssd_bwd["mamba"]["plain"],
+         "bound_ms": ssd_bwd["mamba"]["bound"],
+         "bound_by": ssd_bwd["mamba"]["by"],
+         "library_ms": ssd_bwd["mamba"]["lib"],
+         **{f"jamba_{field}": ssd_bwd["jamba"][src]
+            for field, src in (("shape", "shape"), ("ms", "ms"),
+                               ("plain_ms", "plain"), ("bound_ms", "bound"),
+                               ("bound_by", "by"), ("library_ms", "lib"))}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82"

@@ -5,8 +5,8 @@ Each kernel sits in its own package beside its plain PyTorch version
 (``ref.py``); its wrapper launches the CUDA kernel for a CUDA tensor and takes
 the plain version for a CPU tensor.  ``dispatch`` is what the FL round calls;
 the LM layers call ``flash_attention.gqa_flash_attention`` and
-``ssd_scan.ssd_apply``, both differentiable (``flash_attention_bwd`` counts
-the attention backward's calls, one a call of its kernels).
+``ssd_scan.ssd_apply``, both differentiable (``flash_attention_bwd`` and
+``ssd_scan_bwd`` count the backwards' calls, one a call of their kernels).
 Nothing here imports a compiler or builds a kernel until a CUDA tensor arrives
 (``build.library``).  The package exports the reference's names
 (``repro.kernels``), and the launch counts.
@@ -36,6 +36,7 @@ _MODULES = {
     "flash_attention_bwd": importlib.import_module(
         f"{__name__}.flash_attention.backward"),
     "ssd_scan": importlib.import_module(f"{__name__}.ssd_scan.ssd_scan"),
+    "ssd_scan_bwd": importlib.import_module(f"{__name__}.ssd_scan.backward"),
 }
 
 # Two exported functions share their subpackage's name: bound last, they

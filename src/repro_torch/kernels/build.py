@@ -38,9 +38,12 @@ SIGNATURES = {
     "repro_flash_attention_bf16_bwd": [_P] * 10 + [_I] * 7 + [_P],
     "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_P],
     "repro_ssd_scan_scratch_bytes": [_I] * 4,
+    "repro_ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    "repro_ssd_scan_bwd_scratch_bytes": [_I] * 5,
     "repro_flash_attention_bwd_scratch_bytes": [_I] * 4,
 }
 RESTYPES = {"repro_ssd_scan_scratch_bytes": _LL,   # bytes of scratch
+            "repro_ssd_scan_bwd_scratch_bytes": _LL,
             "repro_flash_attention_bwd_scratch_bytes": _LL}
 
 

@@ -10,32 +10,30 @@ kernel reads the same group and head in place, without the copies.
 ``SSDScan`` is a ``torch.autograd.Function`` (``setup_context`` style): its
 forward is the ``repro_torch::ssd_scan`` op, the kernel on a CUDA tensor
 (the plain recurrence on a CPU tensor), and that output is the one the
-model uses.  Its backward is
-``torch.func.vjp`` of the plain chunked form ``ref.ssd_chunked_ref``, the
-function the reference itself differentiates for training
-(``repro/models/layers.py:_ssd_chunked``, computed there outside any Pallas
-kernel): the one place where training on the card runs plain PyTorch, O(S ·
-chunk) rather than the step loop.  A hand-written backward is open work
-(ROADMAP.md Queue 2 item 4).  Its ``vmap`` rule folds the mapped dimension
-into b, so a ``vmap`` over clients makes one kernel launch.
+model uses.  Its backward, ``SSDScanBackward``, is the
+``repro_torch::ssd_scan_bwd`` op: the backward kernels on a CUDA tensor (or
+raise), and on a CPU tensor the plain backward, ``torch.func.vjp`` of the
+chunked form ``ref.ssd_chunked_ref``, the function the reference itself
+differentiates for training (``repro/models/layers.py:_ssd_chunked``,
+outside any Pallas kernel).  Each has a ``vmap`` rule that folds the mapped
+dimension into b, so a ``vmap`` over clients makes one kernel launch each
+way, and ``vmap(grad(...))`` and ``grad(vmap(...))`` both work.  The
+backward is not differentiable again.
 """
 from __future__ import annotations
 
 import torch
 
 from ..flash_attention.ops import fold, unfold
-from .ref import ssd_chunked_ref
+from .backward import ssd_scan_bwd_op
 from .ssd_scan import ssd_scan_op
-
-# Backward calls (plain vjps, no kernel) since the last reset; read beside
-# the kernels' launch counts.
-vjp_calls = 0
 
 
 class SSDScan(torch.autograd.Function):
     """(y, final_state) of x (b, S, H, P), dt (b, S, H), A (b, H) (a row of
     per-head rates a batch entry), B/C (b, S, G, N); ``chunk`` is the
-    reference's chunk length, which the backward's chunked form takes."""
+    reference's chunk length, which the plain backward's chunked form
+    takes."""
 
     @staticmethod
     def forward(x, dt, A, B, C, chunk: int):
@@ -48,12 +46,8 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gfin):
-        global vjp_calls
-        vjp_calls += 1
-        chunk = ctx.chunk
-        _, vjp = torch.func.vjp(
-            lambda *a: ssd_chunked_ref(*a, chunk), *ctx.saved_tensors)
-        return (*vjp((gy, gfin)), None)
+        return (*SSDScanBackward.apply(*ctx.saved_tensors, gy, gfin,
+                                       ctx.chunk), None)
 
     @staticmethod
     def vmap(info, in_dims, x, dt, A, B, C, chunk):
@@ -61,6 +55,31 @@ class SSDScan(torch.autograd.Function):
         args = fold((x, dt, A, B, C), in_dims[:5], n)
         y, fin = SSDScan.apply(*args, chunk)
         return (unfold(y, n), unfold(fin, n)), (0, 0)
+
+
+class SSDScanBackward(torch.autograd.Function):
+    """(dx, ddt, dA, dB, dC) of :class:`SSDScan` at (x, dt, A, B, C) for
+    output gradients gy and gfin."""
+
+    @staticmethod
+    def forward(x, dt, A, B, C, gy, gfin, chunk: int):
+        return ssd_scan_bwd_op(x, dt, A, B, C, gy, gfin, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the SSD scan's backward is not "
+                                  "differentiable (no double backward)")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, B, C, gy, gfin, chunk):
+        n = info.batch_size
+        args = fold((x, dt, A, B, C, gy, gfin), in_dims[:7], n)
+        grads = SSDScanBackward.apply(*args, chunk)
+        return tuple(unfold(g, n) for g in grads), (0,) * 5
 
 
 def ssd_apply(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -26,22 +26,19 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-           B: torch.Tensor, C: torch.Tensor, *, a_stride: int):
-    """x (b, S, H, P), dt (b, S, H), A read at ``[b * a_stride + h]``,
-    B/C (b, S, G, N) with G dividing H, all float32 on one CUDA device ->
-    (y (b, S, H, P), final_state (b, H, P, N)) float32, by one launch of
-    the C entry (two device kernels).  Raises on what the kernel does not
-    take."""
-    ts = (x, dt, A, B, C)
+def check_operands(what: str, ts) -> None:
+    """Raise unless ``ts`` (x (b, S, H, P), dt, A, B/C (b, S, G, N), then
+    any others) are float32 and contiguous on one CUDA device at a P, N and
+    G the SSD kernels take."""
+    x, B = ts[0], ts[3]
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
-        raise ValueError(f"ssd_scan runs on one CUDA device; got "
+        raise ValueError(f"{what} runs on one CUDA device; got "
                          f"{[str(t.device) for t in ts]}")
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"the kernel takes float32; got "
                         f"{[t.dtype for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("ssd_scan needs contiguous inputs")
+        raise ValueError(f"{what} needs contiguous inputs")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if n % 8 or not 0 < n <= 128 or p % 4:
@@ -51,6 +48,18 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or b * -(-s // CHUNK) * g >= 2 ** 31:
         raise ValueError(f"the kernel takes G dividing H and fewer than 2^31 "
                          f"blocks; got b={b}, S={s}, H={h}, G={g}")
+
+
+def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           B: torch.Tensor, C: torch.Tensor, *, a_stride: int):
+    """x (b, S, H, P), dt (b, S, H), A read at ``[b * a_stride + h]``,
+    B/C (b, S, G, N) with G dividing H, all float32 on one CUDA device ->
+    (y (b, S, H, P), final_state (b, H, P, N)) float32, by one launch of
+    the C entry (two device kernels).  Raises on what the kernel does not
+    take."""
+    check_operands("ssd_scan", (x, dt, A, B, C))
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     fin = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b * h * p == 0:

@@ -67,7 +67,7 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 
 # The graph's kernel ops, by name.
 KERNEL_OPS = ("label_hist", "weighted_agg", "flash_attention",
-              "flash_attention_bwd", "ssd_scan")
+              "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 @dataclasses.dataclass
@@ -205,6 +205,18 @@ def ssd_flops(x_shape, b_shape, chunk: int) -> int:
     return 2 * b * s * (g * chunk * n + h * p * (chunk + 2 * n))
 
 
+def ssd_bwd_flops(x_shape, b_shape, chunk: int) -> int:
+    """The chunked SSD form's backward products done once: per chunk and
+    group C·Bᵀ again, dS·B and dSᵀ·C (dS the gradient of C·Bᵀ, summed over
+    the group's heads); per head and chunk dY·Xᵀ and the intra-chunk dX
+    (chunk × chunk × P each), and the five (P × N) products of a chunk: Xᵀ·B
+    for the entering states, B·Gᵀ for dX, X·G and dY·S_in for dB and dC, and
+    (dY∘e^cum)ᵀ·C for the state gradient G."""
+    b, s, h, p = x_shape
+    g, n = b_shape[2], b_shape[3]
+    return 2 * b * s * (3 * g * chunk * n + h * p * (2 * chunk + 5 * n))
+
+
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
 def _flash_attention_flop(q, k, v, causal, window, with_lse, *,
                           out_shape=None, **kwargs) -> int:
@@ -221,6 +233,12 @@ def _flash_attention_bwd_flop(q, k, v, o, lse, do, causal, window, *,
 @register_flop_formula(torch.ops.repro_torch.ssd_scan)
 def _ssd_scan_flop(x, dt, A, B, C, *, out_shape=None, **kwargs) -> int:
     return ssd_flops(x, B, _SSD_CHUNK.get())
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _ssd_scan_bwd_flop(x, dt, A, B, C, gy, gfin, chunk, *, out_shape=None,
+                       **kwargs) -> int:
+    return ssd_bwd_flops(x, B, chunk)
 
 
 @register_flop_formula(torch.ops.repro_torch.weighted_agg)
@@ -437,4 +455,5 @@ def extract_roofline(arch: str, shape, mesh_name: str, chips: int,
 __all__ = ["COLLECTIVES", "KERNEL_OPS", "Roofline", "active_param_count",
            "attention_flops", "collective_bytes", "extract_roofline",
            "eager_bytes", "graph_flops", "live_pairs", "min_bytes",
-           "model_flops_estimate", "peak_memory", "ssd_chunk", "ssd_flops"]
+           "model_flops_estimate", "peak_memory", "ssd_bwd_flops", "ssd_chunk",
+           "ssd_flops"]

@@ -407,7 +407,7 @@ def test_cpu_tensors_launch_no_kernel():
     assert tkernels.launch_counts() == {"label_hist": 0, "weighted_agg": 0,
                                         "flash_attention": 0,
                                         "flash_attention_bwd": 0,
-                                        "ssd_scan": 0}
+                                        "ssd_scan": 0, "ssd_scan_bwd": 0}
     with pytest.raises(ValueError):
         tdispatch.client_histograms(_t(labels), 3, backend="pallas")
 

@@ -14,7 +14,9 @@ reference's own pins, tests/test_kernels.py); bfloat16 attention one bf16 ulp
 flash backward kernels against the plain backward within ``BWD_TOL`` of
 each gradient's largest magnitude: twice the plain backward's own error in
 the input dtype against a float64 plain backward, read by
-``chip_smoke.py`` phase 16a (PERF.md).  The forward's row logsumexp, which
+``chip_smoke.py`` phase 16a (PERF.md); the SSD backward kernels against the
+plain vjp of the chunked form and a float64 one within ``SSD_BWD_TOL``, set
+by the same rule in phase 16b.  The forward's row logsumexp, which
 the bf16 backward reads, within 1e-5 + 1e-6 |L| of the plain one (both sum
 float32 exponentials, in other orders).  Gradients of the model on the card
 against the CPU within ``GRAD_TOL`` of each leaf's largest magnitude, the
@@ -31,7 +33,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, FlashAttentionBackward, attention_ref, flash_attention,
     gqa_attention_bwd_ref, gqa_attention_ref, gqa_flash_attention)
 from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_apply, ssd_apply_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import (ssd_apply, ssd_apply_ref,  # noqa: E402
+                                          ssd_chunked_ref)
+from repro_torch.kernels.ssd_scan.backward import launch_backward  # noqa: E402
 from repro_torch.kernels.dispatch import masked_weighted_mean  # noqa: E402
 from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,  # noqa: E402
                                               weighted_agg_leaves,
@@ -41,6 +45,7 @@ pytestmark = pytest.mark.cuda
 
 BWD_TOL = {torch.float32: 2.5e-6, torch.bfloat16: 7e-3}
 GRAD_TOL = 1e-4
+SSD_BWD_TOL = 1.5e-5
 
 
 @pytest.fixture
@@ -469,6 +474,121 @@ def test_ssd_kernel_groups_narrow_heads_and_a_ragged_tail(cuda, b, s, h, g,
     assert kernels.launch_counts()["ssd_scan"] == 1
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(fin, fin_ref, rtol=1e-4, atol=1e-4)
+
+
+def _ssd_bwd_inputs(b, s, h, g, p, n, seed, dev, decaying=False):
+    """x, dt, A (H,), B, C as tests/test_kernels.py draws them, and the
+    output gradients gy and gfin; ``decaying``: dt up to 10, A near -10."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p))
+    if decaying:
+        dt = rng.uniform(0, 10, (b, s, h))
+        A = -10 * np.exp(0.1 * rng.standard_normal(h))
+    else:
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
+        A = -np.exp(0.3 * rng.standard_normal(h))
+    B, C = (0.5 * rng.standard_normal((b, s, g, n)) for _ in range(2))
+    gy, gfin = rng.standard_normal((b, s, h, p)), rng.standard_normal(
+        (b, h, p, n))
+    return [torch.from_numpy(v.astype(np.float32)).to(dev)
+            for v in (x, dt, A, B, C, gy, gfin)]
+
+
+def _ssd_function_grads(x, dt, A, B, C, gy, gfin, chunk):
+    """The gradients of (y, final_state) through ``ssd_apply``'s Function."""
+    ts = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    y, fin = ssd_apply(*ts, chunk=chunk)
+    torch.autograd.backward((y, fin), (gy, gfin))
+    return [t.grad for t in ts]
+
+
+def _ssd_plain_grads(x, dt, A, B, C, gy, gfin, chunk, dtype):
+    _, vjp = torch.func.vjp(lambda *a: ssd_chunked_ref(*a, chunk),
+                            *(t.to(dtype) for t in (x, dt, A, B, C)))
+    return vjp((gy.to(dtype), gfin.to(dtype)))
+
+
+def _grad_gap(got, want):
+    return max(((g.double() - w.double()).abs().max()
+                / w.double().abs().max()).item() for g, w in zip(got, want))
+
+
+# chip_smoke.py phase 16b's small shapes: three heads a group with a ragged
+# tail, P 4 and N 16, P 68 (two 64-row slabs) and N 72 at S 16, and S 1000
+# (no multiple of the kernels' 32-step chunk).
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk", [(2, 80, 6, 2, 8, 16, 16),
+                                               (2, 64, 4, 2, 4, 16, 32),
+                                               (1, 16, 3, 1, 68, 72, 16),
+                                               (1, 1000, 4, 1, 64, 128, 8)])
+def test_ssd_backward_kernel_matches_plain_vjp(cuda, b, s, h, g, p, n, chunk):
+    args = _ssd_bwd_inputs(b, s, h, g, p, n, s + h, cuda)
+    got = _ssd_function_grads(*args, chunk)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["ssd_scan"], counts["ssd_scan_bwd"]) == (1, 1)
+    for dtype in (torch.float32, torch.float64):
+        assert _grad_gap(got, _ssd_plain_grads(*args, chunk, dtype)) \
+            <= SSD_BWD_TOL
+
+
+def test_ssd_backward_kernel_strong_decay(cuda):
+    # dt up to 10 and A near -10 over 2048 steps: the plain form is taken at
+    # chunk 1, where no exponent is a difference of running sums.
+    args = _ssd_bwd_inputs(1, 2048, 4, 1, 64, 128, 9, cuda, decaying=True)
+    got = _ssd_function_grads(*args, 128)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for dtype in (torch.float32, torch.float64):
+        assert _grad_gap(got, _ssd_plain_grads(*args, 1, dtype)) \
+            <= SSD_BWD_TOL
+
+
+def test_ssd_backward_kernel_is_deterministic(cuda):
+    x, dt, A, B, C, gy, gfin = _ssd_bwd_inputs(2, 256, 8, 1, 64, 128, 3, cuda)
+    A2 = A.expand(2, 8).contiguous()
+    one = launch_backward(x, dt, A2, B, C, gy, gfin)
+    two = launch_backward(x, dt, A2, B, C, gy, gfin)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_scan_bwd"] == 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(one, two))
+
+
+def test_ssd_vmap_grad_over_clients_is_one_backward_launch(cuda):
+    """vmap(grad(...)) of the SSD Function over 6 clients equals 6 separate
+    calls, with one forward and one backward launch for all of them."""
+    from torch.func import grad, vmap
+    per = [_ssd_bwd_inputs(2, 64, 4, 2, 8, 16, 40 + i, cuda) for i in range(6)]
+    x, dt, B, C = (torch.stack([a[j] for a in per]) for j in (0, 1, 3, 4))
+    A, gy, gfin = per[0][2], per[0][5], per[0][6]
+
+    def loss(x, dt, B, C):
+        y, fin = ssd_apply(x, dt, A, B, C, chunk=16)
+        return (y * gy).sum() + (fin * gfin).sum()
+
+    batched = vmap(grad(loss, argnums=(0, 1, 2, 3)))(x, dt, B, C)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["ssd_scan"], counts["ssd_scan_bwd"]) == (1, 1)
+    for i in range(6):
+        one = grad(loss, argnums=(0, 1, 2, 3))(x[i], dt[i], B[i], C[i])
+        for a, b_ in zip(batched, one):
+            torch.testing.assert_close(a[i], b_, rtol=1e-5, atol=1e-6)
+
+
+def test_ssd_backward_refuses_what_it_does_not_take(cuda):
+    x, dt, A, B, C, gy, gfin = _ssd_bwd_inputs(1, 32, 2, 1, 4, 16, 0, cuda)
+    A2 = A.expand(1, 2).contiguous()
+    with pytest.raises(ValueError, match="N in"):      # N = 12
+        launch_backward(x, dt, A2, B[..., :12].contiguous(),
+                        C[..., :12].contiguous(), gy, gfin[..., :12]
+                        .contiguous())
+    with pytest.raises(ValueError, match="P a multiple"):   # P = 6
+        x6 = torch.zeros((1, 32, 2, 6), device=cuda)
+        launch_backward(x6, dt, A2, B, C, x6, torch.zeros(
+            (1, 2, 6, 16), device=cuda))
+    with pytest.raises(TypeError):                       # float64
+        launch_backward(*(t.double() for t in (x, dt, A2, B, C, gy, gfin)))
+    assert kernels.launch_counts()["ssd_scan_bwd"] == 0
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):

@@ -414,8 +414,8 @@ def test_collective_bytes_match_the_reference_parser():
 
 def test_kernel_flop_formulas_give_the_bounds_operation_counts():
     """PERF.md's kernel table: flash_attention at qwen3-14b's prefill (4,
-    1024, 40/8, 128) causal, its backward, and ssd_scan at mamba2-1.3b's
-    (4, 1024, 64, 64), G 1, N 128, at chunk 128."""
+    1024, 40/8, 128) causal, its backward, and ssd_scan and its backward at
+    mamba2-1.3b's (4, 1024, 64, 64), G 1, N 128, at chunk 128."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     ops = torch.ops.repro_torch
@@ -433,14 +433,19 @@ def test_kernel_flop_formulas_give_the_bounds_operation_counts():
                     q, k, k, True, 0, True)),
                 ("flash_attention_bwd", lambda: ops.flash_attention_bwd(
                     q, k, k, q, lse, q, True, 0)),
-                ("ssd_scan", lambda: ops.ssd_scan(x, dt, a, bm, bm))):
+                ("ssd_scan", lambda: ops.ssd_scan(x, dt, a, bm, bm)),
+                ("ssd_scan_bwd", lambda: ops.ssd_scan_bwd(
+                    x, dt, a, bm, bm, x, torch.empty((4, 64, 64, 128)),
+                    128))):
             with FlopCounterMode(display=False) as fc:
                 call()
             counts[name] = fc.get_total_flops()
     assert counts == {"flash_attention": 42_991_616_000,
                       "flash_attention_bwd": 107_479_040_000,
-                      "ssd_scan": 13_019_119_616}
-    assert [round(v / 1e9, 1) for v in counts.values()] == [43.0, 107.5, 13.0]
+                      "ssd_scan": 13_019_119_616,
+                      "ssd_scan_bwd": 30_467_424_256}
+    assert [round(v / 1e9, 1) for v in counts.values()] == [43.0, 107.5, 13.0,
+                                                            30.5]
     assert roofline.live_pairs(10, True, 4) == sum(min(i + 1, 4)
                                                    for i in range(10))
     assert roofline.live_pairs(10, False, 0) == 100
@@ -517,6 +522,26 @@ def test_traced_train_step_is_three_forwards():
         lambda p, batch: loss_fn(p, cfg, batch)[0], (args[0], args[2])))
     assert train["flash_attention_bwd"] == 5 * train["flash_attention"] // 2
     assert 0.95 <= train["total"] / (3 * fwd["total"]) <= 1.05
+
+
+def test_traced_mamba_train_step_holds_one_backward_node_a_layer():
+    """A reduced mamba2 train step traced over fake tensors: one ssd_scan
+    and one ssd_scan_bwd node a Mamba layer, and none of the plain chunked
+    form's (its cumsum and its vjp's) in the graph."""
+    cfg = get_config("mamba2-1.3b").reduced()
+    shape = InputShape("t", 32, 2, "train")
+    step, args = dryrun.build_step(cfg, shape, microbatches=1)
+    gm = dryrun.trace_step(step, args)
+    nodes = dryrun.kernel_nodes(gm)
+    assert nodes["ssd_scan"] == nodes["ssd_scan_bwd"] == cfg.num_layers
+    assert sum(nodes.values()) == 2 * cfg.num_layers
+    targets = {str(n.target) for n in gm.graph.nodes
+               if n.op == "call_function"}
+    assert not any("cumsum" in t for t in targets), sorted(targets)
+    flops = roofline.graph_flops(gm, cfg.ssm_chunk)
+    assert flops["ssd_scan_bwd"] == cfg.num_layers * roofline.ssd_bwd_flops(
+        (2, 32, cfg.ssm_heads, cfg.ssm_head_dim),
+        (2, 32, cfg.ssm_groups, cfg.ssm_state), cfg.ssm_chunk)
 
 
 def test_dryrun_cli_runs_without_a_card(dryrun_cli):
