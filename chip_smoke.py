@@ -147,7 +147,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     heads a group, P 4 and 68, N 16 and 72, S 16 and 1000, phase 9's
     strongly decaying S = 2048) within ``SSD_BWD_TOL``, two calls
     bit-identical, and its time at both full shapes beside its bound and the
-    plain vjp; (c) ``vmap(grad)`` of a reduced LM over 6 clients: equal
+    plain vjp, with each of its kernels' time (``torch.profiler``), its
+    scratch and its kernels' own tensor-core work; (c) ``vmap(grad)`` of a reduced LM over 6 clients: equal
     to 6 separate calls and one flash launch each way a layer; (d) the
     model's gradients card against CPU (the attention and SSD branches
     carry their gradients; one ``ssd_scan_bwd`` launch a Mamba layer and no
@@ -549,9 +550,11 @@ TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",),
                         ("64", "96", "128", "192")),
                        ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
                        ("ssd_prep_kernel", "HMMA", ("NP",)),
-                       ("ssd_bwd_state_kernel", "HMMA", ("NP",),
+                       ("ssd_bwd_prep_kernel", "HMMA", ("NP",),
                         ("16", "32", "64", "128")),
-                       ("ssd_bwd_chunk_kernel", "HMMA", ("NP",),
+                       ("ssd_bwd_walk_kernel", "HGMMA", ("NP", "HPB"),
+                        ("16", "32", "64", "128")),
+                       ("ssd_bwd_group_kernel", "HGMMA", ("NP",),
                         ("16", "32", "64", "128")))
 
 
@@ -2519,17 +2522,26 @@ def phase16bd_gradients(dev) -> dict:
     return {"ssd_grad_gap": gap, "ssd_bwd": bwd, "fault": fault}
 
 
-def ssd_bwd_mma_flops(b: int, s: int, h: int, p: int, n: int) -> int:
+def ssd_bwd_mma_flops(b: int, s: int, h: int, p: int, g_: int,
+                      n: int) -> int:
     """Tensor-core operations the SSD backward kernels run
     (csrc/ssd_scan_bwd.cu), each product three times for the split TF32, N
-    padded to 16/32/64/128 and P to 64-row slabs, over chunks of 32 steps:
-    per slab and chunk the entering state's update, then C.B^T, gy.X^T, the
-    intra-chunk dx, X.G, gy.S_in, B.G^T, dS.B, dS^T.C and G's update.  For
+    padded to 16/32/64/128: C.B^T once per 64-step chunk and group; per head,
+    64-row slab of P and 32-step chunk the state walk's update and the
+    gradient walk's G.B^T, gy^T.M and G's update; per head, 64-step chunk
+    and 32 rows of P the head-summed pass's gy.X^T, gy.S_in and X.G; and per
+    64-step chunk and group (sum_h dS_h).B and its C twin (counted once a
+    group; each block of the group's cluster runs them on its own sum).  For
     information only: the bound counts the chunked form's products once."""
     np_ = next(w for w in (16, 32, 64, 128) if n <= w)
-    q, ps = 32, 64
-    per = 2 * q * (5 * ps * np_ + 3 * q * np_ + 2 * q * ps)
-    return 3 * per * b * h * -(-p // ps) * -(-s // q)
+    c64, c32 = -(-s // 64), -(-s // 32)
+    slabs, shares = -(-p // 64), -(-p // 32)
+    prep = b * c64 * g_ * 64 * 64 * np_
+    walks = b * h * slabs * c32 * 64 * (np_ * 32 + 32 * np_ + 32 * 32
+                                        + np_ * 32)
+    group = (b * h * c64 * shares * 64 * 32 * (64 + 2 * np_)
+             + b * c64 * g_ * 2 * 64 * np_ * 64)
+    return 3 * 2 * (prep + walks + group)
 
 
 def _ssd_bwd_case(dev, b, s, h, p, g_, n, chunk, decaying, seed) -> dict:
@@ -2569,6 +2581,7 @@ def _ssd_bwd_times(dev, b, s, h, p, g_, n, chunk) -> dict:
     the plain vjp's time."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_chunked_ref
+    from repro_torch.kernels.build import library
     from repro_torch.kernels.ssd_scan.backward import launch_backward
     from repro_torch.launch.roofline import ssd_bwd_flops
     x, dt, A, B, C = _ssd_inputs(dev, b, s, h, p, g_, n, seed=17)
@@ -2583,12 +2596,16 @@ def _ssd_bwd_times(dev, b, s, h, p, g_, n, chunk) -> dict:
 
     out = {"shape": [b, s, h, p, g_, n],
            "ms": time_ms(lambda: launch_backward(*args, gy, gf)),
-           "plain": time_ms(plain, reps=2, trials=5), "lib": None}
+           "plain": time_ms(plain, reps=2, trials=5), "lib": None,
+           "kernels_us": ssd_bwd_kernel_times(
+               lambda: launch_backward(*args, gy, gf)),
+           "scratch_mb": library().repro_ssd_scan_bwd_scratch_bytes(
+               b, s, h, p, g_, n) / 1e6}
     nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * b * h
                   + 4 * b * s * g_ * n + b * h * p * n)
     ops = ssd_bwd_flops((b, s, h, p), (b, s, g_, n), chunk)
     out["bound"], out["by"] = bound(nbytes, ops, TF32_OPS_PER_S)
-    mma = ssd_bwd_mma_flops(b, s, h, p, n)
+    mma = ssd_bwd_mma_flops(b, s, h, p, g_, n)
     say(f"ssd_scan_bwd (b={b}, S={s}, H={h}, P={p}, G={g_}, N={n}, f32): "
         f"kernel {out['ms']:.4f} ms, bound {out['bound']:.4f} ms "
         f"({out['by']}: {nbytes / 1e6:.1f} MB at 3.35 TB/s take "
@@ -2598,8 +2615,35 @@ def _ssd_bwd_times(dev, b, s, h, p, g_, n, chunk) -> dict:
         f"vjp {out['plain']:.4f} ms; no single PyTorch call computes it, so "
         f"no library time; the kernels' own tensor-core work {mma / 1e9:.1f} "
         f"GFLOP (split TF32), {mma / (out['ms'] * 1e-3) / 1e12:.0f} TFLOP/s "
-        f"achieved")
+        f"achieved; scratch {out['scratch_mb']:.1f} MB; by kernel (median "
+        f"of ten calls) "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in out["kernels_us"].items()))
+    out["mma_gflop"] = mma / 1e9
     return out
+
+
+def ssd_bwd_kernel_times(call) -> dict:
+    """Device time of each of ssd_scan_bwd's kernels (torch.profiler), the
+    median of ten calls, in microseconds; the two walks apart."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    times = {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA" and "ssd_bwd_" in ev.name:
+            if "walk" in ev.name:
+                key = "grad walk" if "true" in ev.name else "state walk"
+            else:
+                key = ev.name.split("ssd_bwd_")[1].split("_kernel")[0]
+            times.setdefault(key, []).append(ev.device_time_total)
+    if not times:
+        raise AssertionError("the profiler saw no ssd_bwd kernel")
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def phase16b_ssd_backward(dev) -> dict:

@@ -5,14 +5,15 @@
 
 First the checkout's kernels (``csrc/ssd_scan_bwd.cu``) at mamba2-1.3b's
 (4, 1024, 64, 64, 1, 128) and jamba-v0.1-52b's (4, 1024, 128, 64, 1, 16)
-shapes: the whole call (``chip_smoke.time_ms``) and each of its three
-device kernels (``torch.profiler``, the median of ten calls).  Then
-variants of the source with one part of ``ssd_bwd_chunk_kernel`` cut out
-(``VARIANTS``: its per-chunk loads, the decay matrix, the decay gradients'
-sums), or every product of both walking kernels (``nomm``), each compiled
-by ``nvcc`` with the build's flags into a library of its own and timed the
-same way, the checkout first and last.  A variant's results are wrong by
-design: what it removes is the time the part costs, not a design to keep.
+shapes: the whole call (``chip_smoke.time_ms``) and each of its six device
+kernels (``chip_smoke.ssd_bwd_kernel_times``: ``torch.profiler``, the
+median of ten calls, the two walks apart).  Then variants of the source
+with one part cut out (``VARIANTS``: the two walks, or in the head-summed
+pass its loads, its split into hi and lo planes, its products, its per-head
+epilogue, or its head-summed end products), each compiled by ``nvcc`` with
+the build's flags into a library of its own and timed the same way, the
+checkout first and last.  A variant's results are wrong by design: what it removes is the
+time the part costs, not a design to keep.
 
 Needs a CUDA device; prints one JSON object and writes it to ``--out``.
 """
@@ -21,7 +22,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -29,32 +29,38 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = {"mamba2-1.3b": (4, 1024, 64, 64, 1, 128),
           "jamba-v0.1-52b": (4, 1024, 128, 64, 1, 16)}
-CHUNK_KERNEL = "ssd_bwd_chunk_kernel(const float*"
 
-# name -> (first line cut, first line kept after the cut), both inside
-# ssd_bwd_chunk_kernel; "nomm" makes block_mm skip every strip instead.
+# name -> (text, replacement) pairs, each text found once in the source.
 VARIANTS = {
-    "noload": ("    load_rows(Xs, LDP, xb + t0 * HP, HP, Q, PS, tv, prow);",
-               "    if (tid < Q) dts[tid]"),
-    "nodecay_matrix": ("    // L[t][s] = e^(sum over (s, t] of dA), taken",
-                       "    __syncthreads();\n    // The intra-chunk dx"),
-    "nodecay_sums": ("    float t1 = 0.f, col = 0.f;",
-                     "    // G = dec G + (gy o e^cum)^T . C"),
-    "nomm": None,
+    "nowalks": [
+        ("  int e = two ? launch_walk<NP, 2, false>",
+         "  int e = 0;\n  if (0) e = two ? launch_walk<NP, 2, false>"),
+        ("  e = two ? launch_walk<NP, 2, true>",
+         "  if (0) e = two ? launch_walk<NP, 2, true>")],
+    "group_noload": [("    if (nh < h_hi) load_share(nh, nq);\n", "")],
+    "group_nosplit": [
+        ("    for (int idx = tid; idx < 2 * QP * 8; idx += blockDim.x) {",
+         "    for (int idx = tid; idx < 0; idx += blockDim.x) {"),
+        ("    for (int idx = tid; idx < NP * 8; idx += blockDim.x) {\n"
+         "      const int o = 16 * idx;",
+         "    for (int idx = tid; idx < 0; idx += blockDim.x) {\n"
+         "      const int o = 16 * idx;")],
+    "group_noproducts": [
+        ("    for (int kk = 0; kk < 4; ++kk) {\n      const int ko = 32 * kk;",
+         "    for (int kk = 0; kk < 0; ++kk) {\n      const int ko = 32 * kk;")],
+    "group_noepilogue": [("    if (q + 1 == PQ) {", "    if (false) {")],
+    "group_noend": [
+        ("  end_product(dCa, false);\n  end_product(dBa, true);\n", "")],
 }
 
 
 def variant_source(src: str, name: str) -> str:
-    if name == "nomm":
-        loop = "  for (int st = warp; st < strips; st += WARPS) {"
-        if src.count(loop) != 1:
-            raise ValueError("block_mm's strip loop not found once")
-        return src.replace(loop, "  for (int st = strips; st < strips; "
-                                 "st += WARPS) {")
-    first, kept = VARIANTS[name]
-    start = src.index(CHUNK_KERNEL)
-    i = src.index(first, start)
-    return src[:i] + src[src.index(kept, i):]
+    for old, new in VARIANTS[name]:
+        if src.count(old) != 1:
+            raise ValueError(f"variant {name}: {old!r} found "
+                             f"{src.count(old)} times")
+        src = src.replace(old, new)
+    return src
 
 
 def main(argv=None) -> int:
@@ -69,7 +75,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     from repro_torch.kernels.ssd_scan import backward as bwd_mod
 
@@ -107,18 +112,7 @@ def main(argv=None) -> int:
         def call():
             return bwd_mod.launch_backward(*operands)
 
-        # The checkout's three kernels, by the profiler.
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-        by_kernel = {}
-        for ev in prof.events():
-            if ev.device_type.name == "CUDA" and "ssd_bwd" in ev.name:
-                key = ev.name.split("ssd_bwd_")[1].split("_kernel")[0]
-                by_kernel.setdefault(key, []).append(ev.device_time_total)
-        report["kernels_us"][arch] = {k: statistics.median(v)
-                                      for k, v in by_kernel.items()}
+        report["kernels_us"][arch] = cs.ssd_bwd_kernel_times(call)
         times = {name: [] for name in libs}
         for name in list(libs) + list(libs)[::-1]:
             bwd_mod.library = lambda lib=libs[name]: lib

@@ -39,7 +39,7 @@ SIGNATURES = {
     "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_P],
     "repro_ssd_scan_scratch_bytes": [_I] * 4,
     "repro_ssd_scan_bwd": [_P] * 13 + [_I] * 7 + [_P],
-    "repro_ssd_scan_bwd_scratch_bytes": [_I] * 5,
+    "repro_ssd_scan_bwd_scratch_bytes": [_I] * 6,
     "repro_flash_attention_bwd_scratch_bytes": [_I] * 4,
 }
 RESTYPES = {"repro_ssd_scan_scratch_bytes": _LL,   # bytes of scratch

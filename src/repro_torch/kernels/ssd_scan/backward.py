@@ -3,13 +3,15 @@
 The reference has no TPU kernel here: ``jax.grad`` differentiates the XLA
 chunked form it trains with (``repro/models/layers.py:_ssd_chunked``).  The
 plain backward, the vjp of ``ref.ssd_chunked_ref``, runs that chunked form
-forwards and backwards in plain PyTorch; the kernels walk the chunks of
-each (batch, head) on the tensor cores (split TF32, every decay exponent a
-sum of one sign) and sum a group's heads in a fixed order.  One call runs
-three device kernels: the entering state of every chunk to a scratch this
-wrapper allocates, the chunks backwards from the final state's gradient,
-and the fixed-order sums over heads, slabs of P and chunks.  The source note
-says what bounds them on the card.
+forwards and backwards in plain PyTorch; the kernels run it on the tensor
+cores (wgmma in split TF32, every decay exponent a sum of one sign) and sum
+a group's heads in a fixed order.  One call runs six device kernels: C·Bᵀ
+and the split shared operands once per (batch, 64-step chunk, group) beside
+each head's decay record; a walk forwards writing the state at every
+64-step boundary and one backwards writing dx and the state's gradient
+there, to a scratch this wrapper allocates; the pass over the chunks that
+sums a group's heads inside its products into dB and dC; then ddt and dA
+from that pass's sums.  The source note says what bounds them on the card.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x (b, S, H, P), dt (b, S, H), A (b, H), B/C (b, S, G, N) with G
     dividing H, gy (b, S, H, P) and gfin (b, H, P, N), all float32 and
     contiguous on one CUDA device -> (dx, ddt, dA, dB, dC) float32, by one
-    launch of the C entry (three device kernels).  Raises on what the
+    launch of the C entry (six device kernels).  Raises on what the
     kernels do not take."""
     check_operands("ssd_scan backward", (x, dt, A, B, C, gy, gfin))
     b, s, h, p = x.shape
@@ -50,7 +52,7 @@ def launch_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return tuple(g.zero_() for g in grads)
     lib = library()
     scratch = torch.empty(
-        (lib.repro_ssd_scan_bwd_scratch_bytes(b, s, h, p, n),),
+        (lib.repro_ssd_scan_bwd_scratch_bytes(b, s, h, p, B.shape[2], n),),
         dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     check_launch("ssd_scan backward", lib.repro_ssd_scan_bwd(
@@ -71,7 +73,7 @@ def ssd_scan_bwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A (b, H), B/C (b, S, G, N) for output gradients gy and gfin.  CPU
     tensors take the plain backward (the vjp of the chunked form at
     ``chunk``), CUDA tensors one :func:`launch_backward` on float32 copies
-    (or raise; the kernels run their own chunk of 32 steps).  Its fake form
+    (or raise; the kernels run their own chunks of 32 and 64 steps).  Its fake form
     gives the shapes alone, so a graph traced over fake tensors holds one
     node for the kernels."""
     ts = (x, dt, A, B, C, gy, gfin)

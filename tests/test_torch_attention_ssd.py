@@ -399,93 +399,115 @@ def test_ssd_design_sums_each_decay_exponent_directly():
 
 
 # The backward kernels' arithmetic (csrc/ssd_scan_bwd.cu), emulated on the
-# CPU: chunks of 32 steps; the entering states by a walk forwards, then a
-# walk backwards from the final state's gradient; every product in split
+# CPU: C.B^T once per 64-step chunk and group; the entering states by a walk
+# forwards and the gradients of the leaving states by a walk backwards, both
+# over chunks of 32 steps, which keep each 64-step boundary; dx whole from
+# the backward walk; then, per 64-step chunk, the per-head products
+# gy.X^T, gy.S_in and X.G, and dC and dB summed over a group's heads in
+# order inside each of ``ranks`` shares of the group and the shares in
+# order, (sum_h dS_h).B and its C twin once a share.  Every product in split
 # TF32 (or one TF32 pass); every decay exponent a sum of one sign over its
 # own steps, and each decay gradient d(dA_r) summed over the pairs that hold
-# dA_r; the per-head dB and dC summed over a group's heads in order.  The
-# limit is the one chip_smoke.py sets for the kernels: twice the plain
-# float32 vjp's own error against float64 on the model's shapes.
-def _emulated_ssd_bwd(x, dt, A, B, C, gy, gfin, *, split, chunk=32):
-    """x/gy (b, S, H, P), dt (b, S, H), A (b, H), B/C (b, S, G, N), gfin
-    (b, H, P, N), float32 -> (dx, ddt, dA, dB, dC) as the kernels compute
-    them."""
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    rep, q = h // g, chunk
-    nc = -(-s // q)
-
-    def chunks(t):   # (b, S, H, ...) -> (b, H, chunks, q, ...), zero tail
-        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
-                                    + (0, nc * q - s))
-        return t.reshape((b, nc, q) + t.shape[2:]).movedim(3, 1)
-
-    X, GY, DT = chunks(x), chunks(gy), chunks(dt)
-    Bh, Ch = (chunks(t.repeat_interleave(rep, 2)) for t in (B, C))
-    a = A[:, :, None, None]
+# dA_r.  The limit is the one chip_smoke.py sets for the kernels: twice the
+# plain float32 vjp's own error against float64 on the model's shapes.
+def _decay(DT, a):
+    """dA, L, e^cum, e^rest, w and the chunk's decay of chunks (..., q)."""
+    q = DT.shape[-1]
     dA = DT * a
     tri = torch.tril(torch.ones(q, q, dtype=torch.bool))
     # Indicator matrices: le[r, t] = r <= t, lt[s, r] = s < r.
-    le, lt = tri.T.float(), torch.triu(torch.ones(q, q), 1)
+    le, lt = tri.T.to(dA.dtype), torch.triu(torch.ones(q, q, dtype=dA.dtype), 1)
     # seg[t, s] over (s, t] and rest[s] over (s, q): sums of one sign over
     # their own steps, never differences of running sums.
     seg = torch.einsum("...r,rt,sr->...ts", dA, le, lt)
     rest = torch.einsum("...r,sr->...s", dA, lt)
     L = torch.where(tri, torch.exp(torch.where(tri, seg, -torch.inf)), 0.0)
     ecum, erest = torch.exp(torch.cumsum(dA, -1)), torch.exp(rest)
-    dec, w = ecum[..., -1], erest * DT
-    S, enter = torch.zeros((b, h, p, n)), []
-    for c in range(nc):
-        enter.append(S)
-        S = dec[:, :, c, None, None] * S + _tf32_mm(
-            (X[:, :, c] * w[:, :, c, :, None]).transpose(-1, -2),
-            Bh[:, :, c], split)
-    G = gfin.clone()
-    dx, ddt = torch.zeros_like(X), torch.zeros_like(DT)
-    dBh, dCh = torch.zeros_like(Bh), torch.zeros_like(Ch)
-    dA_part = torch.zeros((b, h, nc))
-    for c in reversed(range(nc)):
-        Xc, GYc, Bc, Cc, dtc = (t[:, :, c] for t in (X, GY, Bh, Ch, DT))
-        Lc, ec, erc, wc, dc = (t[:, :, c] for t in (L, ecum, erest, w, dec))
-        CB = _tf32_mm(Cc, Bc.transpose(-1, -2), split)
-        D = _tf32_mm(GYc, Xc.transpose(-1, -2), split)
-        dS = D * Lc * dtc[..., None, :]
-        dx[:, :, c] = (_tf32_mm((CB * Lc * dtc[..., None, :]).transpose(
-            -1, -2), GYc, split) + wc[..., None] * _tf32_mm(
-                Bc, G.transpose(-1, -2), split))
-        xG = _tf32_mm(Xc, G, split)
-        gyS = _tf32_mm(GYc, enter[c], split)
-        E = dS * CB
-        F = ec * (gyS * Cc).sum(-1)
-        Kp = erc * (xG * Bc).sum(-1)
-        # d(dA_r): E over t >= r, s < r; F over t >= r; dec <G, S_in>;
-        # dt K' over s < r.
-        ddA = (torch.einsum("...ts,rt,sr->...r", E, le, lt)
-               + torch.einsum("...t,rt->...r", F, le)
-               + torch.einsum("...s,sr->...r", dtc * Kp, lt)
-               + (dc * (G * enter[c]).sum((-1, -2)))[..., None])
-        ddt[:, :, c] = a[..., 0] * ddA + (D * Lc * CB).sum(-2) + Kp
-        dA_part[:, :, c] = (dtc * ddA).sum(-1)
-        dCh[:, :, c] = _tf32_mm(dS, Bc, split) + ec[..., None] * gyS
-        dBh[:, :, c] = (_tf32_mm(dS.transpose(-1, -2), Cc, split)
-                        + wc[..., None] * xG)
-        G = dc[..., None, None] * G + _tf32_mm(
-            (GYc * ec[..., None]).transpose(-1, -2), Cc, split)
+    return L, ecum, erest, erest * DT, ecum[..., -1], le, lt
 
-    def rows(t):   # (b, H, chunks, q, ...) -> (b, S, H, ...)
-        return t.movedim(1, 3).reshape((b, nc * q, h) + t.shape[4:])[:, :s]
 
-    def group_sum(t):   # heads of each group, in order
-        t = rows(t).reshape(b, s, g, rep, n)
-        out = t[:, :, :, 0]
-        for r in range(1, rep):
-            out = out + t[:, :, :, r]
-        return out
+def _emulated_ssd_bwd(x, dt, A, B, C, gy, gfin, *, split, ranks=2):
+    """x/gy (b, S, H, P), dt (b, S, H), A (b, H), B/C (b, S, G, N), gfin
+    (b, H, P, N), float32 -> (dx, ddt, dA, dB, dC) as the kernels compute
+    them."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep, nc = h // g, -(-s // 64)
+
+    def chunks(t, q):   # (b, S, K, ...) -> (b, K, S / q, q, ...), zero tail
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                    + (0, nc * 64 - s))
+        return t.reshape((b, nc * 64 // q, q) + t.shape[2:]).movedim(3, 1)
+
+    def mm(u, v):
+        return _tf32_mm(u, v, split)
+
+    a = A[:, :, None, None]
+    B64, C64 = chunks(B, 64), chunks(C, 64)              # (b, G, nc, 64, N)
+    CB = mm(C64, B64.transpose(-1, -2)).repeat_interleave(rep, 1)
+    # The walks over chunks of 32 steps.
+    X32, GY32, DT32 = chunks(x, 32), chunks(gy, 32), chunks(dt, 32)
+    B32, C32 = (chunks(t.repeat_interleave(rep, 2), 32) for t in (B, C))
+    L32, ec32, _, w32, dec32, _, _ = _decay(DT32, a)
+    S, S_in = torch.zeros((b, h, p, n)), []
+    for c in range(2 * nc):
+        if c % 2 == 0:
+            S_in.append(S)
+        S = dec32[:, :, c, None, None] * S + mm(
+            (X32[:, :, c] * w32[:, :, c, :, None]).transpose(-1, -2),
+            B32[:, :, c])
+    G, G_out, dx = gfin.clone(), [None] * nc, torch.zeros_like(X32)
+    for c in reversed(range(2 * nc)):
+        if c % 2 == 1:
+            G_out[c // 2] = G
+        o = 32 * (c % 2)
+        M = (CB[:, :, c // 2, o:o + 32, o:o + 32] * L32[:, :, c]
+             * DT32[:, :, c, None, :])
+        dxT = (mm(G, B32[:, :, c].transpose(-1, -2)) * w32[:, :, c, None, :]
+               + mm(GY32[:, :, c].transpose(-1, -2), M))
+        dx[:, :, c] = dxT.transpose(-1, -2)
+        G = dec32[:, :, c, None, None] * G + mm(
+            (GY32[:, :, c] * ec32[:, :, c, :, None]).transpose(-1, -2),
+            C32[:, :, c])
+    # The head-summed pass over chunks of 64 steps.
+    X, GY, DT = chunks(x, 64), chunks(gy, 64), chunks(dt, 64)
+    Sin, Gout = torch.stack(S_in, 2), torch.stack(G_out, 2)
+    Bh, Ch = B64.repeat_interleave(rep, 1), C64.repeat_interleave(rep, 1)
+    L, ecum, erest, w, dec, le, lt = _decay(DT, a)
+    tC, tB = mm(GY, Sin), mm(X, Gout)
+    F = ecum * (Ch * tC).sum(-1)
+    K = erest * (Bh * tB).sum(-1)
+    dl = mm(GY, X.transpose(-1, -2)) * L
+    dS = dl * DT[..., None, :]
+    # d(dA_r): dS o C.B^T over t >= r, s < r; F over t >= r; dec <G, S_in>;
+    # dt K' over s < r.
+    dd = (torch.einsum("...ts,rt,sr->...r", dS * CB, le, lt)
+          + torch.einsum("...t,rt->...r", F, le)
+          + torch.einsum("...s,sr->...r", DT * K, lt)
+          + (dec * (Gout * Sin).sum((-1, -2)))[..., None])
+    ddt = a * dd + (dl * CB).sum(-2) + K
+    dA_part = (DT * dd).sum(-1)
+    dCh, dBh = ecum[..., None] * tC, w[..., None] * tB
+    dC, dB = torch.zeros_like(B64), torch.zeros_like(B64)
+    ks = min(ranks, rep)
+    for gi in range(g):
+        for r in range(ks):
+            heads = range(gi * rep + r * rep // ks, gi * rep + (r + 1) * rep // ks)
+            accC = accB = sd = 0.0
+            for hh in heads:
+                accC, accB = accC + dCh[:, hh], accB + dBh[:, hh]
+                sd = sd + dS[:, hh]
+            dC[:, gi] = dC[:, gi] + (accC + mm(sd, B64[:, gi]))
+            dB[:, gi] = dB[:, gi] + (accB + mm(sd.transpose(-1, -2), C64[:, gi]))
+
+    def rows(t):   # (b, K, chunks, q, ...) -> (b, S, K, ...)
+        return t.movedim(1, 3).reshape((b, -1) + t.shape[1:2]
+                                       + t.shape[4:])[:, :s]
 
     dA_ = dA_part[..., 0]
     for c in range(1, nc):
         dA_ = dA_ + dA_part[..., c]
-    return rows(dx), rows(ddt), dA_, group_sum(dBh), group_sum(dCh)
+    return rows(dx), rows(ddt), dA_, rows(dB), rows(dC)
 
 
 def _chunked_vjp(args, gy, gfin, chunk, dtype):

@@ -515,11 +515,17 @@ def _grad_gap(got, want):
 
 # chip_smoke.py phase 16b's small shapes: three heads a group with a ragged
 # tail, P 4 and N 16, P 68 (two 64-row slabs) and N 72 at S 16, and S 1000
-# (no multiple of the kernels' 32-step chunk).
+# (no multiple of the kernels' chunks of 32 and 64 steps); then the
+# head-summed pass at its edges: 64 heads in one group (mamba2-1.3b's head
+# count summed inside the kernel), groups of three heads (an odd count,
+# shared by a cluster of blocks), S 96 (no multiple of the 64-step chunk).
 @pytest.mark.parametrize("b,s,h,g,p,n,chunk", [(2, 80, 6, 2, 8, 16, 16),
                                                (2, 64, 4, 2, 4, 16, 32),
                                                (1, 16, 3, 1, 68, 72, 16),
-                                               (1, 1000, 4, 1, 64, 128, 8)])
+                                               (1, 1000, 4, 1, 64, 128, 8),
+                                               (1, 128, 64, 1, 64, 128, 64),
+                                               (2, 192, 6, 2, 64, 32, 64),
+                                               (1, 96, 4, 1, 64, 64, 32)])
 def test_ssd_backward_kernel_matches_plain_vjp(cuda, b, s, h, g, p, n, chunk):
     args = _ssd_bwd_inputs(b, s, h, g, p, n, s + h, cuda)
     got = _ssd_function_grads(*args, chunk)
@@ -543,9 +549,11 @@ def test_ssd_backward_kernel_strong_decay(cuda):
             <= SSD_BWD_TOL
 
 
-def test_ssd_backward_kernel_is_deterministic(cuda):
-    x, dt, A, B, C, gy, gfin = _ssd_bwd_inputs(2, 256, 8, 1, 64, 128, 3, cuda)
-    A2 = A.expand(2, 8).contiguous()
+# Two calls give the same bits, also with 64 heads summed in one group.
+@pytest.mark.parametrize("b,s,h", [(2, 256, 8), (1, 128, 64)])
+def test_ssd_backward_kernel_is_deterministic(cuda, b, s, h):
+    x, dt, A, B, C, gy, gfin = _ssd_bwd_inputs(b, s, h, 1, 64, 128, 3, cuda)
+    A2 = A.expand(b, h).contiguous()
     one = launch_backward(x, dt, A2, B, C, gy, gfin)
     two = launch_backward(x, dt, A2, B, C, gy, gfin)
     torch.cuda.synchronize()
