@@ -47,7 +47,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (4, 1024, 40, 128) x (4, 1024, 8, 128), (2, 333, 40, 128) x
    (2, 333, 8, 128), nemotron's group of 12 at (4, 1024, 96, 192) and
    (2, 333, 96, 192) (and float32 at S=333), arctic-480b's group of 7 at
-   (4, 1024, 56, 128) (and float32 at S=333);
+   (4, 1024, 56, 128) (and float32 at S=333); float32 (the tensor-core
+   kernels in split TF32) at every head_dim 16 to 192, causal, windowed
+   and not causal at S=333, and through the GQA wrapper with groups of 8
+   and 1;
 9. hold ``ssd_scan`` (``ssd_apply``) against its plain version on the card at
    mamba2-1.3b's prefill shape (b=4, S=1024, H=64, P=64, G=1, N=128), at
    jamba-v0.1-52b's (4, 1024, 128, 64, 1, 16), at reduced shapes and on a
@@ -72,7 +75,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     backward (output bit-identical); then the bf16 forward at
     nemotron-4-340b's prefill (4, 1024, 96/8, 192) and ``ssd_scan`` at
     jamba-v0.1-52b's, each beside its bound, its plain version and (for
-    attention) SDPA;
+    attention) SDPA; the float32 forward at ``F32_SHAPES`` (qwen3-14b's
+    prefill, the lm round at the paper's FL width, the micro lm), held
+    within ``FLASH_F32_TOL`` of its plain version there, then timed beside
+    its bound, its plain version and SDPA in float32;
 13. the grid engine (``run(ExperimentSpec(engine="sim"))``), in four parts:
     (a) ``repro_torch.rng`` on the card against threefry known answers
     taken from JAX (bits, keys and uniforms bit-equal, normals within
@@ -134,13 +140,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     GQA groups 1, 5 and 8, S of 77, 190, 257, 300 and 333, windows of 20,
     33 and 40, no causal mask, and whisper-tiny's full-width training
     shapes (16, 1500, 6/6, 64) non-causal and (16, 448, 6/6, 64) causal;
-    float32, the CUDA-core pair, at head_dim 16,
-    32, 64 and 128, GQA groups 1, 2 and 5, ragged S, a window of 5, no
-    causal mask), each within ``BWD_TOL`` of its max |grad| of the plain
-    backward and of a float64 plain backward, with the plain backward's own
-    error against float64 printed beside it; the bf16 kernels' time at
-    qwen3-14b's shape beside their bound, the plain backward, SDPA's
-    backward and the float32 pair at the same shape; (b) the SSD
+    float32, the tensor-core kernels in split TF32, at every head_dim 16 to
+    192, GQA groups 1, 2, 3, 5 and 8, ragged S, windows, no causal mask),
+    each within ``BWD_TOL`` of its max |grad| of the plain backward and of
+    a float64 plain backward, with the plain backward's own error against
+    float64 printed beside it; the float32 backward's repeat calls
+    bit-identical (``F32_REPEATS``); the bf16 kernels' time at qwen3-14b's
+    shape beside their bound, the plain backward, SDPA's backward and the
+    float32 kernels at the same shape; the float32 kernels at
+    ``F32_SHAPES`` (qwen3-14b's, the lm round's, the micro lm's), held
+    within ``BWD_TOL`` of the plain and the float64 backward there, then
+    timed beside their bound, the plain backward and SDPA's float32
+    backward, with each kernel's time (``torch.profiler``); (b) the SSD
     Function's gradients at mamba2-1.3b's widths, card against CPU, then
     ``ssd_scan_bwd`` against the plain vjp and a float64 one at
     ``SSD_BWD_SHAPES`` (mamba2-1.3b's and jamba-v0.1-52b's shapes, three
@@ -238,10 +249,14 @@ nemotron-4-340b's shape and phase 20's ``zoo_launches``, phase 21's
 ``flash_attention_bwd``, its ``launches`` those of phase 16f's qwen3-14b
 run, ``fl_launches`` phase 16e's sim run, ``zoo_train_launches`` phase
 20's granite-moe run, ``audio_train_launches`` phase 21d's whisper-tiny
-run and ``f32_pair_ms`` the float32 pair at the same shape; and
+run and ``f32_ms`` the float32 kernels at the same shape;
 ``ssd_scan_bwd``, its ``launches`` those of phase 16f's mamba2-1.3b run,
-its times at mamba2-1.3b's shape and ``jamba_*`` at jamba-v0.1-52b's); the
-last line is ``{"ok": true, "device": {...}}``.
+its times at mamba2-1.3b's shape and ``jamba_*`` at jamba-v0.1-52b's; and
+the float32 kernels ``flash_attention_f32`` and ``flash_attention_f32_bwd``
+(split TF32), their ``launches`` those of phase 16e's paper-width lm run,
+their times at the lm round's shape and ``qwen_*`` and ``micro_*`` at
+qwen3-14b's and the micro lm's, phases 12 and 16a); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -538,6 +553,9 @@ def _assert_close(what: str, got, want, tol: float) -> float:
     return err.max().item()
 
 
+# The float32 head_dims the attention kernels take (the tensor-core kernels
+# in split TF32, forward and backward).
+F32_DIMS = ("16", "32", "64", "96", "128", "192")
 # Kernels that must run on the tensor cores: name in the SASS, the
 # instruction that shows it, and the template arguments printed beside it.
 # The last entry, where given, lists the first template argument's values
@@ -548,6 +566,9 @@ TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "HGMMA", ("D",),
                         ("64", "96", "128", "192")),
                        ("flash_bwd_dkv_wgmma", "HGMMA", ("D",),
                         ("64", "96", "128", "192")),
+                       ("flash_fwd_tf32", "HGMMA", ("D",), F32_DIMS),
+                       ("flash_bwd_dq_tf32", "HGMMA", ("D",), F32_DIMS),
+                       ("flash_bwd_dkv_tf32", "HGMMA", ("D",), F32_DIMS),
                        ("ssd_chunk_kernel", "HGMMA", ("NP", "HPB")),
                        ("ssd_prep_kernel", "HMMA", ("NP",)),
                        ("ssd_bwd_prep_kernel", "HMMA", ("NP",),
@@ -727,8 +748,9 @@ def say_label_hist_times(t: dict) -> None:
         say(line)
 
 
-def phase8_flash(dev) -> float:
-    """flash_attention against its plain version; returns the max abs error."""
+def phase8_flash(dev) -> tuple:
+    """flash_attention against its plain version; returns the max abs error
+    over all cases and over the float32 ones."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention,
@@ -737,7 +759,7 @@ def phase8_flash(dev) -> float:
     say("== 8. flash_attention against its plain version")
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
     g = torch.Generator(device=dev).manual_seed(8)
-    worst = 0.0
+    worst = worst_f32 = 0.0
     cases = [((160, 1024, 128), torch.bfloat16, True, 0),
              ((160, 1024, 128), torch.bfloat16, True, 256),
              ((8, 77, 64), torch.float32, True, 0),
@@ -756,6 +778,12 @@ def phase8_flash(dev) -> float:
               ((8, 333, 192), torch.float32, True, 40),
               ((8, 1000, 192), torch.bfloat16, False, 0),
               ((8, 77, 192), torch.float32, False, 0)]
+    # float32 (the tensor-core kernels in split TF32) at every head_dim:
+    # causal, windowed and not causal, at an S of no multiple of their
+    # 16- to 128-row tiles.
+    cases += [((6, 333, d), torch.float32, causal, window)
+              for d in (16, 32, 64, 96, 128, 192)
+              for causal, window in ((True, 0), (True, 40), (False, 0))]
     for shape, dtype, causal, window in cases:
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                    for _ in range(3))
@@ -770,6 +798,8 @@ def phase8_flash(dev) -> float:
                                  f"{causal} window={window}: max |diff| "
                                  f"{err.max().item()}")
         worst = max(worst, err.max().item())
+        if dtype == torch.float32:
+            worst_f32 = max(worst_f32, err.max().item())
         say(f"flash_attention {shape} {dtype} causal={causal} window={window}"
             f": max abs err {err.max().item():.3e}")
     # GQA: qwen3-14b's group of 5; nemotron-4-340b's 96 q-heads over 8
@@ -781,7 +811,11 @@ def phase8_flash(dev) -> float:
             (2, 333, 96, 8, 192, torch.bfloat16),
             (1, 333, 96, 8, 192, torch.float32),
             (4, 1024, 56, 8, 128, torch.bfloat16),
-            (1, 333, 56, 8, 128, torch.float32)]:
+            (1, 333, 56, 8, 128, torch.float32)] + [
+            # float32 at every head_dim, GQA groups of 8 and 1.
+            (2, 333, h, kvh, d, torch.float32)
+            for d in (16, 32, 64, 96, 128, 192)
+            for h, kvh in ((16, 2), (4, 4))]:
         q = torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
         k, v = (torch.randn((b, s, kvh, d), generator=g,
                             device=dev).to(dtype) for _ in range(2))
@@ -795,9 +829,11 @@ def phase8_flash(dev) -> float:
             raise AssertionError(f"gqa_flash_attention {(b, s, h, d)} "
                                  f"{dtype}: max |diff| {err.max().item()}")
         worst = max(worst, err.max().item())
+        if dtype == torch.float32:
+            worst_f32 = max(worst_f32, err.max().item())
         say(f"gqa_flash_attention {(b, s, h, d)} x {(b, s, kvh, d)} {dtype}: "
             f"max abs err {err.max().item():.3e}")
-    return worst
+    return worst, worst_f32
 
 
 def _ssd_inputs(dev, b, s, h, p, g_, n, seed, decaying=False):
@@ -1216,8 +1252,11 @@ def phase12_times(dev) -> dict:
     say(f"flash_attention at head_dim 192, the bf16 kernel's own tensor-core "
         f"work: {mma / 1e9:.1f} GFLOP, "
         f"{mma / (d192['ms'] * 1e-3) / 1e12:.0f} TFLOP/s achieved")
+    # The float32 forward (tensor cores, split TF32) at F32_SHAPES.
+    f32 = {name: f32_attention_times(dev, *shape, which="fwd")
+           for name, shape in F32_SHAPES.items()}
     return {"flash_attention": fa, "ssd_scan": ssd, "flash_d192": d192,
-            "ssd_jamba": _ssd_jamba_times(dev)}
+            "ssd_jamba": _ssd_jamba_times(dev), "f32": f32}
 
 
 def _ssd_jamba_times(dev) -> dict:
@@ -2212,8 +2251,8 @@ def phase15d_kernels(dev) -> dict:
 # max |value|.  The limits are twice the plain backward's own error in the
 # input dtype against float64, read by this phase on its first eight shapes
 # (H100 80GB HBM3 at 700 W, PERF.md): at most 1.13e-6 in float32 and
-# 3.44e-3 in bfloat16, the CUDA-core pair's own gaps to the plain version
-# then 4.4e-7 and 1.8e-3.
+# 3.44e-3 in bfloat16, the kernels' own gaps to the plain version then
+# (float32 then on the CUDA cores) 4.4e-7 and 1.8e-3.
 BWD_TOL = {"float32": 2.5e-6, "bfloat16": 7e-3}
 BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
     (4, 1024, 40, 8, 128, "bfloat16", True, 0),
@@ -2250,7 +2289,15 @@ BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
     (1, 130, 4, 2, 96, "float32", False, 0),
     (2, 77, 6, 2, 192, "float32", True, 9),
     (1, 130, 4, 2, 192, "float32", False, 0),
-]
+    # The float32 kernels (tensor cores, split TF32) at every head_dim:
+    # causal with a GQA group of 8, windowed with a group of 1, not causal
+    # with a group of 3, each at an S of no multiple of their 16- to 64-row
+    # tiles.
+] + [(b, s, h, kv, d, "float32", causal, window)
+     for d in (16, 32, 64, 96, 128, 192)
+     for b, s, h, kv, causal, window in ((1, 133, 16, 2, True, 0),
+                                         (2, 77, 4, 4, True, 20),
+                                         (1, 100, 6, 2, False, 0))]
 # (b)–(d): gradients on the card against the CPU (TF32 off) within GRAD_TOL
 # of each leaf's largest magnitude, the limit that holds the port's
 # gradients to the reference's (tests/test_torch_train.py).
@@ -2317,7 +2364,8 @@ def phase16a_flash_backward(dev) -> dict:
     say("== 16a. flash_attention backward against the plain backward")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(16)
-    worst_abs, readings = 0.0, {}
+    worst_abs = worst_f32 = 0.0
+    readings = {}
     for b, s, h, kv, d, dt, causal, window in BWD_SHAPES:
         dtype = getattr(torch, dt)
         q = torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
@@ -2334,8 +2382,11 @@ def phase16a_flash_backward(dev) -> dict:
         k_vs_p = max(_rel(a, c) for a, c in zip(got, plain))
         p_vs_64 = max(_rel(c, e) for c, e in zip(plain, exact))
         k_vs_64 = max(_rel(a, e) for a, e in zip(got, exact))
-        worst_abs = max(worst_abs, max((a.float() - c.float()).abs().max()
-                                       .item() for a, c in zip(got, plain)))
+        gap = max((a.float() - c.float()).abs().max().item()
+                  for a, c in zip(got, plain))
+        worst_abs = max(worst_abs, gap)
+        if dt == "float32":
+            worst_f32 = max(worst_f32, gap)
         what = (b, s, h, kv, d, dt, causal, window)
         readings[str(what)] = (k_vs_p, p_vs_64)
         say(f"flash backward {what}: kernel vs plain {k_vs_p:.2e}, plain "
@@ -2347,8 +2398,31 @@ def phase16a_flash_backward(dev) -> dict:
                                  f"{k_vs_64} (float64) > {BWD_TOL[dt]}")
         del q, k, v, do, o, lse, got, plain, exact
     torch.cuda.empty_cache()
+    # Repeat calls of the float32 backward give the same bits (every output
+    # element summed by one thread of one block, no atomics).
+    for b, s, h, kv, d, causal, window in F32_REPEATS:
+        q = torch.randn((b, s, h, d), generator=g, device=dev)
+        k, v = (torch.randn((b, s, kv, d), generator=g, device=dev)
+                for _ in range(2))
+        do = torch.randn((b, s, h, d), generator=g, device=dev)
+        o, lse = FlashAttention.apply(q, k, v, causal, window, True)
+        first = FlashAttentionBackward.apply(q, k, v, o, lse, do, causal,
+                                             window)
+        for _ in range(2):
+            again = FlashAttentionBackward.apply(q, k, v, o, lse, do, causal,
+                                                 window)
+            if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                raise AssertionError(f"float32 flash backward "
+                                     f"{(b, s, h, kv, d)}: repeat calls "
+                                     f"differ")
+        say(f"float32 flash backward {(b, s, h, kv, d, causal, window)}: "
+            f"three calls bit-identical")
+        del q, k, v, do, o, lse, first, again
     t = _bwd_times(dev, g, SERVE_BATCH, SERVE_PROMPT, 40, 8, 128)
-    t["err"] = worst_abs
+    t["err"], t["f32_err"] = worst_abs, worst_f32
+    # The float32 backward (tensor cores, split TF32) at F32_SHAPES.
+    t["f32"] = {name: f32_attention_times(dev, *shape, which="bwd")
+                for name, shape in F32_SHAPES.items()}
     # phi-3-vision-4.2b's training shape and nemotron-4-340b's prefill
     # shape, the head_dims 96 and 192.
     t["d96"] = _bwd_times(dev, g, *BWD_D96)
@@ -2356,6 +2430,10 @@ def phase16a_flash_backward(dev) -> dict:
     return t
 
 
+# (B, S, H, KV, D, causal, window) of phase 16a's repeat-call checks of
+# the float32 backward: GQA groups of 5 and 8, a window, no causal mask.
+F32_REPEATS = [(2, 333, 10, 2, 128, True, 0), (1, 300, 16, 2, 64, True, 40),
+               (1, 257, 6, 6, 192, False, 0), (2, 130, 8, 1, 16, True, 0)]
 # (B, S, H, KV, D) of phase 16a's timings at head_dim 96 and 192, causal.
 BWD_D96 = (4, 2048, 32, 32, 96)
 BWD_D192 = (4, 1024, 96, 8, 192)
@@ -2413,11 +2491,180 @@ def _bwd_times(dev, g, b, s, h, kvh, d) -> dict:
     o, lse = FlashAttention.apply(q, k, v, True, 0, True)
     t["f32_ms"] = time_ms(lambda: FlashAttentionBackward.apply(
         q, k, v, o, lse, do, True, 0), reps=2, trials=5)
-    say(f"flash_attention backward, the float32 pair (CUDA cores) at the "
-        f"same shape: {t['f32_ms']:.4f} ms")
+    say(f"flash_attention backward, the float32 kernels (tensor cores, "
+        f"split TF32) at the same shape: {t['f32_ms']:.4f} ms")
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     return t
+
+
+# The float32 attention kernels' timing shapes (B, S, H, KV, D), causal:
+# qwen3-14b's prefill; the lm FL round at the paper's width (fl-lm-12m, 30
+# clients x 32 sequences of 64 tokens in one launch); the registered micro
+# lm's training launch in phase 16e (2 strategies x 3 clients x 4
+# sequences of 16 tokens, head_dim 16; recorded by
+# scripts/torch_flash_f32_bench.py).
+F32_SHAPES = {"qwen3-14b": (4, 1024, 40, 8, 128),
+              "lm round": (960, 64, 4, 2, 64),
+              "micro lm": (24, 16, 4, 2, 16)}
+
+
+def f32_attention_times(dev, b, s, h, kvh, d, which="fwd") -> dict:
+    """The float32 attention kernels at (b, s, h/kvh, d) causal, forward
+    (as a training step runs it: each row's logsumexp written too) or
+    backward, first held to the plain version on the same inputs (the
+    forward's output within FLASH_F32_TOL (1 + |o|); each gradient within
+    BWD_TOL["float32"] of its max |grad| of a float64 backward, and of the
+    plain float32 one beyond that one's own error), then timed: the kernel's time beside its bound (the
+    products once at 495 TFLOP/s TF32, or the bytes each input read and
+    each output written once, whichever is larger), the plain version's
+    time and scaled_dot_product_attention's in float32 (``enable_gqa``; its
+    backward as torch.autograd.grad of its forward less the forward).  With
+    ``which="bwd"`` also the device time of each kernel the backward
+    launches, by name (``kernel_times_us``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (FlashAttentionBackward,
+                                                     gqa_attention_bwd_ref,
+                                                     gqa_attention_ref)
+    from repro_torch.kernels.flash_attention.flash_attention import launch
+    old = _tf32(False, False)
+    g = torch.Generator(device=dev).manual_seed(29)
+    q = torch.randn((b, s, h, d), generator=g, device=dev)
+    k, v = (torch.randn((b, s, kvh, d), generator=g, device=dev)
+            for _ in range(2))
+    do = torch.randn((b, s, h, d), generator=g, device=dev)
+    o, lse = launch(q, k, v, causal=True, window=0, with_lse=True)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=h != kvh)
+
+    out = {"shape": [b, s, h, kvh, d]}
+    stats = 4 * b * h * s                  # lse, written or read
+    pairs = s * (s + 1) // 2
+    if which == "fwd":
+        def call():
+            return launch(q, k, v, causal=True, window=0, with_lse=True)
+        plain = (lambda: gqa_attention_ref(q, k, v, True, 0, with_lse=True))
+        want = plain()[0]
+        err = (o - want).abs()
+        out["err"] = err.max().item()
+        if bool((err > FLASH_F32_TOL * (1 + want.abs())).any()) or not bool(
+                torch.isfinite(o).all()):
+            raise AssertionError(f"float32 flash forward {tuple(out['shape'])}"
+                                 f": max |diff| {out['err']} from the plain "
+                                 f"version (limit {FLASH_F32_TOL} (1 + |o|))")
+        del want, err
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel()) + stats
+        ops = 4 * b * h * d * pairs
+    else:
+        def call():
+            return FlashAttentionBackward.apply(q, k, v, o, lse, do, True, 0)
+        plain = (lambda: gqa_attention_bwd_ref(q, k, v, o, do, True, 0))
+        # Within BWD_TOL of float64, and of the plain float32 backward
+        # beyond the plain's own error against float64 (which at S = 1024
+        # exceeds BWD_TOL by itself).
+        got, want = call(), plain()
+        exact = gqa_attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
+                                      True, 0)
+        out["err"] = max(_rel(a, e) for a, e in zip(got, exact))
+        out["err_plain"] = max(_rel(a, c) for a, c in zip(got, want))
+        out["plain_err"] = max(_rel(c, e) for c, e in zip(want, exact))
+        del want, exact
+        if not (out["err"] <= BWD_TOL["float32"] and out["err_plain"]
+                <= BWD_TOL["float32"] + out["plain_err"]) or not all(
+                    bool(torch.isfinite(x).all()) for x in got):
+            raise AssertionError(
+                f"float32 flash backward {tuple(out['shape'])}: "
+                f"{out['err']} of max |grad| from float64 (limit "
+                f"{BWD_TOL['float32']}), {out['err_plain']} from the plain "
+                f"backward (limit {BWD_TOL['float32']} + its own "
+                f"{out['plain_err']})")
+        del got
+        nbytes = 4 * (4 * q.numel() + 4 * k.numel()) + stats
+        ops = 10 * b * h * d * pairs
+    torch.cuda.empty_cache()
+    lib_fwd = time_ms(sdpa, reps=5, trials=7)
+    out["lib"] = lib_fwd if which == "fwd" else time_ms(
+        lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), reps=5,
+        trials=7) - lib_fwd
+    out["ms"] = time_ms(call, reps=5, trials=7)
+    out["plain"] = time_ms(plain, reps=2, trials=5)
+    out["bound"], out["by"] = bound(nbytes, ops, TF32_OPS_PER_S)
+    out["mb"], out["gflop"] = nbytes / 1e6, ops / 1e9
+    out["kernels_us"] = kernel_times_us(call) if which == "bwd" else {}
+    say(f"float32 flash {'forward' if which == 'fwd' else 'backward'} "
+        f"{tuple(out['shape'])} causal: "
+        + (f"max abs err {out['err']:.3e} from the plain version"
+           if which == "fwd" else
+           f"{out['err']:.2e} of max |grad| from float64, "
+           f"{out['err_plain']:.2e} from the plain backward (the plain's own "
+           f"{out['plain_err']:.2e})")
+        + f"; kernel{'s' if which == 'bwd' else ''} {out['ms']:.4f} ms, bound {out['bound']:.4f} ms ({out['by']}: "
+        f"{out['gflop']:.2f} GFLOP at 495 TFLOP/s TF32, {out['mb']:.1f} MB "
+        f"at 3.35 TB/s; {out['bound'] / out['ms']:.1%} of it), plain "
+        f"{out['plain']:.4f} ms, scaled_dot_product_attention float32 "
+        f"{out['lib']:.4f} ms"
+        + "".join(f"; {n} {t:.1f} us" for n, t in out["kernels_us"].items()))
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    _tf32(*old)
+    return out
+
+
+def kernel_times_us(call) -> dict:
+    """Device time of each kernel a ``call()`` launches, by its name without
+    namespace, template arguments or parameters (torch.profiler): the
+    median of its launches over ten calls, in microseconds."""
+    import re
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    times = {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", ev.name)
+            times.setdefault(re.split(r"[<(]", name)[0],
+                             []).append(ev.device_time_total)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def f32_entry(name: str, which: str, readings: dict, launches: int,
+              err: float) -> dict:
+    """The final line's entry of a float32 attention kernel: its numbers at
+    the lm round's shape (the float32 main path, phase 16e's paper-width
+    run, whose launches it counts), then at the other F32_SHAPES."""
+    main = readings["lm round"]
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/flash_attention"
+                         ".py:82" + ("" if which == "fwd" else
+                                     " (no TPU backward kernel: the "
+                                     "reference differentiates XLA "
+                                     "attention)"),
+             "launches": launches, "max_abs_err": err, "shape": main["shape"],
+             "ms": main["ms"], "plain_ms": main["plain"],
+             "bound_ms": main["bound"], "bound_by": main["by"],
+             "library_ms": main["lib"]}
+    for key, prefix in (("qwen3-14b", "qwen"), ("micro lm", "micro")):
+        r = readings[key]
+        entry.update({f"{prefix}_shape": r["shape"], f"{prefix}_ms": r["ms"],
+                      f"{prefix}_plain_ms": r["plain"],
+                      f"{prefix}_bound_ms": r["bound"],
+                      f"{prefix}_bound_by": r["by"],
+                      f"{prefix}_library_ms": r["lib"]})
+    if which == "bwd":
+        entry["qwen_kernels_us"] = readings["qwen3-14b"]["kernels_us"]
+    return entry
 
 
 def _lm_grads(cfg, device, key, toks, targets, extra=None):
@@ -4759,7 +5006,7 @@ def main() -> int:
         f"{agg['bytes'] / 1e6:.1f} MB); per leaf summed: plain "
         f"{agg['plain']:.4f} ms, s @ stacked {agg['lib']:.4f} ms")
 
-    flash_err = phase8_flash(dev)
+    flash_err, flash_f32_err = phase8_flash(dev)
     ssd_err = phase9_ssd(dev)
     phase10_serve_card_vs_cpu(dev)
     served = phase11_serve(dev)
@@ -4916,7 +5163,7 @@ def main() -> int:
                          * TRAIN_STEPS),
          "max_abs_err": bwd["err"], "ms": bwd["ms"], "plain_ms": bwd["plain"],
          "bound_ms": bwd["bound"], "bound_by": bwd["by"],
-         "library_ms": bwd["lib"], "f32_pair_ms": bwd["f32_ms"],
+         "library_ms": bwd["lib"], "f32_ms": bwd["f32_ms"],
          "fl_launches": p16e["sim"]["launches"]["flash_attention_bwd"],
          "zoo_train_launches": int(p20["train"]["launches"][
              "flash_attention_bwd"] * TRAIN_STEPS),
@@ -4929,7 +5176,13 @@ def main() -> int:
             for field, src in (("shape", "shape"), ("ms", "ms"),
                                ("plain_ms", "plain"), ("bound_ms", "bound"),
                                ("bound_by", "by"), ("library_ms", "lib"),
-                               ("f32_pair_ms", "f32_ms"))}},
+                               ("f32_ms", "f32_ms"))}},
+        f32_entry("flash_attention_f32", "fwd", times["f32"],
+                  p16e["paper"]["launches"]["flash_attention"],
+                  flash_f32_err),
+        f32_entry("flash_attention_f32_bwd", "bwd", bwd["f32"],
+                  p16e["paper"]["launches"]["flash_attention_bwd"],
+                  bwd["f32_err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,12 +22,11 @@ Needs a CUDA device; prints one JSON object and writes it to ``--out``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
+
+import cu_variants
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -49,31 +48,9 @@ CHECKS = [(2, 77, 8, 1, 64, True, 0), (1, 257, 4, 2, 128, False, 33),
 
 def variant_source(src: str, old: str, new: str, where: str) -> str:
     if where == "all":
-        if old not in src:
-            raise ValueError(f"{old!r} not in the source")
-        return src.replace(old, new)
+        return cu_variants.patched(src, [(old, new)])
     head, tail = src.split(BWD_START, 1)
-    if old not in tail:
-        raise ValueError(f"{old!r} not in the backward's kernels")
-    return head + BWD_START + tail.replace(old, new)
-
-
-def spills(log: str) -> dict:
-    """bytes of spill stores and loads of each backward wgmma kernel."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Function properties for (\w+)", line)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name and "flash_bwd" in name and "wgmma" in name:
-            short = re.search(r"(flash_bwd_\w+_wgmma)ILi(\d+)", name)
-            out[f"{short.group(1)}<{short.group(2)}>"] = (int(m.group(1))
-                                                         + int(m.group(2)))
-            name = None
-    return out
+    return head + BWD_START + cu_variants.patched(tail, [(old, new)])
 
 
 def main(argv=None) -> int:
@@ -95,33 +72,19 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import backward as bwd_mod
     from repro_torch.kernels.flash_attention import flash_attention as fwd_mod
 
+    kernel = r"(flash_bwd_\w+_wgmma)ILi(\d+)"
     libs = {"checkout": build.library()}
     report = {"card": cs.gpu_name_and_power(), "spills": {
-        "checkout": spills(Path(str(build.build()) + ".log").read_text())}}
+        "checkout": cu_variants.resources(
+            Path(str(build.build()) + ".log").read_text(), kernel)}}
     src = (build.CSRC / "flash_attention.cu").read_text()
-    out_dir = ROOT / "build" / "flash_bwd_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, (old, new, where) in VARIANTS.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(variant_source(src, old, new, where))
-        so = out_dir / f"{name}.so"
-        jobs[name] = (so, subprocess.Popen(
-            [build.cuda_tool(), *build.FLAGS, "-shared", str(cu), "-o",
-             str(so)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    for name, (so, proc) in jobs.items():
-        out, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}{out}")
-        report["spills"][name] = spills(err + out)
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in build.SIGNATURES.items():
-            if fn.startswith("repro_flash_attention"):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = build.RESTYPES.get(fn,
-                                                             ctypes.c_int)
+    built = cu_variants.build_variants(
+        build, {name: variant_source(src, *v)
+                for name, v in VARIANTS.items()},
+        ROOT / "build" / "flash_bwd_variants", "repro_flash_attention")
+    for name, (lib, log) in built.items():
         libs[name] = lib
+        report["spills"][name] = cu_variants.resources(log, kernel)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(20)

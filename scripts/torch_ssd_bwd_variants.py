@@ -20,17 +20,17 @@ Needs a CUDA device; prints one JSON object and writes it to ``--out``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import cu_variants
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = {"mamba2-1.3b": (4, 1024, 64, 64, 1, 128),
           "jamba-v0.1-52b": (4, 1024, 128, 64, 1, 16)}
 
-# name -> (text, replacement) pairs, each text found once in the source.
+# name -> (text, replacement) pairs in csrc/ssd_scan_bwd.cu.
 VARIANTS = {
     "nowalks": [
         ("  int e = two ? launch_walk<NP, 2, false>",
@@ -54,15 +54,6 @@ VARIANTS = {
 }
 
 
-def variant_source(src: str, name: str) -> str:
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: {old!r} found "
-                             f"{src.count(old)} times")
-        src = src.replace(old, new)
-    return src
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" /
@@ -80,26 +71,11 @@ def main(argv=None) -> int:
 
     libs = {"checkout": build.library()}
     src = (build.CSRC / "ssd_scan_bwd.cu").read_text()
-    out_dir = ROOT / "build" / "ssd_bwd_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in VARIANTS:
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(variant_source(src, name))
-        so = out_dir / f"{name}.so"
-        jobs[name] = (so, subprocess.Popen(
-            [build.cuda_tool(), *build.FLAGS, "-shared", str(cu), "-o",
-             str(so)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    for name, (so, proc) in jobs.items():
-        out, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("repro_ssd_scan_bwd", "repro_ssd_scan_bwd_scratch_bytes"):
-            getattr(lib, fn).argtypes = build.SIGNATURES[fn]
-            getattr(lib, fn).restype = build.RESTYPES.get(fn, ctypes.c_int)
-        libs[name] = lib
+    built = cu_variants.build_variants(
+        build, {name: cu_variants.patched(src, pairs)
+                for name, pairs in VARIANTS.items()},
+        ROOT / "build" / "ssd_bwd_variants", "repro_ssd_scan_bwd")
+    libs.update({name: lib for name, (lib, _) in built.items()})
 
     dev = torch.device("cuda")
     report = {"card": cs.gpu_name_and_power(), "ms": {}, "kernels_us": {}}

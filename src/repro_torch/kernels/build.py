@@ -34,7 +34,7 @@ SIGNATURES = {
     "repro_weighted_agg_geometry": [_P, _P, _P],
     "repro_flash_attention_f32": [_P] * 5 + [_I] * 7 + [_P],
     "repro_flash_attention_bf16": [_P] * 5 + [_I] * 7 + [_P],
-    "repro_flash_attention_f32_bwd": [_P] * 9 + [_I] * 7 + [_P],
+    "repro_flash_attention_f32_bwd": [_P] * 10 + [_I] * 7 + [_P],
     "repro_flash_attention_bf16_bwd": [_P] * 10 + [_I] * 7 + [_P],
     "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_P],
     "repro_ssd_scan_scratch_bytes": [_I] * 4,

@@ -79,11 +79,19 @@
 //   fragment; rows at or past S are not written.
 //
 // float32, the check dtype (tests and the self-checks) and the dtype of the
-// FL LM workloads (head_dim 16 to 128), not the serving dtype, stays on a
-// CUDA-core kernel by design (flash_attention_f32_kernel): 256 threads own
-// 64 query rows, 32-key tiles, float32 FMAs, Q/K transposed and V in shared
-// memory.  D is 16, 32, 64, 96, 128 or 192 in float32, 64, 96, 128 or 192
-// in bfloat16, in the forward and the backward alike.
+// FL LM workloads (fl-lm-12m at head_dim 64, the micro lm at 16): tensor
+// cores in split TF32 (flash_fwd_tf32 here, flash_bwd_dq_tf32 and
+// flash_bwd_dkv_tf32 for the backward; the section "float32: tensor cores
+// in split TF32" says how).  Every float32 product is wgmma in TF32 with
+// each operand split once, v = hi + lo (hi = v rounded to TF32, lo the
+// exact rest), summed as hi.hi + hi.lo + lo.hi into float32.  One TF32 pass
+// is 40x over FLASH_F32_TOL and 200x over the backward's float32 limit in
+// tests/test_torch_attention_ssd.py's emulation; the split is as close to
+// float64 as the plain float32 version.  So float32 stays the check dtype,
+// and torch.backends.cuda.matmul.allow_tf32 does not govern these kernels:
+// they never take one TF32 pass.  D is 16, 32, 64, 96, 128 or 192 in
+// float32, 64, 96, 128 or 192 in bfloat16, in the forward and the backward
+// alike.
 //
 // The backward pair for both dtypes is at the end of the file.
 #include <cuda.h>
@@ -94,185 +102,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int BQ = 64;          // query rows a block
-constexpr int BK = 32;          // keys a tile
-constexpr int QS = BQ + 4;      // row stride of Qs/Ps (float4-aligned)
-constexpr int KS = BK + 1;      // row stride of Ks (odd: conflict-free)
-
-__device__ __forceinline__ void load4_f32(const float* p, float out[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-template <int D>
-constexpr int smem_floats() {
-  return D * QS + D * KS + BK * D + BK * QS;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse, int seq, int heads,
-                           int kv_heads, int causal, int window, float scale) {
-  static_assert(D % 16 == 0 && D <= 192, "D is 16, 32, 64, 96, 128 or 192");
-  constexpr int DC = D / 16;      // output columns a thread
-  constexpr int D4 = D / 4;       // float4 groups in a row
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [D][QS]  Q transposed
-  float* Ks = Qs + D * QS;        // [D][KS]  K transposed
-  float* Vs = Ks + D * KS;        // [BK][D]
-  float* Ps = Vs + BK * D;        // [BK][QS] probabilities transposed
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int kh = h / (heads / kv_heads);
-  const int q0 = blockIdx.x * BQ;
-  const long long q_row = static_cast<long long>(heads) * D;
-  const long long k_row = static_cast<long long>(kv_heads) * D;
-  const float* qb = q + (static_cast<long long>(b) * seq * heads + h) * D;
-  const float* kb = k + (static_cast<long long>(b) * seq * kv_heads + kh) * D;
-  const float* vb = v + (static_cast<long long>(b) * seq * kv_heads + kh) * D;
-
-  for (int idx = tid; idx < BQ * D4; idx += kThreads) {
-    const int r = idx / D4, d = (idx % D4) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < seq) load4_f32(qb + (q0 + r) * q_row + d, x);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) Qs[(d + e) * QS + r] = x[e];
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  // Keys any row of this tile may see: [k_lo, k_hi).
-  const int k_lo = window ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(seq, q0 + BQ) : seq;
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // the previous tile is done with Ks, Vs and Ps
-    for (int idx = tid; idx < BK * D4; idx += kThreads) {
-      const int j = idx / D4, d = (idx % D4) * 4;
-      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + j < seq) {
-        load4_f32(kb + (k0 + j) * k_row + d, kx);
-        load4_f32(vb + (k0 + j) * k_row + d, vx);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) Ks[(d + e) * KS + j] = kx[e];
-      *reinterpret_cast<float4*>(Vs + j * D + d) =
-          make_float4(vx[0], vx[1], vx[2], vx[3]);
-    }
-    __syncthreads();
-
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + d * QS + 4 * ty);
-      const float k0v = Ks[d * KS + tx], k1v = Ks[d * KS + tx + 16];
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(qa[i], k0v, s[i][0]);
-        s[i][1] = fmaf(qa[i], k1v, s[i][1]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      bool ok[2];
-      float rmax = kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int kpos = k0 + tx + 16 * jj;
-        ok[jj] = kpos < seq && (!causal || kpos <= qpos) &&
-                 (!window || kpos > qpos - window);
-        s[i][jj] = ok[jj] ? s[i][jj] * scale : kNegInf;
-        rmax = fmaxf(rmax, s[i][jj]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      float rsum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
-        Ps[(tx + 16 * jj) * QS + 4 * ty + i] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pv = *reinterpret_cast<const float4*>(Ps + j * QS + 4 * ty);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[j * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pa[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    if (qpos >= seq) continue;
-    if (lse != nullptr && tx == 0)
-      lse[static_cast<long long>(bh) * seq + qpos] = m[i] + logf(l[i]);
-    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    float* orow = o + (static_cast<long long>(b) * seq + qpos) * q_row +
-              static_cast<long long>(h) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
-  }
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int batch, int seq, int heads, int kv_heads,
-               int causal, int window, cudaStream_t stream) {
-  if (batch * heads > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto kern = flash_attention_f32_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, seq, heads,
-      kv_heads, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (wgmma), TMA, warp-specialised
@@ -1059,19 +888,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // forward's; at qwen3-14b's (4, 1024, 40, 128) bf16 that is 107.5 GFLOP,
 // 108.7 us at the tensor cores' 989 TFLOP/s.
 //
-// float32, the check dtype and the FL LM workloads' dtype (head_dim 16 to
-// 192): CUDA cores, float32 throughout, two kernels in order on one stream.
-// (a) flash_bwd_dq_kernel: one block a (b, h, 64-row q-tile).  A first pass
-//     over the live key tiles recomputes each row's L (online max and sum,
-//     the forward's masking and scale); it forms delta from O and dO,
-//     writes L and delta to the scratch, and a second pass accumulates dQ
-//     in registers.
-// (b) flash_bwd_dkv_kernel: one block a (b, kv-head, 64-key tile).  It loops
-//     over its group's q-heads and their live 32-row q-tiles, recomputes P
-//     and dS from L and delta, and accumulates dK and dV in registers.
-// Tiles live in shared memory in float32.  It recomputes Q.K^T three times
-// and dO.V^T twice (8 products) on the CUDA cores (67 TFLOP/s float32 FMA
-// peak); TF32 tensor cores would break the check dtype's limits.
+// float32, the check dtype and the FL LM workloads' dtype: tensor cores in
+// split TF32, two kernels in order on one stream from the forward's L, each
+// block two warpgroups that share a tile's products between them (the
+// section "float32: tensor cores in split TF32" below).
 //
 // bfloat16, the training dtype: tensor cores (wgmma), TMA, warp-specialised
 // like the forward (a producer warpgroup whose one thread starts every copy,
@@ -1141,434 +961,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // product with P or dS runs twice: 10 products in all against the bound's 5
 // (215 GFLOP at qwen3-14b's shape, 217 us at the bf16 peak).
 
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ void load4(const float* p, float out[4]) {
-    load4_f32(p, out);
-  }
-  static __device__ __forceinline__ float load1(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-};
-
-constexpr int BKB = 64;          // keys a dK/dV block
-constexpr int BQB = 32;          // q rows a dK/dV tile
-constexpr int KT = BKB + 4;      // row stride of Kt/Vt/Ps/dSs (float4 reads)
-constexpr int QT = BQB + 1;      // row stride of Qt/dOt (odd)
-
-template <int D>
-constexpr int dq_smem_floats() {
-  return 2 * D * QS + 2 * D * KS + BK * QS;
-}
-
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 2 * D * KT + 2 * D * QT + 2 * BQB * KT + 2 * BQB;
-}
-
 __device__ __forceinline__ bool visible(int qpos, int kpos, int seq,
                                         int causal, int window) {
   return kpos < seq && qpos < seq && (!causal || kpos <= qpos) &&
          (!window || kpos > qpos - window);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, T* __restrict__ dq,
-                    float* __restrict__ lse, float* __restrict__ delta,
-                    int seq, int heads, int kv_heads, int causal, int window,
-                    float scale) {
-  constexpr int DC = D / 16;
-  constexpr int D4 = D / 4;
-  extern __shared__ float smem[];
-  float* Qs = smem;                // [D][QS]  Q transposed
-  float* dOs = Qs + D * QS;        // [D][QS]  dO transposed
-  float* Ks = dOs + D * QS;        // [D][KS]  K transposed
-  float* Vs = Ks + D * KS;         // [D][KS]  V transposed
-  float* dSs = Vs + D * KS;        // [BK][QS] dS transposed
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int kh = h / (heads / kv_heads);
-  const int q0 = blockIdx.y * BQ;
-  const long long q_row = static_cast<long long>(heads) * D;
-  const long long k_row = static_cast<long long>(kv_heads) * D;
-  const long long q_base = (static_cast<long long>(b) * seq * heads + h) * D;
-  const long long k_base =
-      (static_cast<long long>(b) * seq * kv_heads + kh) * D;
-
-  for (int idx = tid; idx < BQ * D4; idx += kThreads) {
-    const int r = idx / D4, d = (idx % D4) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f}, g[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < seq) {
-      Io<T>::load4(q + q_base + (q0 + r) * q_row + d, x);
-      Io<T>::load4(dout + q_base + (q0 + r) * q_row + d, g);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      Qs[(d + e) * QS + r] = x[e];
-      dOs[(d + e) * QS + r] = g[e];
-    }
-  }
-  __syncthreads();
-
-  // delta = rowsum(dO o O): 16 threads a row, D / 16 columns each.
-  float dlt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    float acc = 0.f;
-    if (q0 + r < seq) {
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = tx + 16 * c;
-        acc = fmaf(dOs[d * QS + r],
-                   Io<T>::load1(o + q_base + (q0 + r) * q_row + d), acc);
-      }
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    dlt[i] = acc;
-  }
-
-  const int k_lo = window ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(seq, q0 + BQ) : seq;
-  const int k_first = (k_lo / BK) * BK;
-
-  // Pass 1: each row's logsumexp over its visible keys.
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  for (int k0 = k_first; k0 < k_hi; k0 += BK) {
-    __syncthreads();
-    for (int idx = tid; idx < BK * D4; idx += kThreads) {
-      const int j = idx / D4, d = (idx % D4) * 4;
-      float kx[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + j < seq) Io<T>::load4(k + k_base + (k0 + j) * k_row + d, kx);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) Ks[(d + e) * KS + j] = kx[e];
-    }
-    __syncthreads();
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + d * QS + 4 * ty);
-      const float k0v = Ks[d * KS + tx], k1v = Ks[d * KS + tx + 16];
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(qa[i], k0v, s[i][0]);
-        s[i][1] = fmaf(qa[i], k1v, s[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      bool ok[2];
-      float rmax = kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        ok[jj] = visible(qpos, k0 + tx + 16 * jj, seq, causal, window);
-        s[i][jj] = ok[jj] ? s[i][jj] * scale : kNegInf;
-        rmax = fmaxf(rmax, s[i][jj]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      float rsum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        rsum += ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = expf(m[i] - m_new) * l[i] + rsum;
-      m[i] = m_new;
-    }
-  }
-  float L[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    L[i] = l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
-    if (qpos < seq && tx == 0) {
-      const long long at = static_cast<long long>(bh) * seq + qpos;
-      lse[at] = L[i];
-      delta[at] = dlt[i];
-    }
-  }
-
-  // Pass 2: dQ.
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  for (int k0 = k_first; k0 < k_hi; k0 += BK) {
-    __syncthreads();
-    for (int idx = tid; idx < BK * D4; idx += kThreads) {
-      const int j = idx / D4, d = (idx % D4) * 4;
-      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + j < seq) {
-        Io<T>::load4(k + k_base + (k0 + j) * k_row + d, kx);
-        Io<T>::load4(v + k_base + (k0 + j) * k_row + d, vx);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        Ks[(d + e) * KS + j] = kx[e];
-        Vs[(d + e) * KS + j] = vx[e];
-      }
-    }
-    __syncthreads();
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = dp[i][0] = dp[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + d * QS + 4 * ty);
-      const float4 gv = *reinterpret_cast<const float4*>(dOs + d * QS + 4 * ty);
-      const float k0v = Ks[d * KS + tx], k1v = Ks[d * KS + tx + 16];
-      const float v0v = Vs[d * KS + tx], v1v = Vs[d * KS + tx + 16];
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(qa[i], k0v, s[i][0]);
-        s[i][1] = fmaf(qa[i], k1v, s[i][1]);
-        dp[i][0] = fmaf(ga[i], v0v, dp[i][0]);
-        dp[i][1] = fmaf(ga[i], v1v, dp[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = tx + 16 * jj;
-        const bool ok = visible(qpos, k0 + j, seq, causal, window);
-        const float p = ok ? expf(s[i][jj] * scale - L[i]) : 0.f;
-        dSs[j * QS + 4 * ty + i] = p * (dp[i][jj] - dlt[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 dv4 = *reinterpret_cast<const float4*>(dSs + j * QS + 4 * ty);
-      const float da[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float kv = Ks[(tx + 16 * c) * KS + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(da[i], kv, acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    if (qpos >= seq) continue;
-    T* row = dq + q_base + qpos * q_row;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) Io<T>::store(row + tx + 16 * c,
-                                              acc[i][c] * scale);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq, int heads, int kv_heads,
-                     int causal, int window, float scale) {
-  constexpr int DC = D / 16;
-  constexpr int D4 = D / 4;
-  extern __shared__ float smem[];
-  float* Kt = smem;                // [D][KT]  K transposed
-  float* Vt = Kt + D * KT;         // [D][KT]  V transposed
-  float* Qt = Vt + D * KT;         // [D][QT]  Q transposed
-  float* dOt = Qt + D * QT;        // [D][QT]  dO transposed
-  float* Ps = dOt + D * QT;        // [BQB][KT]
-  float* dSs = Ps + BQB * KT;      // [BQB][KT]
-  float* Ls = dSs + BQB * KT;      // [BQB]
-  float* Ds = Ls + BQB;            // [BQB]
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;   // keys 4ty.., q rows tx, tx+16
-  const int bkh = blockIdx.x;
-  const int b = bkh / kv_heads, kh = bkh % kv_heads;
-  const int group = heads / kv_heads;
-  const int k0 = blockIdx.y * BKB;
-  const long long q_row = static_cast<long long>(heads) * D;
-  const long long k_row = static_cast<long long>(kv_heads) * D;
-  const long long k_base =
-      (static_cast<long long>(b) * seq * kv_heads + kh) * D;
-
-  for (int idx = tid; idx < BKB * D4; idx += kThreads) {
-    const int j = idx / D4, d = (idx % D4) * 4;
-    float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-    if (k0 + j < seq) {
-      Io<T>::load4(k + k_base + (k0 + j) * k_row + d, kx);
-      Io<T>::load4(v + k_base + (k0 + j) * k_row + d, vx);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      Kt[(d + e) * KT + j] = kx[e];
-      Vt[(d + e) * KT + j] = vx[e];
-    }
-  }
-
-  float adk[4][DC], adv[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) adk[r][c] = adv[r][c] = 0.f;
-
-  // q rows that see a key of [k0, k0 + BKB): from k0 when causal, below
-  // k0 + BKB - 1 + window with a window.
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(seq, k0 + BKB - 1 + window) : seq;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kh * group + hh;
-    const long long q_base =
-        (static_cast<long long>(b) * seq * heads + h) * D;
-    const long long stat = (static_cast<long long>(b) * heads + h) * seq;
-    for (int q0 = (q_lo / BQB) * BQB; q0 < q_hi; q0 += BQB) {
-      __syncthreads();  // the previous tile is done with Qt, dOt, Ps, dSs
-      for (int idx = tid; idx < BQB * D4; idx += kThreads) {
-        const int r = idx / D4, d = (idx % D4) * 4;
-        float x[4] = {0.f, 0.f, 0.f, 0.f}, g[4] = {0.f, 0.f, 0.f, 0.f};
-        if (q0 + r < seq) {
-          Io<T>::load4(q + q_base + (q0 + r) * q_row + d, x);
-          Io<T>::load4(dout + q_base + (q0 + r) * q_row + d, g);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          Qt[(d + e) * QT + r] = x[e];
-          dOt[(d + e) * QT + r] = g[e];
-        }
-      }
-      if (tid < BQB) {
-        const bool in = q0 + tid < seq;
-        Ls[tid] = in ? lse[stat + q0 + tid] : 0.f;
-        Ds[tid] = in ? delta[stat + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[4][2], dp[4][2];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float4 kv = *reinterpret_cast<const float4*>(Kt + d * KT + 4 * ty);
-        const float4 vv = *reinterpret_cast<const float4*>(Vt + d * KT + 4 * ty);
-        const float q0v = Qt[d * QT + tx], q1v = Qt[d * QT + tx + 16];
-        const float g0v = dOt[d * QT + tx], g1v = dOt[d * QT + tx + 16];
-        const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          s[r][0] = fmaf(ka[r], q0v, s[r][0]);
-          s[r][1] = fmaf(ka[r], q1v, s[r][1]);
-          dp[r][0] = fmaf(va[r], g0v, dp[r][0]);
-          dp[r][1] = fmaf(va[r], g1v, dp[r][1]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int kpos = k0 + 4 * ty + r;
-#pragma unroll
-        for (int ii = 0; ii < 2; ++ii) {
-          const int i = tx + 16 * ii;
-          const bool ok = visible(q0 + i, kpos, seq, causal, window);
-          const float p = ok ? expf(s[r][ii] * scale - Ls[i]) : 0.f;
-          Ps[i * KT + 4 * ty + r] = p;
-          dSs[i * KT + 4 * ty + r] = p * (dp[r][ii] - Ds[i]);
-        }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int i = 0; i < BQB; ++i) {
-        const float4 pv = *reinterpret_cast<const float4*>(Ps + i * KT + 4 * ty);
-        const float4 sv = *reinterpret_cast<const float4*>(dSs + i * KT + 4 * ty);
-        const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-        const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float gv = dOt[(tx + 16 * c) * QT + i];
-          const float qv = Qt[(tx + 16 * c) * QT + i];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            adv[r][c] = fmaf(pa[r], gv, adv[r][c]);
-            adk[r][c] = fmaf(sa[r], qv, adk[r][c]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kpos = k0 + 4 * ty + r;
-    if (kpos >= seq) continue;
-    const long long at = k_base + kpos * k_row;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      Io<T>::store(dk + at + tx + 16 * c, adk[r][c] * scale);
-      Io<T>::store(dv + at + tx + 16 * c, adv[r][c]);
-    }
-  }
-}
-
-template <typename T, int D>
-int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, void* dq, void* dk, void* dv,
-                 void* scratch, int batch, int seq, int heads, int kv_heads,
-                 int causal, int window, cudaStream_t stream) {
-  const int q_tiles = (seq + BQ - 1) / BQ, k_tiles = (seq + BKB - 1) / BKB;
-  if (q_tiles > 65535 || k_tiles > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int dq_bytes = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  constexpr int dkv_bytes =
-      dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto kdq = flash_bwd_dq_kernel<T, D>;
-  auto kdkv = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  float* lse = static_cast<float*>(scratch);
-  float* delta = lse + static_cast<long long>(batch) * heads * seq;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  kdq<<<dim3(batch * heads, q_tiles), kThreads, dq_bytes, stream>>>(
-      tq, tk, tv, static_cast<const T*>(o), tdo, static_cast<T*>(dq), lse,
-      delta, seq, heads, kv_heads, causal, window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kdkv<<<dim3(batch * kv_heads, k_tiles), kThreads, dkv_bytes, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      seq, heads, kv_heads, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -2213,6 +1609,1208 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// float32: tensor cores in split TF32
+// ---------------------------------------------------------------------------
+//
+// The float32 forward and backward of the function above, with the TPU
+// kernel's numerics: s = (q . k) scale, masked scores NEG_INF and
+// masked probabilities 0, float32 expf and row sums, acc / max(l, 1e-30),
+// rows and keys at or past S masked here, the kv head read in place.
+//
+// Bound on the card: at long sequences the products.  At qwen3-14b's
+// (4, 1024, 40/8, 128) causal the live pairs' products are 43.0 GFLOP
+// forward and 107.5 backward, 86.9 and 217.1 us at the 495 TFLOP/s of TF32
+// once (the split runs each three times); at the lm round's (960, 64, 4/2,
+// 64) the bytes: 189.7 MB forward and 378.5 MB backward, 56.6 and 113.0 us
+// at 3.35 TB/s.
+//
+// * The split.  wgmma reads TF32 operands from shared memory K-major only,
+//   so each tile arrives raw (cp.async, the next tile's copy in flight
+//   while this one's products run) and every thread of the block writes
+//   its hi and lo images under the 128-byte swizzle (Img), transposed where
+//   a product needs it: S = Q.K^T, dP = dO.V^T, S^T = K.Q^T and dP^T =
+//   V.dO^T read K, V, Q and dO as they arrive; P.V, dS.K, dS^T.Q and P^T.dO
+//   read V^T, K^T, Q^T and dO^T.  The block-resident operand of a product
+//   (Q in the forward, Q and dO in dQ, K and V in dK/dV) is its A, kept
+//   raw: its fragments are split in registers once for the block where
+//   they fit (F32Tiles), else a few k-steps ahead of the products.
+//   P and dS are A fragments split in registers, the keys of each 8
+//   permuted 0 2 4 6 1 3 5 7 in the transposed images so that the
+//   accumulator's columns are the fragment's k as they stand (frag_split).
+//   No kernel writes split images to global memory: at the lm round's
+//   S = 64 the function is bound by its bytes, which they would add to.
+// * Partial sums.  The tensor cores add into a float32 accumulator without
+//   rounding to nearest, so a sum that takes every k-step of a long
+//   contraction, or every tile of a walk, on the tensor cores drifts: in
+//   development builds that did, dK and dV, summed over every q-tile and
+//   q-head of a group, missed the backward's float32 limit at every head
+//   dim.  Here a few k-steps (mma_split_a, and the backward's dQ, dK and dV
+//   products in mma_frag_a_partial) go into a partial of their own, which
+//   is added to the running sum in float32.  The forward's O keeps its
+//   online softmax's one accumulator: its limit (2e-5) is far.
+// * Forward (flash_fwd_tf32): one block a (b, h, q-tile of 64 kWgs rows),
+//   the last q-tiles first; each warpgroup runs its 64 rows' S, online
+//   softmax and O += P.V on every live key tile.
+// * Backward, from the forward's L, no atomics (each output element summed
+//   by one thread of one block, so repeat calls give the same bits):
+//   flash_bwd_dq_tf32, one block a (b, h, 64-row q-tile), then
+//   flash_bwd_dkv_tf32, one block a (b, kv-head, 64-key tile) over the
+//   group's q-heads, each with two warpgroups on the same rows: one runs
+//   the score product and P, the other dP, then P and dS change hands
+//   through shared memory (named barriers) and the output products are
+//   shared: dQ's columns in halves; dV in one warpgroup, dK in the other.
+//   The scratch is delta, B x H x S floats, written by the dQ kernel.
+// * Tiles by head_dim (F32Tiles) fit shared memory: a 64-key tile beside
+//   Q's raw rows, the raw tile being copied and the images; a head_dim that
+//   would not fit gets a narrower tile (16 keys or q rows at 192, whose
+//   transposed images take the 64-byte swizzle).
+
+// v = hi + lo: hi = v rounded to TF32 (to nearest, ties away), lo the exact
+// rest, which the tensor cores read truncated to TF32.
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// 16 (4) bytes global -> shared by cp.async, zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Plain shared-memory stores become visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A float32 tile as it arrives (cp.async), row-major: rows of D floats with
+// the 16-byte chunk c of row r at c ^ (r % 8) within its group of 8 (reads
+// of a TF32 A fragment, eight rows at one column, then hit eight banks);
+// D = 16 rows are padded to 20 floats instead.
+template <int D>
+struct RawTile {
+  static constexpr int kLd = D >= 32 ? D : D + 4;
+  static __device__ __forceinline__ int at(int r, int k) {
+    if constexpr (D >= 32) {
+      const int c = k >> 2;
+      return r * D + (((c ^ r) & 7) | (c & ~7)) * 4 + (k & 3);
+    } else {
+      return r * kLd + k;
+    }
+  }
+  static constexpr int bytes(int rows) { return rows * kLd * 4; }
+};
+
+// A wgmma operand image in shared memory, K-major: R rows (M or N) of C
+// columns (K).  C a multiple of 32: slabs of 32 columns, 128-byte rows under
+// the 128-byte swizzle (the 16-byte chunk c of row r at c ^ (r % 8)); C =
+// 16: one slab of 64-byte rows under the 64-byte swizzle (chunk c at
+// c ^ (r / 2 % 4)).  A split operand has two, hi and lo.
+template <int R, int C>
+struct Img {
+  static_assert(R % 8 == 0 && (C == 16 || C % 32 == 0), "image shape");
+  static constexpr bool kWide = C % 32 == 0;
+  static constexpr int kSlab = R * (kWide ? 128 : 64);
+  static constexpr int kBytes = (kWide ? C / 32 : 1) * kSlab;
+  // Byte offset of the chunk holding columns 4c .. 4c + 3 of row r.
+  static __device__ __forceinline__ uint32_t chunk(int r, int c) {
+    if constexpr (kWide) {
+      return (c >> 3) * kSlab + r * 128 + (((c ^ r) & 7) << 4);
+    } else {
+      return r * 64 + (((c ^ (r >> 1)) & 3) << 4);
+    }
+  }
+  // Descriptor of k-step j (columns 8j .. 8j + 7): +32 bytes along the
+  // swizzled row, 8 rows a stride.
+  static __device__ __forceinline__ uint64_t desc(uint32_t base, int j) {
+    if constexpr (kWide) {
+      return sw128_desc(base + (j >> 2) * kSlab + (j & 3) * 32, 16, 1024);
+    } else {
+      const uint32_t addr = base + j * 32;
+      return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+             (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+    }
+  }
+};
+
+// d (64 x N, float32 fragment) = A . B (+ d if acc): A (64 x 8) a TF32
+// register fragment (as mma.m16n8k8's, one warp each 16 rows: a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), lane = 4 g + t), B (8 x
+// N) TF32 in shared memory, K-major (Img<N, K>).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<192>(float (&d)[96],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+// The rows [r0, r0 + R) of one head of a (B, S, heads, D) float32 tensor
+// (src: its row 0 at that (b, head); stride: heads * D) into a RawTile,
+// zeros at rows past S.
+template <int R, int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int r0, int seq,
+                                          int tid, int nthreads) {
+  for (int idx = tid; idx < R * D / 4; idx += nthreads) {
+    const int r = idx / (D / 4), c = idx % (D / 4);
+    const bool ok = r0 + r < seq;
+    cp_async16(dst + RawTile<D>::at(r, 4 * c),
+               ok ? src + (r0 + r) * stride + 4 * c : src, ok);
+  }
+}
+
+// The split images (hi, lo) of a RawTile's R rows x D columns as loaded:
+// Img<R, D>, image row r = raw row r.
+template <int R, int D>
+__device__ __forceinline__ void image_rows(const float* raw,
+                                           unsigned char* hi,
+                                           unsigned char* lo, int tid,
+                                           int nthreads) {
+  using I = Img<R, D>;
+  for (int idx = tid; idx < R * D / 4; idx += nthreads) {
+    const int r = idx / (D / 4), c = idx % (D / 4);
+    const float4 v =
+        *reinterpret_cast<const float4*>(raw + RawTile<D>::at(r, 4 * c));
+    uint4 h, l;
+    tf32_split(v.x, h.x, l.x);
+    tf32_split(v.y, h.y, l.y);
+    tf32_split(v.z, h.z, l.z);
+    tf32_split(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + I::chunk(r, c)) = h;
+    *reinterpret_cast<uint4*>(lo + I::chunk(r, c)) = l;
+  }
+}
+
+// The split images of a RawTile's transpose: Img<D, R>, image row d holds
+// raw column d, its columns the raw rows with each 8 permuted 0 2 4 6 1 3 5
+// 7, so that column 8j + t (t + 4) of the image is row 8j + 2t (+ 1): the
+// order in which a wgmma accumulator's columns become the k of a TF32 A
+// fragment (P, dS, their transposes).
+template <int R, int D>
+__device__ __forceinline__ void image_cols(const float* raw,
+                                           unsigned char* hi,
+                                           unsigned char* lo, int tid,
+                                           int nthreads) {
+  using I = Img<D, R>;
+  for (int idx = tid; idx < (R / 8) * D; idx += nthreads) {
+    const int d = idx % D, j0 = 8 * (idx / D);
+    uint32_t h[8], l[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      tf32_split(raw[RawTile<D>::at(j0 + e, d)], h[e], l[e]);
+    const int c = j0 / 4;
+    *reinterpret_cast<uint4*>(hi + I::chunk(d, c)) =
+        make_uint4(h[0], h[2], h[4], h[6]);
+    *reinterpret_cast<uint4*>(hi + I::chunk(d, c + 1)) =
+        make_uint4(h[1], h[3], h[5], h[7]);
+    *reinterpret_cast<uint4*>(lo + I::chunk(d, c)) =
+        make_uint4(l[0], l[2], l[4], l[6]);
+    *reinterpret_cast<uint4*>(lo + I::chunk(d, c + 1)) =
+        make_uint4(l[1], l[3], l[5], l[7]);
+  }
+}
+
+// This thread's TF32 A fragment of k-step j (columns 8j .. 8j + 7) of a
+// RawTile's 64 rows from row rw (this warp's 16 at rw + 16 warp), split.
+template <int D>
+__device__ __forceinline__ void raw_frag(const float* raw, int rw, int j,
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int ra = rw + 16 * warp + lane / 4, k = 8 * j + lane % 4;
+  tf32_split(raw[RawTile<D>::at(ra, k)], hi[0], lo[0]);
+  tf32_split(raw[RawTile<D>::at(ra + 8, k)], hi[1], lo[1]);
+  tf32_split(raw[RawTile<D>::at(ra, k + 4)], hi[2], lo[2]);
+  tf32_split(raw[RawTile<D>::at(ra + 8, k + 4)], hi[3], lo[3]);
+}
+
+// acc (64 x N) += A . B over KS k-steps in split TF32, B an image pair
+// (ImgB) at b_hi / b_lo, each k-step hi.lo, lo.hi, hi.hi.  The k-steps go
+// in groups of G, each group's products on the tensor cores into a partial
+// of its own (two, in turn), which is added to acc in float32 once the
+// group has landed, while the next group's products run.  A's fragments:
+// with kResident, ah / al hold all KS k-steps (split once for the block);
+// otherwise they are split from the RawTile's rows from rw a group ahead,
+// into two sets of G in turn.  Waits for the products before it returns.
+template <int N, int KS, int G, class ImgB, int D, bool kResident>
+__device__ __forceinline__ void mma_split_a(
+    float (&acc)[N / 2], uint32_t (&ah)[kResident ? KS : 2 * G][4],
+    uint32_t (&al)[kResident ? KS : 2 * G][4], const float* raw, int rw,
+    uint32_t b_hi, uint32_t b_lo) {
+  constexpr int kGroups = (KS + G - 1) / G;
+  float part[2][N / 2];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const int buf = g & 1;
+    // Slot of k-step j in ah / al.
+    auto slot = [&](int j) { return kResident ? j : buf * G + j % G; };
+    if constexpr (!kResident) {
+#pragma unroll
+      for (int j = g * G; j < g * G + G && j < KS; ++j)
+        raw_frag<D>(raw, rw, j, ah[slot(j)], al[slot(j)]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = g * G; j < g * G + G && j < KS; ++j) {
+      wgmma_tf32<N>(part[buf], ah[slot(j)], ImgB::desc(b_lo, j), j > g * G);
+      wgmma_tf32<N>(part[buf], al[slot(j)], ImgB::desc(b_hi, j), 1);
+      wgmma_tf32<N>(part[buf], ah[slot(j)], ImgB::desc(b_hi, j), 1);
+    }
+    wgmma_commit();
+    if (g > 0) {
+      wgmma_wait<1>();
+      reg_fence(part[buf ^ 1]);
+      if constexpr (!kResident) {
+        // The last group's fragments stay in their registers until its
+        // products have landed (the compiler must not reuse them sooner).
+#pragma unroll
+        for (int i = (buf ^ 1) * G; i < (buf ^ 1) * G + G; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            asm volatile("" : "+r"(ah[i][e]), "+r"(al[i][e])::"memory");
+      }
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] += part[buf ^ 1][i];
+    }
+  }
+  constexpr int last = (kGroups - 1) & 1;
+  wgmma_wait<0>();
+  reg_fence(part[last]);
+  reg_fence(ah);
+  reg_fence(al);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += part[last][i];
+}
+
+// A (64 x 8 KS) as split TF32 A fragments from a (64 x 8 KS) accumulator
+// fragment x: k-step j's a0..a3 are x's elements 4j, 4j + 2, 4j + 1,
+// 4j + 3 (columns 8j + 2t, 2t + 1 of rows g, g + 8), which the images of
+// image_cols meet with their 0 2 4 6 1 3 5 7 order.
+template <int KS>
+__device__ __forceinline__ void frag_split(const float (&x)[4 * KS],
+                                           uint32_t (&hi)[KS][4],
+                                           uint32_t (&lo)[KS][4]) {
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    tf32_split(x[4 * j], hi[j][0], lo[j][0]);
+    tf32_split(x[4 * j + 2], hi[j][1], lo[j][1]);
+    tf32_split(x[4 * j + 1], hi[j][2], lo[j][2]);
+    tf32_split(x[4 * j + 3], hi[j][3], lo[j][3]);
+  }
+}
+
+// acc (64 x N) += A . B, A split register fragments (frag_split), B an
+// image pair; one wgmma group, committed, not waited for.
+template <int N, int KS, class ImgB>
+__device__ __forceinline__ void mma_frag_a(float (&acc)[N / 2],
+                                           const uint32_t (&ah)[KS][4],
+                                           const uint32_t (&al)[KS][4],
+                                           uint32_t b_hi, uint32_t b_lo) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    wgmma_tf32<N>(acc, ah[j], ImgB::desc(b_lo, j), 1);
+    wgmma_tf32<N>(acc, al[j], ImgB::desc(b_hi, j), 1);
+    wgmma_tf32<N>(acc, ah[j], ImgB::desc(b_hi, j), 1);
+  }
+  wgmma_commit();
+}
+
+// acc (64 x N) += A . B as mma_frag_a, but the products go on the tensor
+// cores into a partial, S k-steps at a time, each added to acc in float32
+// once it has landed.  Waits for the products before it returns.
+template <int N, int KS, class ImgB, int S>
+__device__ __forceinline__ void mma_frag_a_partial(float (&acc)[N / 2],
+                                                   uint32_t (&ah)[KS][4],
+                                                   uint32_t (&al)[KS][4],
+                                                   uint32_t b_hi,
+                                                   uint32_t b_lo) {
+#pragma unroll
+  for (int j0 = 0; j0 < KS; j0 += S) {
+    float part[N / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = j0; j < j0 + S && j < KS; ++j) {
+      wgmma_tf32<N>(part, ah[j], ImgB::desc(b_lo, j), j > j0);
+      wgmma_tf32<N>(part, al[j], ImgB::desc(b_hi, j), 1);
+      wgmma_tf32<N>(part, ah[j], ImgB::desc(b_hi, j), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(ah);
+    reg_fence(al);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
+  }
+}
+
+// Tile shapes by head_dim, within the 232,448 bytes of shared memory a
+// block may opt into.
+// * Forward: kWgs warpgroups of 64 query rows share each key tile of kBK
+//   keys; kept are Q's rows (RawTile), the tile's K and V as they arrive,
+//   K's image pair and V^T's.  At D = 128 a 64-key tile does not fit beside
+//   128 rows of Q; at 192 a 16-key tile keeps the registers from spilling.
+// * dQ: two warpgroups on one 64-row q-tile, kDqBK keys a tile; Q and dO
+//   rows, the tile's K and V as they arrive, the K, V and K^T image pairs.
+// * dK/dV: two warpgroups on one 64-key tile, q-tiles of kBQ rows; K and V
+//   rows, the tile's Q and dO as they arrive and two slots of their L and
+//   delta, the Q, dO, Q^T and dO^T image pairs (230,912 bytes at D = 128).
+// * kAliasX: the backward's warpgroups hand P and dS over where an image
+//   pair was that no product reads any more, which holds 64 x 64 floats from
+//   D = 32; at D = 16 they get a buffer of their own.
+// kG, kFwdG: the k-steps of a contraction over D that go into one partial
+// (and, where A's fragments are split as they go, one group of them), in
+// the backward and the forward; kOutSteps: those of one partial of the
+// backward's output products.  The tensor cores cut their sums toward
+// zero, so a sum's error grows with the additions made into it: summed
+// straight into the running sums, dK and dV over a GQA group's q-rows miss
+// the backward's float32 limit (tests/test_torch_attention_ssd.py
+// emulates it).  Partials of 2 k-steps (6 tensor-core additions) hold the
+// backward within 0.9e-6 of float64 at every head_dim; partials of 4
+// reached 1.5e-6, as large as the plain float32 backward's own error,
+// which the check against it adds to (scripts/torch_flash_f32_variants.py).
+template <int D>
+struct F32Tiles {
+  static constexpr int kWgs = (D == 96 || D == 128) ? 2 : 1;
+  static constexpr int kBK = D == 192 ? 16 : D == 128 ? 32 : 64;
+  static constexpr int kDqBK = D <= 32 ? 64 : D == 192 ? 16 : 32;
+  static constexpr int kBQ = D <= 64 ? 64 : D == 192 ? 16 : 32;
+  static constexpr int kG = 2;
+  static constexpr int kFwdG = D >= 96 ? 2 : 4;
+  // Whether a backward warpgroup keeps its resident operand's fragments
+  // split in registers for the whole block (D / 8 k-steps, D registers a
+  // thread) instead of splitting them from its rows at every tile.
+  static constexpr bool kDqResident = D <= 128;
+  static constexpr bool kDkvResident = D <= 96;
+  static constexpr int kOutSteps = 2;
+  static constexpr bool kAliasX = D >= 32;
+  static constexpr int kFwdBytes =
+      1024 + RawTile<D>::bytes(64 * kWgs + 2 * kBK) +
+      2 * (Img<kBK, D>::kBytes + Img<D, kBK>::kBytes);
+  static constexpr int kDqBytes =
+      1024 + RawTile<D>::bytes(128 + 2 * kDqBK) +
+      2 * (2 * Img<kDqBK, D>::kBytes + Img<D, kDqBK>::kBytes) +
+      (kAliasX ? 0 : 2 * 4 * 64 * kDqBK);
+  static constexpr int kDkvBytes =
+      1024 + RawTile<D>::bytes(128 + 2 * kBQ) +
+      4 * (Img<kBQ, D>::kBytes + Img<D, kBQ>::kBytes) + 4 * 4 * kBQ +
+      (kAliasX ? 0 : 4 * 64 * kBQ);
+  static_assert(kFwdBytes <= 232448 && kDqBytes <= 232448 &&
+                    kDkvBytes <= 232448,
+                "over a block's shared memory");
+  static_assert(!kAliasX || (2 * Img<kBQ, D>::kBytes >= 4 * 64 * kBQ &&
+                             2 * Img<kDqBK, D>::kBytes >= 4 * 64 * kDqBK),
+                "P and dS do not fit where an image pair was");
+};
+
+// The shared-memory base rounded up to the 1024-byte swizzle period.
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// The live tiles [a, b) of width w among [t_lo, t_hi) for the 64 rows from
+// row_lo, and whether tile t needs the element mask for them: as
+// live_tiles and edge_tile, for any tile width.
+__device__ __forceinline__ void live_range(int row_lo, int t_lo, int t_hi,
+                                           int w, int seq, int causal,
+                                           int window, int& a, int& b) {
+  b = row_lo >= seq ? t_lo
+      : causal      ? min(t_hi, (row_lo + 63) / w + 1)
+                    : t_hi;
+  a = t_lo;
+  while (window && a < b && a * w + w - 1 <= row_lo - window) ++a;
+}
+__device__ __forceinline__ bool edge_of(int t, int w, int row_lo, int seq,
+                                        int causal, int window) {
+  const int k0 = t * w;
+  return (causal && k0 + w - 1 > row_lo) ||
+         (window && k0 <= row_lo + 63 - window) || k0 + w > seq ||
+         row_lo + 64 > seq;
+}
+
+// Forward: one block a (b, h, 64 kWgs-row q-tile), the last q-tiles first.
+// Per key tile: the tile lands (cp.async), every thread splits it into the
+// K and V^T images, then the next tile's copy starts while each warpgroup
+// runs S = Q.K^T (Q's fragments split from its rows), the online softmax
+// on S's fragment, and O += P.V (P split in registers).
+template <int D>
+__global__ void __launch_bounds__(128 * F32Tiles<D>::kWgs, 1)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int batch, int seq, int heads,
+               int kv_heads, int causal, int window, float scale) {
+  using T = F32Tiles<D>;
+  constexpr int BK = T::kBK, RQ = 64 * T::kWgs, NT = 128 * T::kWgs;
+  using KImg = Img<BK, D>;
+  using VImg = Img<D, BK>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* k_hi = smem_base(smem_raw);
+  unsigned char* k_lo = k_hi + KImg::kBytes;
+  unsigned char* v_hi = k_lo + KImg::kBytes;
+  unsigned char* v_lo = v_hi + VImg::kBytes;
+  float* qs = reinterpret_cast<float*>(v_lo + VImg::kBytes);
+  float* ks = qs + RQ * RawTile<D>::kLd;
+  float* vs = ks + BK * RawTile<D>::kLd;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int lane = tid % 32, warp = (tid % 128) / 32;
+  const int bh_count = batch * heads, q_tiles = (seq + RQ - 1) / RQ;
+  const int bh = blockIdx.x % bh_count;
+  const int b = bh / heads, h = bh % heads, kh = h / (heads / kv_heads);
+  const int q0 = (q_tiles - 1 - blockIdx.x / bh_count) * RQ;
+  const int k_first = window ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? min(seq, q0 + RQ) : seq;
+  const int t_lo = k_first / BK, t_hi = (k_end + BK - 1) / BK;
+  const long long q_row = static_cast<long long>(heads) * D;
+  const long long k_row = static_cast<long long>(kv_heads) * D;
+  const float* kb = k + (static_cast<long long>(b) * seq * kv_heads + kh) * D;
+  const float* vb = v + (static_cast<long long>(b) * seq * kv_heads + kh) * D;
+
+  load_rows<RQ, D>(qs, q + (static_cast<long long>(b) * seq * heads + h) * D,
+                   q_row, q0, seq, tid, NT);
+  load_rows<BK, D>(ks, kb, k_row, t_lo * BK, seq, tid, NT);
+  load_rows<BK, D>(vs, vb, k_row, t_lo * BK, seq, tid, NT);
+  cp_async_commit();
+
+  const int row_lo = q0 + 64 * wg;
+  const int qa = row_lo + 16 * warp + lane / 4, qb = qa + 8;
+  const int c0 = 2 * (lane % 4);
+  int a_live, b_live;
+  live_range(row_lo, t_lo, t_hi, BK, seq, causal, window, a_live, b_live);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    cp_async_wait_all();
+    __syncthreads();   // tile t has landed; tile t - 1's products are done
+    image_rows<BK, D>(ks, k_hi, k_lo, tid, NT);
+    image_cols<BK, D>(vs, v_hi, v_lo, tid, NT);
+    fence_proxy_async();
+    __syncthreads();   // the images are written; ks and vs are free
+    if (t + 1 < t_hi) {
+      load_rows<BK, D>(ks, kb, k_row, (t + 1) * BK, seq, tid, NT);
+      load_rows<BK, D>(vs, vb, k_row, (t + 1) * BK, seq, tid, NT);
+    }
+    cp_async_commit();
+    if (t < a_live || t >= b_live) continue;
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    uint32_t q_hi[2 * T::kFwdG][4], q_lo[2 * T::kFwdG][4];
+    mma_split_a<BK, D / 8, T::kFwdG, KImg, D, false>(
+        sc, q_hi, q_lo, qs, 64 * wg, smem_addr(k_hi), smem_addr(k_lo));
+    // The online softmax, in natural units: s = (q.k) scale, masked scores
+    // NEG_INF, p = exp(s - m) (0 where masked), l the thread's share of
+    // the denominator.  Element j: row (j & 2) ? qb : qa, key
+    // t BK + 8 (j / 4) + c0 + (j & 1).
+    const bool edge = edge_of(t, BK, row_lo, seq, causal, window);
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      sc[j] *= scale;
+      if (edge && !visible((j & 2) ? qb : qa, t * BK + 8 * (j / 4) + c0 +
+                                                  (j & 1),
+                           seq, causal, window))
+        sc[j] = kNegInf;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j)
+        if (((j >> 1) & 1) == r) mx = fmaxf(mx, sc[j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[r] = expf(m[r] - mx);
+      m[r] = mx;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int r = (j >> 1) & 1;
+      const float p = sc[j] == kNegInf ? 0.f : expf(sc[j] - m[r]);
+      sc[j] = p;
+      l[r] += p;
+    }
+    uint32_t p_hi[BK / 8][4], p_lo[BK / 8][4];
+    frag_split<BK / 8>(sc, p_hi, p_lo);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    mma_frag_a<D, BK / 8, VImg>(acc, p_hi, p_lo, smem_addr(v_hi),
+                                smem_addr(v_lo));
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(p_hi);
+    reg_fence(p_lo);
+  }
+
+  // Epilogue: the row's denominator over its four threads, acc / max(l,
+  // 1e-30), and with lse the row's logsumexp m + log l.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (lse != nullptr && c0 == 0) {
+    float* lrow = lse + static_cast<long long>(bh) * seq;
+    if (qa < seq) lrow[qa] = m[0] + logf(l[0]);
+    if (qb < seq) lrow[qb] = m[1] + logf(l[1]);
+  }
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  float* oa = o + (static_cast<long long>(b) * seq + qa) * q_row +
+              static_cast<long long>(h) * D + c0;
+  float* ob = oa + 8 * q_row;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (qa < seq)
+      *reinterpret_cast<float2*>(oa + 8 * i) =
+          make_float2(acc[4 * i] * inv[0], acc[4 * i + 1] * inv[0]);
+    if (qb < seq)
+      *reinterpret_cast<float2*>(ob + 8 * i) =
+          make_float2(acc[4 * i + 2] * inv[1], acc[4 * i + 3] * inv[1]);
+  }
+}
+
+// Rows qa and qb (qb = qa + 8) of a (64 x N) float32 fragment, times
+// scale, at pa and pb (each the row's column c0); a row flagged off is not
+// written.
+template <int N>
+__device__ __forceinline__ void store_rows_f32(float* pa, float* pb,
+                                               const float (&acc)[N / 2],
+                                               float scale, bool a_ok,
+                                               bool b_ok) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    if (a_ok)
+      *reinterpret_cast<float2*>(pa + 8 * i) =
+          make_float2(acc[4 * i] * scale, acc[4 * i + 1] * scale);
+    if (b_ok)
+      *reinterpret_cast<float2*>(pb + 8 * i) =
+          make_float2(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+  }
+}
+
+// Named barriers between the backward's two warpgroups (barrier 0 is
+// __syncthreads): one warpgroup arrives when what it wrote is ready, the
+// other waits for it.
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// A (64 x N) fragment handed from a thread of one warpgroup to the thread
+// of the same rank in the other, through shared memory: float4 chunk c of
+// thread t at [c][t], so that a warp's stores and loads are contiguous.
+template <int N>
+__device__ __forceinline__ void put_frag(float* buf, const float (&x)[N / 2],
+                                         int t) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c)
+    reinterpret_cast<float4*>(buf)[c * 128 + t] =
+        make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+}
+template <int N>
+__device__ __forceinline__ void get_frag(const float* buf, float (&x)[N / 2],
+                                         int t) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    const float4 v = reinterpret_cast<const float4*>(buf)[c * 128 + t];
+    x[4 * c] = v.x;
+    x[4 * c + 1] = v.y;
+    x[4 * c + 2] = v.z;
+    x[4 * c + 3] = v.w;
+  }
+}
+
+// (q) dQ: one block a (b, h, 64-row q-tile), the last q-tiles first, two
+// warpgroups on the same rows.  Warpgroup 1 forms delta = rowsum(dO o O)
+// of the rows into the scratch for the dK/dV kernel; warpgroup 0 reads L
+// from the forward's lse.  Per live key tile: all 256 threads split the
+// tile into the K, V and K^T images; then warpgroup 0 runs S = Q.K^T (Q's
+// fragments split from its rows) and P = exp(s scale - L) while
+// warpgroup 1 runs dP = dO.V^T; warpgroup 1 takes P (through shared
+// memory, where K's image was), forms dS = P (dP - delta) and hands it
+// back (where V's image was); each warpgroup then adds dS.K to its half of
+// dQ's columns.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ o,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ delta,
+                  float* __restrict__ dq, int batch, int seq, int heads,
+                  int kv_heads, int causal, int window, float scale) {
+  using T = F32Tiles<D>;
+  constexpr int BK = T::kDqBK;
+  using KImg = Img<BK, D>;
+  using KtImg = Img<D, BK>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* k_hi = smem_base(smem_raw);
+  unsigned char* k_lo = k_hi + KImg::kBytes;
+  unsigned char* v_hi = k_lo + KImg::kBytes;
+  unsigned char* v_lo = v_hi + KImg::kBytes;
+  unsigned char* kt_hi = v_lo + KImg::kBytes;
+  unsigned char* kt_lo = kt_hi + KtImg::kBytes;
+  float* qs = reinterpret_cast<float*>(kt_lo + KtImg::kBytes);
+  float* dos = qs + 64 * RawTile<D>::kLd;
+  float* ks = dos + 64 * RawTile<D>::kLd;
+  float* vs = ks + BK * RawTile<D>::kLd;
+  // P where K's image was, dS where V's was (each free once the product
+  // that reads it has landed), or after the raw tiles where an image pair
+  // is smaller than 64 x BK floats (D = 16).
+  float* x_p = T::kAliasX ? reinterpret_cast<float*>(k_hi)
+                          : vs + BK * RawTile<D>::kLd;
+  float* x_ds = T::kAliasX ? reinterpret_cast<float*>(v_hi) : x_p + 64 * BK;
+
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int lane = tid % 32, warp = t / 32;
+  const int bh_count = batch * heads, q_tiles = (seq + 63) / 64;
+  const int bh = blockIdx.x % bh_count;
+  const int b = bh / heads, h = bh % heads, kh = h / (heads / kv_heads);
+  const int q0 = (q_tiles - 1 - blockIdx.x / bh_count) * 64;
+  const int k_first = window ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? min(seq, q0 + 64) : seq;
+  int a_live, b_live;
+  live_range(q0, k_first / BK, (k_end + BK - 1) / BK, BK, seq, causal,
+             window, a_live, b_live);
+  const long long q_row = static_cast<long long>(heads) * D;
+  const long long k_row = static_cast<long long>(kv_heads) * D;
+  const long long q_base = (static_cast<long long>(b) * seq * heads + h) * D;
+  const float* kb = k + (static_cast<long long>(b) * seq * kv_heads + kh) * D;
+  const float* vb = v + (static_cast<long long>(b) * seq * kv_heads + kh) * D;
+
+  load_rows<64, D>(qs, q + q_base, q_row, q0, seq, tid, 256);
+  load_rows<64, D>(dos, dout + q_base, q_row, q0, seq, tid, 256);
+  if (a_live < b_live) {
+    load_rows<BK, D>(ks, kb, k_row, a_live * BK, seq, tid, 256);
+    load_rows<BK, D>(vs, vb, k_row, a_live * BK, seq, tid, 256);
+  }
+  cp_async_commit();
+
+  // This thread's fragment rows qa and qb: L (warpgroup 0), or delta over
+  // the row's four threads (float4 column groups lane % 4, + 4, ...),
+  // written for the dK/dV kernel (warpgroup 1).  Rows past S: neither is
+  // read.
+  const int qa = q0 + 16 * warp + lane / 4, qb = qa + 8;
+  const int c0 = 2 * (lane % 4);
+  float stat[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? qb : qa;
+    if (wg == 0) {
+      stat[r] = row < seq ? lse[static_cast<long long>(bh) * seq + row] : 0.f;
+      continue;
+    }
+    float d = 0.f;
+    if (row < seq) {
+      const long long at = q_base + row * q_row;
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i) {
+        const int col = 4 * (lane % 4 + 4 * i);
+        const float4 x = __ldg(reinterpret_cast<const float4*>(o + at + col));
+        const float4 y =
+            __ldg(reinterpret_cast<const float4*>(dout + at + col));
+        d = fmaf(x.x, y.x, d);
+        d = fmaf(x.y, y.y, d);
+        d = fmaf(x.z, y.z, d);
+        d = fmaf(x.w, y.w, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    stat[r] = d;
+    if (lane % 4 == 0 && row < seq)
+      delta[static_cast<long long>(bh) * seq + row] = d;
+  }
+
+  float acc[D / 4];   // this warpgroup's half of dQ's columns
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+  // Q's (warpgroup 0) or dO's (warpgroup 1) fragments: all D / 8 k-steps
+  // split once where they fit the registers, else two groups streamed.
+  constexpr int kSlots = T::kDqResident ? D / 8 : 2 * T::kG;
+  uint32_t a_hi[kSlots][4], a_lo[kSlots][4];
+  for (int tile = a_live; tile < b_live; ++tile) {
+    cp_async_wait_all();
+    __syncthreads();   // the tile has landed; the last one's products are done
+    image_rows<BK, D>(ks, k_hi, k_lo, tid, 256);
+    image_rows<BK, D>(vs, v_hi, v_lo, tid, 256);
+    image_cols<BK, D>(ks, kt_hi, kt_lo, tid, 256);
+    fence_proxy_async();
+    __syncthreads();   // the images are written; ks and vs are free
+    if (tile + 1 < b_live) {
+      load_rows<BK, D>(ks, kb, k_row, (tile + 1) * BK, seq, tid, 256);
+      load_rows<BK, D>(vs, vb, k_row, (tile + 1) * BK, seq, tid, 256);
+    }
+    cp_async_commit();
+    // Warpgroup 0: S = Q.K^T; warpgroup 1: dP = dO.V^T.
+    if constexpr (T::kDqResident) {
+      if (tile == a_live) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          raw_frag<D>(wg == 0 ? qs : dos, 0, j, a_hi[j], a_lo[j]);
+      }
+    }
+    float x[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) x[i] = 0.f;
+    mma_split_a<BK, D / 8, T::kG, KImg, D, T::kDqResident>(
+        x, a_hi, a_lo, wg == 0 ? qs : dos, 0,
+        smem_addr(wg == 0 ? k_hi : v_hi), smem_addr(wg == 0 ? k_lo : v_lo));
+    if (wg == 0) {
+      const bool edge = edge_of(tile, BK, q0, seq, causal, window);
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {   // element j: row (j & 2) ? qb : qa
+        const bool ok = !edge || visible((j & 2) ? qb : qa,
+                                         tile * BK + 8 * (j / 4) + c0 +
+                                             (j & 1),
+                                         seq, causal, window);
+        x[j] = ok ? expf(x[j] * scale - stat[(j >> 1) & 1]) : 0.f;
+      }
+      put_frag<BK>(x_p, x, t);
+      bar_arrive(1);
+      bar_wait(2);
+      get_frag<BK>(x_ds, x, t);
+    } else {
+      float p[BK / 2];
+      bar_wait(1);
+      get_frag<BK>(x_p, p, t);
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j)
+        x[j] = p[j] * (x[j] - stat[(j >> 1) & 1]);
+      put_frag<BK>(x_ds, x, t);
+      bar_arrive(2);
+    }
+    uint32_t ds_hi[BK / 8][4], ds_lo[BK / 8][4];
+    frag_split<BK / 8>(x, ds_hi, ds_lo);
+    const uint32_t half = wg * (D / 2) * (KtImg::kWide ? 128 : 64);
+    mma_frag_a_partial<D / 2, BK / 8, KtImg, T::kOutSteps>(
+        acc, ds_hi, ds_lo, smem_addr(kt_hi) + half, smem_addr(kt_lo) + half);
+  }
+  float* pa = dq + q_base + qa * q_row + wg * (D / 2) + c0;
+  store_rows_f32<D / 2>(pa, pa + 8 * q_row, acc, scale, qa < seq, qb < seq);
+}
+
+// (k) dK and dV: one block a (b, kv-head, 64-key tile), the first key tiles
+// first, two warpgroups on the same keys.  K and V stay; the block walks
+// the q-tiles of kBQ rows that see one of its keys (causal: from the
+// diagonal; window: below k0 + 63 + window), for each q-head of the group
+// in turn.  Per tile: its Q and dO land with their L and delta, all 256
+// threads split them into the Q, dO, Q^T and dO^T images; then warpgroup 0
+// runs S^T = K.Q^T (K's fragments split from its rows) and P^T while
+// warpgroup 1 runs dP^T = V.dO^T; warpgroup 0 hands P^T to warpgroup 1
+// through shared memory (where Q's image was) and adds P^T.dO to dV, while
+// warpgroup 1 forms dS^T = P^T (dP^T - delta) and adds dS^T.Q to dK.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int batch, int seq, int heads,
+                   int kv_heads, int causal, int window, float scale) {
+  using T = F32Tiles<D>;
+  constexpr int BQ = T::kBQ;
+  using QImg = Img<BQ, D>;
+  using QtImg = Img<D, BQ>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* q_hi = smem_base(smem_raw);
+  unsigned char* q_lo = q_hi + QImg::kBytes;
+  unsigned char* do_hi = q_lo + QImg::kBytes;
+  unsigned char* do_lo = do_hi + QImg::kBytes;
+  unsigned char* qt_hi = do_lo + QImg::kBytes;
+  unsigned char* qt_lo = qt_hi + QtImg::kBytes;
+  unsigned char* dot_hi = qt_lo + QtImg::kBytes;
+  unsigned char* dot_lo = dot_hi + QtImg::kBytes;
+  float* ks = reinterpret_cast<float*>(dot_lo + QtImg::kBytes);
+  float* vs = ks + 64 * RawTile<D>::kLd;
+  float* qs = vs + 64 * RawTile<D>::kLd;
+  float* dos = qs + BQ * RawTile<D>::kLd;
+  // L and delta of the tile's rows, two slots (tile n in slot n % 2), so
+  // that the next tile's copy does not overwrite the ones being read.
+  float* stat_s = dos + BQ * RawTile<D>::kLd;   // [2][L, delta][BQ]
+  // P^T where Q's image was (free once S^T has landed), or after the
+  // statistics where that image is smaller than 64 x BQ floats (D = 16).
+  float* x_p = T::kAliasX ? reinterpret_cast<float*>(q_hi) : stat_s + 4 * BQ;
+
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int lane = tid % 32, warp = t / 32;
+  const int group = heads / kv_heads, bkv_count = batch * kv_heads;
+  const int b = (blockIdx.x % bkv_count) / kv_heads;
+  const int kh = blockIdx.x % kv_heads;
+  const int k0 = (blockIdx.x / bkv_count) * 64;
+  const int qt_first = causal ? k0 / BQ : 0;
+  const int q_end = window ? min(seq, k0 + 63 + window) : seq;
+  const int tiles = (q_end + BQ - 1) / BQ - qt_first;
+  const int walk = group * tiles;
+  const long long q_row = static_cast<long long>(heads) * D;
+  const long long k_row = static_cast<long long>(kv_heads) * D;
+  const long long k_base =
+      (static_cast<long long>(b) * seq * kv_heads + kh) * D;
+
+  // Tile n: q-head kh * group + n / tiles, rows from q0_of(n).
+  auto q0_of = [&](int n) { return (qt_first + n % tiles) * BQ; };
+  auto load_tile = [&](int n) {
+    const int h = kh * group + n / tiles, q0 = q0_of(n);
+    const long long q_base =
+        (static_cast<long long>(b) * seq * heads + h) * D;
+    load_rows<BQ, D>(qs, q + q_base, q_row, q0, seq, tid, 256);
+    load_rows<BQ, D>(dos, dout + q_base, q_row, q0, seq, tid, 256);
+    const long long stat = (static_cast<long long>(b) * heads + h) * seq;
+    float* st = stat_s + (n & 1) * 2 * BQ;
+    for (int i = tid; i < BQ; i += 256) {
+      const bool ok = q0 + i < seq;
+      cp_async4(st + i, ok ? lse + stat + q0 + i : lse, ok);
+      cp_async4(st + BQ + i, ok ? delta + stat + q0 + i : delta, ok);
+    }
+  };
+  load_rows<64, D>(ks, k + k_base, k_row, k0, seq, tid, 256);
+  load_rows<64, D>(vs, v + k_base, k_row, k0, seq, tid, 256);
+  load_tile(0);
+  cp_async_commit();
+
+  const int ka = k0 + 16 * warp + lane / 4, kb = ka + 8;  // fragment rows
+  const int c0 = 2 * (lane % 4);
+  float acc[D / 2];   // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // K's (warpgroup 0) or V's (warpgroup 1) fragments: all D / 8 k-steps
+  // split once where they fit the registers, else two groups streamed.
+  constexpr int kSlots = T::kDkvResident ? D / 8 : 2 * T::kG;
+  uint32_t a_hi[kSlots][4], a_lo[kSlots][4];
+  if constexpr (T::kDkvResident) {
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      raw_frag<D>(wg == 0 ? ks : vs, 0, j, a_hi[j], a_lo[j]);
+  }
+  for (int n = 0; n < walk; ++n) {
+    const int q0 = q0_of(n);
+    cp_async_wait_all();
+    __syncthreads();   // tile n has landed; tile n - 1's products are done
+    image_rows<BQ, D>(qs, q_hi, q_lo, tid, 256);
+    image_rows<BQ, D>(dos, do_hi, do_lo, tid, 256);
+    image_cols<BQ, D>(qs, qt_hi, qt_lo, tid, 256);
+    image_cols<BQ, D>(dos, dot_hi, dot_lo, tid, 256);
+    fence_proxy_async();
+    __syncthreads();   // the images are written; qs and dos are free
+    if (n + 1 < walk) load_tile(n + 1);
+    cp_async_commit();
+    const float* lt = stat_s + (n & 1) * 2 * BQ;   // L, then delta
+    // Warpgroup 0: S^T = K.Q^T; warpgroup 1: dP^T = V.dO^T.
+    float x[BQ / 2];
+#pragma unroll
+    for (int j = 0; j < BQ / 2; ++j) x[j] = 0.f;
+    mma_split_a<BQ, D / 8, T::kG, QImg, D, T::kDkvResident>(
+        x, a_hi, a_lo, wg == 0 ? ks : vs, 0,
+        smem_addr(wg == 0 ? q_hi : do_hi), smem_addr(wg == 0 ? q_lo : do_lo));
+    if (wg == 0) {
+      // Whether a (q, key) pair of the tile is hidden: past the diagonal,
+      // before the window, or past S.
+      const bool edge = (causal && q0 < k0 + 63) ||
+                        (window && q0 + BQ - 1 >= k0 + window) ||
+                        q0 + BQ > seq || k0 + 64 > seq;
+      // P^T = exp(s scale - L).  Element j: key row (j & 2) ? kb : ka, q
+      // column q0 + 8 (j / 4) + c0 + (j & 1).
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) {
+        const int i = 8 * (j / 4) + c0 + (j & 1);
+        const bool ok = !edge || visible(q0 + i, (j & 2) ? kb : ka, seq,
+                                         causal, window);
+        x[j] = ok ? expf(x[j] * scale - lt[i]) : 0.f;
+      }
+      put_frag<BQ>(x_p, x, t);
+      bar_arrive(1);
+    } else {
+      // dS^T = P^T (dP^T - delta).
+      float p[BQ / 2];
+      bar_wait(1);
+      get_frag<BQ>(x_p, p, t);
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j)
+        x[j] = p[j] * (x[j] - lt[BQ + 8 * (j / 4) + c0 + (j & 1)]);
+    }
+    // dV += P^T.dO (warpgroup 0), dK += dS^T.Q (warpgroup 1).
+    uint32_t x_hi[BQ / 8][4], x_lo[BQ / 8][4];
+    frag_split<BQ / 8>(x, x_hi, x_lo);
+    mma_frag_a_partial<D, BQ / 8, QtImg, T::kOutSteps>(
+        acc, x_hi, x_lo, smem_addr(wg == 0 ? dot_hi : qt_hi),
+        smem_addr(wg == 0 ? dot_lo : qt_lo));
+  }
+  float* pa = (wg == 0 ? dv : dk) + k_base + ka * k_row + c0;
+  store_rows_f32<D>(pa, pa + 8 * k_row, acc, wg == 0 ? 1.f : scale,
+                    ka < seq, kb < seq);
+}
+
+// The float32 forward: one launch.
+template <int D>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int batch, int seq, int heads, int kv_heads,
+                   int causal, int window, cudaStream_t stream) {
+  using T = F32Tiles<D>;
+  auto kern = flash_fwd_tf32<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kFwdBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = 64 * T::kWgs;
+  const long long blocks =
+      static_cast<long long>(batch) * heads * ((seq + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<static_cast<int>(blocks), 128 * T::kWgs, T::kFwdBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, batch, seq,
+      heads, kv_heads, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 backward: dQ (which writes delta to the scratch), then dK/dV,
+// in order on the stream.
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* o, const float* lse, const void* dout,
+                   void* dq, void* dk, void* dv, float* delta, int batch,
+                   int seq, int heads, int kv_heads, int causal, int window,
+                   cudaStream_t stream) {
+  using T = F32Tiles<D>;
+  auto kdq = flash_bwd_dq_tf32<D>;
+  auto kdkv = flash_bwd_dkv_tf32<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDqBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDkvBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (seq + 63) / 64;
+  const long long dq_blocks = static_cast<long long>(batch) * heads * tiles;
+  const long long dkv_blocks =
+      static_cast<long long>(batch) * kv_heads * tiles;
+  if (dq_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
+  kdq<<<static_cast<int>(dq_blocks), 256, T::kDqBytes, stream>>>(
+      tq, tk, tv, static_cast<const float*>(o), tdo, lse, delta,
+      static_cast<float*>(dq), batch, seq, heads, kv_heads, causal, window,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdkv<<<static_cast<int>(dkv_blocks), 256, T::kDkvBytes, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), batch, seq, heads, kv_heads, causal, window,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dout, void* dq, void* dk,
                void* dv, void* scratch, int batch, int seq, int heads,
@@ -2242,27 +2840,27 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
     }
 #undef REPRO_BWD_BF16
   }
-#define REPRO_BWD(D)                                                        \
-  return launch_bwd_d<float, D>(q, k, v, o, dout, dq, dk, dv, scratch,     \
-                                batch, seq, heads, kv_heads, causal, window, \
-                                s)
+#define REPRO_BWD_F32(D)                                                   \
+  return launch_bwd_f32<D>(q, k, v, o, lse, dout, dq, dk, dv,              \
+                           static_cast<float*>(scratch), batch, seq, heads, \
+                           kv_heads, causal, window, s)
   switch (head_dim) {
     case 16:
-      REPRO_BWD(16);
+      REPRO_BWD_F32(16);
     case 32:
-      REPRO_BWD(32);
+      REPRO_BWD_F32(32);
     case 64:
-      REPRO_BWD(64);
+      REPRO_BWD_F32(64);
     case 96:
-      REPRO_BWD(96);
+      REPRO_BWD_F32(96);
     case 128:
-      REPRO_BWD(128);
+      REPRO_BWD_F32(128);
     case 192:
-      REPRO_BWD(192);
+      REPRO_BWD_F32(192);
     default:
       break;
   }
-#undef REPRO_BWD
+#undef REPRO_BWD_F32
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -2289,28 +2887,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch_bf16<192>(q, k, v, o, lse, batch, seq, heads, kv_heads,
                               causal, window, s);
   } else {
+#define REPRO_FWD_F32(D)                                                   \
+  return launch_fwd_f32<D>(q, k, v, o, lse, batch, seq, heads, kv_heads,  \
+                           causal, window, s)
     switch (head_dim) {
       case 16:
-        return launch_f32<16>(q, k, v, o, lse, batch, seq, heads, kv_heads,
-                              causal, window, s);
+        REPRO_FWD_F32(16);
       case 32:
-        return launch_f32<32>(q, k, v, o, lse, batch, seq, heads, kv_heads,
-                              causal, window, s);
+        REPRO_FWD_F32(32);
       case 64:
-        return launch_f32<64>(q, k, v, o, lse, batch, seq, heads, kv_heads,
-                              causal, window, s);
+        REPRO_FWD_F32(64);
       case 96:
-        return launch_f32<96>(q, k, v, o, lse, batch, seq, heads, kv_heads,
-                              causal, window, s);
+        REPRO_FWD_F32(96);
       case 128:
-        return launch_f32<128>(q, k, v, o, lse, batch, seq, heads, kv_heads,
-                               causal, window, s);
+        REPRO_FWD_F32(128);
       case 192:
-        return launch_f32<192>(q, k, v, o, lse, batch, seq, heads, kv_heads,
-                               causal, window, s);
+        REPRO_FWD_F32(192);
       default:
         break;
     }
+#undef REPRO_FWD_F32
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -2341,27 +2937,28 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                       causal, window, stream);
 }
 
-// Bytes of scratch the backward needs for these shapes: two floats a row
-// of B x H x S (each row's logsumexp, then delta), the rows padded to the
-// bf16 dK/dV kernel's 64-row q-tile in bfloat16.
+// Bytes of scratch the backward needs for these shapes: bfloat16, two
+// floats a row of B x H x S (each row's logsumexp in log2 units, then
+// delta), the rows padded to the dK/dV kernel's 64-row q-tile; float32, one
+// (delta).
 extern "C" long long repro_flash_attention_bwd_scratch_bytes(int batch,
                                                              int seq,
                                                              int heads,
                                                              int bf16) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-  return 2LL * 4 * batch * heads * (bf16 ? padded_rows(seq) : seq);
+  return bf16 ? 2LL * 4 * batch * heads * padded_rows(seq)
+              : 4LL * batch * heads * seq;
 }
 
-// The float32 backward pair (two launches on the stream), with its
-// scratch; it recomputes each row's logsumexp.  Returns as above.
+// The float32 backward (two launches on the stream) from the forward's lse
+// (B x H x S floats), with its scratch.  Returns as above.
 extern "C" int repro_flash_attention_f32_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* scratch, int batch,
-    int seq, int heads, int kv_heads, int head_dim, int causal, int window,
-    void* stream) {
-  return launch_bwd(q, k, v, o, nullptr, dout, dq, dk, dv, scratch, batch,
-                    seq, heads, kv_heads, head_dim, causal, window, false,
-                    stream);
+    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* scratch, int batch, int seq, int heads, int kv_heads, int head_dim,
+    int causal, int window, void* stream) {
+  return launch_bwd(q, k, v, o, lse, dout, dq, dk, dv, scratch, batch, seq,
+                    heads, kv_heads, head_dim, causal, window, false, stream);
 }
 
 // The bfloat16 backward (two launches on the stream) from the forward's

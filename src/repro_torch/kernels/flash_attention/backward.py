@@ -5,15 +5,17 @@ The reference has no TPU kernel here: ``jax.grad`` differentiates the XLA
 attention it trains with (``repro/models/layers.py:_sdpa``).  The plain
 backward materialises the (S × S) score and probability matrices of every
 head; the kernels keep them in shared memory and registers a tile at a
-time.  bfloat16 runs two kernels on the tensor cores from the forward's
-row logsumexp L: dQ a (b, h, 128-row q-tile), which also writes L in log2
-units and Δ = rowsum(dO∘O) to a scratch (sized by the library) whose rows
-are padded to the dK/dV kernel's q-tile, then dK/dV a (b, kv-head,
-128-key tile) over the q-heads of its group.  float32 runs the CUDA-core
-pair, which recomputes L itself.  Both take the forward's head_dims
-(``BWD_HEAD_DIMS`` is ``HEAD_DIMS``): 64, 96, 128 and 192 in bf16, 16 to 192
-in float32.  The source note says what bounds them and how head_dim 96 and
-192 fit the tensor-core pair's shared memory and registers.
+time.  Both dtypes run two kernels on the tensor cores from the forward's
+row logsumexp L.  bfloat16: dQ a (b, h, 128-row q-tile), which also writes
+L in log2 units and Δ = rowsum(dO∘O) to a scratch (sized by the library)
+whose rows are padded to the dK/dV kernel's q-tile, then dK/dV a (b,
+kv-head, 128-key tile) over the q-heads of its group.  float32, in split
+TF32: dQ a (b, h, 64-row q-tile), which writes Δ to the scratch, then dK/dV
+a (b, kv-head, 64-key tile), each block two warpgroups that share a tile's
+products.  Both take the forward's head_dims (``BWD_HEAD_DIMS`` is
+``HEAD_DIMS``): 64, 96, 128 and 192 in bf16, 16 to 192 in float32.  The
+source note says what bounds them and how each head_dim fits the kernels'
+shared memory and registers.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, window: int):
     """q/o/do (B, S, H, D), k/v (B, S, KV, D), one dtype (float32 or
     bfloat16) on one CUDA device, and the forward's ``lse`` (B, H, S)
-    float32 -> (dq, dk, dv) in that dtype.  The float32 pair recomputes L
-    and does not read ``lse``.  Raises on what the kernels do not take."""
+    float32 -> (dq, dk, dv) in that dtype.  Raises on what the kernels do
+    not take."""
     ts = (q, k, v, o, do)
     if q.dtype not in _ENTRY or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"need float32 or bfloat16 tensors of one dtype; got "
@@ -67,14 +69,10 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dtype=torch.uint8, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tail = (b, s, h, kvh, d, int(causal), window, stream)
-    if bf16:
-        err = lib.repro_flash_attention_bf16_bwd(
-            *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
-                                     scratch)), *tail)
-    else:
-        err = lib.repro_flash_attention_f32_bwd(
-            *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, scratch)),
-            *tail)
+    entry = (lib.repro_flash_attention_bf16_bwd if bf16
+             else lib.repro_flash_attention_f32_bwd)
+    err = entry(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                         scratch)), *tail)
     check_launch("flash_attention backward", err)
     global launches
     launches += 1

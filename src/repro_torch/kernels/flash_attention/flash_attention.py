@@ -3,12 +3,13 @@ softmax: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention
 (body ``_flash_kernel``).  bfloat16 runs on the tensor cores (wgmma, TMA) at
-head_dim 64, 96, 128 and 192, float32 on the CUDA cores at head_dim 16, 32,
-64, 96, 128 and 192.  ``causal=False`` (the audio encoder's bidirectional
-attention) masks only the keys past S.  The source note in the .cu file
-says what bounds the kernel on the card, how the TPU's sequential key-block
-grid axis became a loop inside one CUDA block, and why the bf16 kernel
-splits P in two.
+head_dim 64, 96, 128 and 192, float32 on the tensor cores in split TF32
+(each operand hi + lo, three TF32 products) at head_dim 16, 32, 64, 96, 128
+and 192.  ``causal=False`` (the audio encoder's bidirectional attention)
+masks only the keys past S.  The source note in the .cu file says what
+bounds the kernels on the card, how the TPU's sequential key-block grid axis
+became a loop inside one CUDA block, why the bf16 kernel splits P in two and
+why the float32 kernels split every operand.
 """
 from __future__ import annotations
 

@@ -385,6 +385,211 @@ def test_ssd_design_needs_the_tf32_split(decaying):
     assert split < SSD_TOL / 2
 
 
+# The float32 CUDA kernels' arithmetic (csrc/flash_attention.cu), emulated on
+# the CPU with the tiles, partial sums and order of summation the kernels use
+# at head_dim 16 and 64: the forward's online softmax over 64-key tiles, its
+# S = Q.K^T in partials of 4 k-steps and P.V straight into the output's
+# running sum; then the backward from the forward's L: S and dP = dO.V^T in
+# partials of 2 k-steps, dQ = dS.K over the keys, and dK = dS^T.Q and
+# dV = P^T.dO over the q-rows of the group's heads, head by head and tile by
+# tile, each output product in partials of ``out_steps`` k-steps (None:
+# straight into the running sum).  Every product is split TF32
+# (hi.lo, lo.hi, hi.hi, in that order, each a k-step of 8) or one TF32 pass.
+# The tensor cores' additions follow the model Fasi, Higham, Mikaitis and
+# Pranesh (2021, "Numerical behavior of NVIDIA tensor cores") measured on
+# NVIDIA's parts: the products exact, every term of a k-step's sum (the 8
+# products and the running sum) aligned to the largest one's exponent and cut
+# toward zero 3 bits below float32's last, the sum cut toward zero to
+# float32.  A partial is added to its running sum in float32, to nearest.
+# Held against a float64 plain version to the limits chip_smoke.py holds the
+# kernels to: the forward within FLASH_F32_TOL (1 + |want|), each gradient
+# within BWD_TOL_F32 of its largest magnitude.
+FLASH_F32_TOL = 2e-5
+BWD_TOL_F32 = 2.5e-6
+
+
+def _rz_f32(x):
+    """float64 x cut toward zero to float32."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tc_step(c, a, b):
+    """c (..., M, N) float32 + a (..., M, 8) . b (..., 8, N), TF32 operands,
+    added as the tensor cores add one k-step."""
+    t = a.double()[..., :, :, None] * b.double()[..., None, :, :]
+    c = c.double()
+    top = torch.maximum(t.abs().amax(-2), c.abs())
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 27)
+    return _rz_f32((torch.trunc(t / ulp[..., None, :]).sum(-2)
+                    + torch.trunc(c / ulp)) * ulp)
+
+
+def _tc_mm(a, b, split, steps, acc=None):
+    """acc + a @ b on the tensor cores, a (..., M, K) and b (..., K, N)
+    float32, K a multiple of 8, in partials of ``steps`` k-steps (None:
+    straight into acc)."""
+    if split:
+        ah, bh = _tf32_round(a), _tf32_round(b)
+        prods = [(ah, _tf32_trunc(b - bh)), (_tf32_trunc(a - ah), bh),
+                 (ah, bh)]
+    else:
+        prods = [(_tf32_round(a), _tf32_round(b))]
+    if acc is None:
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    part = acc if steps is None else torch.zeros_like(acc)
+    ks = a.shape[-1] // 8
+    for j in range(ks):
+        for x, y in prods:
+            part = _tc_step(part, x[..., 8 * j:8 * j + 8],
+                            y[..., 8 * j:8 * j + 8, :])
+        if steps is not None and ((j + 1) % steps == 0 or j + 1 == ks):
+            acc, part = acc + part, torch.zeros_like(acc)
+    return part if steps is None else acc
+
+
+def _pad_to(x, dim, m):
+    """x with zeros appended along ``dim`` to a multiple of m."""
+    shape = list(x.shape)
+    shape[dim] = -shape[dim] % m
+    return torch.cat([x, torch.zeros(shape, dtype=x.dtype)], dim)
+
+
+def _emulated_f32_flash(q, k, v, do, causal, window, *, split,
+                        out_steps=(2,)):
+    """q/do (B, S, H, D), k/v (B, S, KV, D) float32, D 16 or 64 ->
+    (o, {n: (dq, dk, dv) with output products in partials of n k-steps})."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    rep, scale = h // kvh, np.float32(1 / np.sqrt(d))
+    dq_bk = 64 if d <= 32 else 32          # F32Tiles' kDqBK; kBK, kBQ 64
+    qh, doh = (x.transpose(1, 2) for x in (q, do))
+    kh, vh = (x.transpose(1, 2) for x in (k, v))
+    kr, vr = (x.repeat_interleave(rep, 1) for x in (kh, vh))
+    i, j = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    ok = (j <= i) if causal else torch.ones(s, s, dtype=torch.bool)
+    if window:
+        ok = ok & (j > i - window)
+    neg = torch.tensor(-1e30)
+
+    kp, vp, okp = _pad_to(kr, 2, 64), _pad_to(vr, 2, 64), _pad_to(ok, 1, 64)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros(qh.shape)
+    for k0 in range(0, kp.shape[2], 64):
+        okt = okp[:, k0:k0 + 64]
+        sc = torch.where(okt, _tc_mm(qh, kp[:, :, k0:k0 + 64].transpose(
+            -1, -2), split, 4) * scale, neg)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(okt, torch.exp(sc - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = _tc_mm(p, vp[:, :, k0:k0 + 64], split, None, acc * alpha)
+        m = m_new
+    o = acc * (1 / l.clamp_min(1e-30))
+    lse = m + torch.log(l)
+    delta = (doh * o).sum(-1, keepdim=True)
+
+    # dQ: a q-row's keys, tile by tile.
+    kq, vq = _pad_to(kr, 2, dq_bk), _pad_to(vr, 2, dq_bk)
+    okq = _pad_to(ok, 1, dq_bk)
+    p = torch.where(okq, torch.exp(
+        _tc_mm(qh, kq.transpose(-1, -2), split, 2) * scale - lse), 0.0)
+    ds = p * (_tc_mm(doh, vq.transpose(-1, -2), split, 2) - delta)
+
+    # dK/dV: a key's q-rows, the group's heads in turn, 64-row tiles.
+    def rows(x):
+        x = _pad_to(x, 2, 64)
+        return x.reshape(b, kvh, rep * x.shape[2], x.shape[-1])
+    qc, doc, lc, dc = rows(qh), rows(doh), rows(lse), rows(delta)
+    okc = _pad_to(ok.T, 1, 64).repeat(1, rep)
+    pt = torch.where(okc, torch.exp(_tc_mm(kh, qc.transpose(-1, -2), split, 2)
+                                    * scale - lc.transpose(-1, -2)), 0.0)
+    dst = pt * (_tc_mm(vh, doc.transpose(-1, -2), split, 2)
+                - dc.transpose(-1, -2))
+    grads = {n: (_tc_mm(ds, kq, split, n) * scale,
+                 _tc_mm(dst, qc, split, n) * scale,
+                 _tc_mm(pt, doc, split, n)) for n in out_steps}
+    return o.transpose(1, 2), {n: tuple(g.transpose(1, 2) for g in gs)
+                               for n, gs in grads.items()}
+
+
+def _f32_design_errors(q, k, v, do, causal, window, *, split, out_steps):
+    """The emulated kernels' forward error against float64 (of 1 + |o|) and
+    each ``out_steps``'s worst gradient error (of max |grad|)."""
+    o64 = gqa_attention_ref(q.double(), k.double(), v.double(), causal,
+                            window)
+    g64 = gqa_attention_bwd_ref(q.double(), k.double(), v.double(), o64,
+                                do.double(), causal, window)
+    o, grads = _emulated_f32_flash(q, k, v, do, causal, window, split=split,
+                                   out_steps=out_steps)
+    fwd = ((o.double() - o64).abs() / (1 + o64.abs())).max().item()
+    bwd = {n: max(((g.double() - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(gs, g64)) for n, gs in grads.items()}
+    return o, fwd, bwd
+
+
+def _f32_design_inputs(b, s, h, kvh, d, seed):
+    q, k, v = (_t(a) for a in _qkv((b, s, h, d), seed=seed,
+                                   kv_shape=(b, s, kvh, d)))
+    do = _t(np.random.default_rng(d).standard_normal((b, s, h, d))
+            .astype(np.float32))
+    return q, k, v, do
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for torch: the tensors are small, and the suite
+    runs several test processes whose thread pools share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 9)])
+def test_f32_flash_design_needs_the_tf32_split(one_torch_thread, d, causal,
+                                               window):
+    """S = 77 (no multiple of the 64-key tile), 4 q-heads over 2 kv-heads:
+    the split holds both float32 limits, one TF32 pass misses both."""
+    q, k, v, do = _f32_design_inputs(2, 77, 4, 2, d, seed=d + window)
+    errs = {}
+    for split in (True, False):
+        o, fwd, bwd = _f32_design_errors(q, k, v, do, causal, window,
+                                         split=split, out_steps=(2,))
+        errs[split] = (fwd, bwd[2])
+        if split:
+            o_split = o
+        print(f"D={d} window={window} {'split' if split else 'one pass'}: "
+              f"forward {fwd:.2e} (limit {FLASH_F32_TOL:.0e}), backward "
+              f"{bwd[2]:.2e} of max |grad| (limit {BWD_TOL_F32:.1e})")
+    assert errs[True][0] <= FLASH_F32_TOL and errs[True][1] <= BWD_TOL_F32
+    assert errs[False][0] > FLASH_F32_TOL and errs[False][1] > BWD_TOL_F32
+    if d == 16 and not window:
+        # The emulated forward against the reference's Pallas kernel.
+        bh = lambda x: x.transpose(1, 2).reshape(8, 77, d)  # noqa: E731
+        rep = lambda x: x.repeat_interleave(2, 2)  # noqa: E731
+        ref = jflash(*(jnp.asarray(bh(x).numpy()) for x in (q, rep(k),
+                                                            rep(v))),
+                     causal=True, block_q=16, block_k=16, interpret=True)
+        _close(bh(o_split), ref, FLASH_F32_TOL)
+
+
+def test_f32_flash_backward_needs_partial_sums(one_torch_thread):
+    """A GQA group of 8 at S = 160, causal, head_dim 16: dK and dV each sum
+    1,280 q-rows.  With the output products in partials of 2 k-steps (the
+    kernels' kOutSteps) the emulated backward holds BWD_TOL_F32; summed
+    straight into the running sums on the tensor cores, it misses it."""
+    q, k, v, do = _f32_design_inputs(1, 160, 8, 1, 16, seed=29)
+    _, _, bwd = _f32_design_errors(q, k, v, do, True, 0, split=True,
+                                   out_steps=(2, None))
+    print(f"partials of 2 k-steps {bwd[2]:.2e}, straight {bwd[None]:.2e} of "
+          f"max |grad| (limit {BWD_TOL_F32:.1e})")
+    assert bwd[2] <= BWD_TOL_F32 < bwd[None]
+
+
 def test_ssd_design_sums_each_decay_exponent_directly():
     # With a strong decay, exp(cum_t - cum_s) from two running sums cancels
     # in float32: at chunk 64 it misses the limit, the direct sums do not.

@@ -127,7 +127,9 @@ def test_weighted_agg_kernel_matches(cuda, n):
 
 @pytest.mark.parametrize("bh,s,d,dtype,window", [
     (8, 77, 64, torch.float32, 0), (4, 200, 128, torch.float32, 50),
-    (16, 256, 128, torch.bfloat16, 0), (16, 256, 64, torch.bfloat16, 64)])
+    (16, 256, 128, torch.bfloat16, 0), (16, 256, 64, torch.bfloat16, 64),
+    (6, 333, 16, torch.float32, 0), (6, 333, 32, torch.float32, 40),
+    (6, 333, 96, torch.float32, 0), (6, 333, 192, torch.float32, 40)])
 def test_flash_kernel_matches_plain_version(cuda, bh, s, d, dtype, window):
     q, k, v = (_randn((bh, s, d), s + i, cuda).to(dtype) for i in range(3))
     got = flash_attention(q, k, v, window=window).float()
@@ -303,7 +305,7 @@ def test_bf16_flash_kernel_edges(cuda, bh, s, d, causal, window):
 
 # head_dim 192 (nemotron-4-340b), three 64-column slabs of the bf16 kernel:
 # causal, windowed, without the mask, at an S of no multiple of either tile;
-# float32 on the CUDA cores likewise.
+# float32 (the tensor-core kernels in split TF32) likewise.
 @pytest.mark.parametrize("bh,s,dtype,causal,window", [
     (8, 1000, torch.bfloat16, True, 0), (8, 1000, torch.bfloat16, True, 256),
     (8, 77, torch.bfloat16, False, 0), (4, 333, torch.bfloat16, True, 40),
@@ -338,7 +340,7 @@ def test_gqa_kernel_at_head_dim_192_group_of_12(cuda, dtype):
 
 # head_dim 96 (phi-3-vision-4.2b), three 32-column slabs under the 64-byte
 # swizzle in bf16: causal, windowed and without the mask, at an S of no
-# multiple of 64 or 128; float32 on the CUDA cores likewise.
+# multiple of 64 or 128; float32 (split TF32) likewise.
 @pytest.mark.parametrize("bh,s,causal,window", [
     (8, 1000, True, 0), (8, 333, True, 40), (8, 1000, True, 256),
     (8, 77, False, 0), (6, 1500, False, 0), (4, 2048, True, 0)])
@@ -645,7 +647,14 @@ BWD_SHAPES = [
     (1, 130, 4, 2, 96, torch.float32, False, 0),
     (2, 77, 6, 2, 192, torch.float32, True, 9),
     (1, 130, 4, 2, 192, torch.float32, False, 0),
-]
+    # The float32 kernels (tensor cores, split TF32) at every head_dim:
+    # causal with a GQA group of 8, windowed with a group of 1, not causal
+    # with a group of 3, each at an S of no multiple of their tiles.
+] + [(b, s, h, kv, d, torch.float32, causal, window)
+     for d in (16, 32, 64, 96, 128, 192)
+     for b, s, h, kv, causal, window in ((1, 133, 16, 2, True, 0),
+                                         (2, 77, 4, 4, True, 20),
+                                         (1, 100, 6, 2, False, 0))]
 
 
 def _rel_err(got, want):
@@ -670,6 +679,27 @@ def test_flash_backward_kernels_match_plain_backward(cuda, b, s, h, kv, d,
         assert g.dtype == dtype and g.shape == w.shape
         assert _rel_err(g, w) <= BWD_TOL[dtype], name
         assert _rel_err(g, e) <= BWD_TOL[dtype], name
+    if dtype == torch.float32:     # the forward it read, as phase 8 holds it
+        plain = gqa_attention_ref(q, k, v, causal, window)
+        assert bool(((o - plain).abs() <= 2e-5 * (1 + plain.abs())).all())
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (2, 333, 10, 2, 128, True, 0), (1, 300, 16, 2, 64, True, 40),
+    (1, 257, 6, 6, 192, False, 0), (2, 130, 8, 1, 16, True, 0)])
+def test_f32_flash_backward_repeats_bit_identical(cuda, b, s, h, kv, d,
+                                                  causal, window):
+    """Every float32 gradient element is summed by one thread of one block
+    (no atomics), so repeat calls give the same bits."""
+    q = _randn((b, s, h, d), 1, cuda)
+    k, v = (_randn((b, s, kv, d), i, cuda) for i in (2, 3))
+    do = _randn((b, s, h, d), 4, cuda)
+    o, lse = FlashAttention.apply(q, k, v, causal, window, True)
+    first = FlashAttentionBackward.apply(q, k, v, o, lse, do, causal, window)
+    for _ in range(2):
+        again = FlashAttentionBackward.apply(q, k, v, o, lse, do, causal,
+                                             window)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.parametrize("b,s,h,kv,d,dtype,causal,window", [
