@@ -171,8 +171,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     (N = 100, 30 a round) with its wall a round and peak memory; (f)
     ``run_train`` at full width, mamba2-1.3b at full depth and qwen3-14b cut
     to 4 layers, 5 steps of 4 x 1024 tokens: step time, tokens/s, the
-    token draw's share, peak memory and launches a step (mamba2-1.3b: 48
-    ``ssd_scan`` and 48 ``ssd_scan_bwd``, no plain vjp); losses finite and
+    token draw's share, peak memory and launches a step under the
+    configs' remat (``full``: mamba2-1.3b 96 ``ssd_scan``, the forward
+    and the recompute, and 48 ``ssd_scan_bwd``, no plain vjp; qwen3-14b 8
+    ``flash_attention`` and 4 ``flash_attention_bwd``); losses finite and
     the last below the first.
 19. the launch tooling: (a) mamba2-1.3b's full-width bf16 params saved
     from the card (``ckpt.save_checkpoint``) and loaded back onto it
@@ -185,10 +187,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     prefill step and none in the serve step, the prefill step timed warm
     with its peak memory; (c) the dry-run (traced over fake tensors in a
     background process that starts before the build, see DRYRUN_SCRIPT) of
-    those prefill steps and of phase 16f's train steps: traced FLOPs over
-    the measured time as TFLOP/s and as a share of 989 TFLOP/s, the
-    estimated peak beside ``max_memory_allocated``, and the traced kernel
-    ops equal to the card's launches; (d) one warm step of every assigned
+    those prefill steps and of phase 16f's train steps: the model's FLOPs
+    (2/6·N·D) over the measured time as TFLOP/s and as a share of 989
+    TFLOP/s (MFU), the traced FLOPs (a rematerialised train step's
+    recompute included) over the same time beside them, the estimated
+    peak beside ``max_memory_allocated``, and the traced kernel ops equal
+    to the card's launches; (d) one warm step of every assigned
     prefill or decode pair that the dry-run marks ``fits_one_card`` (a
     serve step reads a full cache), with wall, peak and the estimate; an
     out-of-memory there fails the phase.  The train_4k pairs are not
@@ -207,9 +211,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     MoE archs with ``moe_dropless`` (capacity routing drops other
     assignments in a decode step than in a forward, by design), held to
     ``SELF_TOL_BF16``; then ``run_train`` of granite-moe-1b-a400m at full
-    width and depth, 5 steps of 4 x 1024: finite losses, step time,
-    tokens/s, peak, and one ``flash_attention`` and one
-    ``flash_attention_bwd`` launch an attention layer a step.
+    width and depth, 5 steps of 4 x 1024 under its config's remat: finite
+    losses, step time, tokens/s, peak, one ``flash_attention_bwd`` and two
+    ``flash_attention`` launches an attention layer a step (the forward
+    and its recompute), and its remat-on against remat-off gradient gap
+    (capacity routing's ``index_add`` sums in no fixed order on the card,
+    so the two are not held bit-equal: the gap is printed beside the
+    remat-off step's own run-to-run gap).
 21. the VLM and audio pathways: (a) ``flash_attention`` at
     phi-3-vision-4.2b's prefill (4, 2048, 32/32, 96) causal and at
     whisper-tiny's encoder (16, 1500, 6/6, 64) without the causal mask,
@@ -229,6 +237,21 @@ Phases, in order; any failure raises and the script exits non-zero:
     the dry-run's verdicts for both archs at long_500k, decode_32k and
     prefill_32k (traced in the background), and one warm step of each pair
     it marks fits_one_card.
+22. the reference's activation rematerialisation (``cfg.remat``,
+    ``remat_policy`` full | dots) at full width, mamba2-1.3b at full depth
+    and qwen3-14b cut to 4 layers: (a) one train step's gradients at
+    4 x 1024 from the same params and batch without remat (twice: run to
+    run), under ``full`` and under ``dots``, with the launch counts set to
+    0 just before and read just after each: bit-equal to remat off where
+    the step without remat is bit-equal to itself (else within
+    ``REMAT_NOISE`` times its run-to-run gap), each kernel's forward
+    launched twice a layer under either policy (the recompute) and its
+    backward once, no plain vjp, each step's time and
+    ``max_memory_allocated``, a lower peak under ``full``; (b) 2 train
+    steps of each at 4 x 4096 under ``full``: finite losses, the peak and
+    the launches a step; then one step without remat at that shape, its
+    peak or its out-of-memory error printed; (c) phase 20's
+    granite-moe-1b-a400m remat gap.
 
 Without a CUDA device, without the checkout's ``src/repro_torch`` beside
 this file, or with ``REPRO_COMPUTE_BACKEND`` set, the script exits non-zero
@@ -240,6 +263,9 @@ phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
 ``async_launches`` and ``population_*``; ``weighted_agg``'s also phase 13's
 ``trial_axis_*``, phase 14's ``clustered_*`` and phase 15's ``async_*``;
 ``ssd_scan``'s phase 16's ``train_launches`` and ``backward_grad_gap``;
+phase 22's ``remat_launches`` (a step's forward launches without remat and
+under each policy) and ``remat_long_launches`` (at 4 x 4096), as
+``flash_attention``'s;
 ``flash_attention``'s phase 12's ``lse_ms``, its ``d192_*`` times at
 nemotron-4-340b's shape and phase 20's ``zoo_launches``, phase 21's
 ``d96_*`` (phi-3-vision-4.2b's prefill shape) and ``noncausal_*``
@@ -949,6 +975,20 @@ def mixer_launches(cfg) -> dict:
     kinds = [mixer for mixer, _ in cfg.layer_kinds()]
     return {"flash_attention": kinds.count("attn") + cfg.encoder_layers,
             "ssd_scan": kinds.count("mamba")}
+
+
+def train_launches(cfg) -> dict:
+    """The kernel launches of one train step of ``cfg`` in one microbatch:
+    each mixer layer's kernel forward once, and once more where the stack
+    rematerialises (``cfg.remat`` and more than one superblock: the
+    recompute in the backward), its backward kernel once."""
+    from repro_torch.models.transformer import stack_plan
+    fwd = mixer_launches(cfg)
+    again = 2 if cfg.remat and stack_plan(cfg)[2] > 1 else 1
+    return {"flash_attention": again * fwd["flash_attention"],
+            "flash_attention_bwd": fwd["flash_attention"],
+            "ssd_scan": again * fwd["ssd_scan"],
+            "ssd_scan_bwd": fwd["ssd_scan"]}
 
 
 def patch_tokens(cfg) -> int:
@@ -3138,11 +3178,13 @@ def phase16f_full_width(dev) -> dict:
     import gc
     import math
     import torch
+    from repro_torch.configs import get_config
     say(f"== 16f. run_train at full width, {TRAIN_STEPS} steps of "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens (the configs' remat)")
     out = {}
     for arch, kw in (("mamba2-1.3b", {}),
                      ("qwen3-14b", {"num_layers": TRAIN_QWEN_LAYERS})):
+        want = train_launches(dataclasses.replace(get_config(arch), **kw))
         r = _train_run(dev, arch, **kw)
         warm = r["step_s"][1:]
         tok_s = r["batch"] * TRAIN_SEQ / statistics.median(warm)
@@ -3155,14 +3197,11 @@ def phase16f_full_width(dev) -> dict:
         if not all(math.isfinite(x) for x in r["losses"]) \
                 or not r["losses"][-1] < r["losses"][0]:
             raise AssertionError(f"{arch}: losses {r['losses']}")
-        if arch == "mamba2-1.3b" and (
-                r["launches"]["ssd_vjp"] or r["launches"]["ssd_scan_bwd"]
-                != r["launches"]["ssd_scan"]):
-            raise AssertionError(f"{arch}: the backward ran "
-                                 f"{r['launches']['ssd_vjp']} plain vjps and "
-                                 f"{r['launches']['ssd_scan_bwd']} kernel "
-                                 f"launches a step; expected none and one a "
-                                 f"layer")
+        if r["launches"]["ssd_vjp"] or any(r["launches"][k] != n
+                                           for k, n in want.items()):
+            raise AssertionError(f"{arch}: launches a step {r['launches']}; "
+                                 f"expected {want} (the recompute's forward "
+                                 f"launches included) and no plain vjp")
         out[arch] = {**r, "tokens_s": tok_s}
         gc.collect()
         torch.cuda.empty_cache()
@@ -4048,18 +4087,25 @@ def phase19d_assigned(dev, params, arch: str, records: dict) -> dict:
 
 def _say_dryrun_vs_card(what: str, rec: dict, ms: float, peak: float,
                         card: str, extra: str = "") -> dict:
-    tflops = rec["flops_per_device"] / (ms * 1e-3) / 1e12
+    # The MFU share counts the model's FLOPs (2/6·N·D); the traced FLOPs
+    # also hold a rematerialised step's recompute.
+    tflops = rec["model_flops"] / (ms * 1e-3) / 1e12
+    traced = rec["flops_per_device"] / (ms * 1e-3) / 1e12
     gap = peak / rec["peak_memory_per_device"] - 1
-    say(f"{what}: traced {rec['flops_per_device'] / 1e12:.2f} TFLOP (kernel "
-        f"ops {rec['kernel_launches']}, their FLOPs "
-        f"{ {k: round(v / 1e9, 1) for k, v in rec['kernel_flops'].items()} } "
-        f"GFLOP; model 2/6·N·D {rec['model_flops'] / 1e12:.2f} TFLOP) over "
+    say(f"{what}: model 2/6·N·D {rec['model_flops'] / 1e12:.2f} TFLOP over "
         f"{ms:.1f} ms measured = {tflops:.1f} TFLOP/s, {tflops / 989:.1%} of "
-        f"989 TFLOP/s bf16{extra}; peak: dry-run estimate "
+        f"989 TFLOP/s bf16 (MFU); traced {rec['flops_per_device'] / 1e12:.2f}"
+        f" TFLOP = {traced:.1f} TFLOP/s (useful_flops_fraction "
+        f"{rec['useful_flops_fraction']:.3f}; kernel ops "
+        f"{ {k: v for k, v in rec['kernel_launches'].items() if v} }, their "
+        f"FLOPs "
+        f"{ {k: round(v / 1e9, 1) for k, v in rec['kernel_flops'].items()} } "
+        f"GFLOP){extra}; peak: dry-run estimate "
         f"{rec['peak_memory_per_device'] / 1e9:.2f} GB, measured "
         f"{peak / 1e9:.2f} GB ({gap:+.1%}); traced in {rec['trace_s']:.1f} s "
         f"({rec['nodes']} nodes, fake {rec['trace_device']}) ({card})")
-    return {"tflops": tflops, "share": tflops / 989, "peak_gap": gap}
+    return {"tflops": tflops, "share": tflops / 989, "traced_tflops": traced,
+            "peak_gap": gap}
 
 
 def phase19(dev, card: str, p16f: dict) -> dict:
@@ -4128,8 +4174,8 @@ def phase19(dev, card: str, p16f: dict) -> dict:
             f"{', %d layers' % TRAIN_QWEN_LAYERS if arch == 'qwen3-14b' else ''})",
             rec, step_ms, r["peak"], card,
             extra=f"; without the batch's token draw ({r['draw_s'] * 1e3:.1f}"
-                  f" ms) {rec['flops_per_device'] / (step_ms * 1e-3 - r['draw_s']) / 1e12:.1f}"
-                  f" TFLOP/s")
+                  f" ms) {rec['model_flops'] / (step_ms * 1e-3 - r['draw_s']) / 1e12:.1f}"
+                  f" model TFLOP/s")
     return out
 
 
@@ -4197,6 +4243,98 @@ def zoo_gaps(dev, arch: str, dtypes) -> dict:
                                      f"logits")
         out[dtype] = gaps
     del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_grads(dev, cfg, params, batch) -> dict:
+    """One train step's gradients at ``params`` (left as they are) on
+    ``batch``, taken as ``make_train_step`` takes them (plain autograd of
+    ``loss_fn`` over detached leaves), with the launch counts set to 0 just
+    before and read just after -> {"loss", "grads" (flat), "s", "peak",
+    "above", "launches"}; ``peak`` is ``max_memory_allocated`` over the
+    call, ``above`` that less what was allocated when it began (the params
+    and any gradients held): the step's own memory."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.ssd_scan import backward as ssd_backward
+    from repro_torch.models import loss_fn
+    from repro_torch.models.transformer import (flatten_params,
+                                                unflatten_params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    ssd_backward.vjp_calls = 0
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    leaves = {k: p.detach().requires_grad_()
+              for k, p in flatten_params(params).items()}
+    loss = loss_fn(unflatten_params(leaves), cfg, batch)[0]
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    launches["ssd_vjp"] = ssd_backward.vjp_calls
+    peak = torch.cuda.max_memory_allocated(dev)
+    return {"loss": loss.detach(), "grads": dict(zip(leaves, grads)),
+            "s": wall, "peak": peak, "above": peak - base,
+            "launches": launches}
+
+
+def _grads_equal(a: dict, b: dict) -> bool:
+    import torch
+    return torch.equal(a["loss"], b["loss"]) and all(
+        torch.equal(a["grads"][k], b["grads"][k]) for k in b["grads"])
+
+
+def _float_gap(got: dict, want: dict) -> float:
+    """``_leaf_gap`` in float32, a leaf at a time."""
+    return max(_leaf_gap({k: got[k].float()}, {k: want[k].float()})
+               for k in want)
+
+
+def _remat_batch(dev, cfg, seq: int) -> dict:
+    """Batch 0 of ``run_train``'s synthetic batches at ``seq`` tokens."""
+    from repro_torch import rng
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch.train import synth_lm_batch
+    ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=seq, device=dev)
+    return synth_lm_batch(ds, rng.fold_in(rng.PRNGKey(0, dev), 0),
+                          TRAIN_BATCH)
+
+
+def _zoo_remat_gap(dev, cfg) -> dict:
+    """The trained MoE arch's gradients under its config's remat against
+    remat off, from the same params and batch, beside the remat-off step's
+    own run-to-run gap: capacity routing's ``index_add`` sums repeated token
+    indices with atomics in no fixed order on the card, so a recompute may
+    differ from its forward by an ulp and a near-tied router may send a
+    token elsewhere; neither gap is held."""
+    import gc
+    import torch
+    from repro_torch.models import init_model
+    from repro_torch.rng import PRNGKey
+    params = init_model(PRNGKey(0, dev), cfg, device=dev)
+    batch = _remat_batch(dev, cfg, TRAIN_SEQ)
+    off = dataclasses.replace(cfg, remat=False)
+    ref = _step_grads(dev, off, params, batch)
+    again = _step_grads(dev, off, params, batch)
+    on = _step_grads(dev, cfg, params, batch)
+    out = {"remat_gap": _float_gap(on["grads"], ref["grads"]),
+           "run_gap": _float_gap(again["grads"], ref["grads"]),
+           "remat_loss_gap": abs(float(on["loss"]) - float(ref["loss"])),
+           "run_loss_gap": abs(float(again["loss"]) - float(ref["loss"]))}
+    say(f"{ZOO_TRAIN}, one step's gradients at {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"remat {cfg.remat_policy} against remat off within "
+        f"{out['remat_gap']:.3e} of each leaf's max |grad| (loss "
+        f"{out['remat_loss_gap']:.3e}); remat off against itself "
+        f"{out['run_gap']:.3e} (loss {out['run_loss_gap']:.3e}): not held "
+        f"(index_add's atomics)")
+    del params, ref, again, on
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4278,7 +4416,7 @@ def phase20_zoo(dev) -> dict:
     r = _train_run(dev, ZOO_TRAIN)
     warm = r["step_s"][1:]
     tok_s = r["batch"] * TRAIN_SEQ / statistics.median(warm)
-    attn = mixer_launches(cfg)["flash_attention"]
+    want = train_launches(cfg)
     say(f"{ZOO_TRAIN} run_train at full width and depth, capacity routing: "
         f"batch {r['batch']} x {TRAIN_SEQ}; losses "
         f"{[round(x, 4) for x in r['losses']]}; step "
@@ -4286,16 +4424,15 @@ def phase20_zoo(dev) -> dict:
         f"first launches), {tok_s:.0f} tokens/s warm; the batch's token draw "
         f"alone {r['draw_s']:.3f} s; peak {r['peak'] / 1e9:.2f} GB; launches"
         f" a step {r['launches']}; wall {time.time() - t0:.1f} s")
-    if not all(math.isfinite(x) for x in r["losses"]) or (
-            r["launches"]["flash_attention"],
-            r["launches"]["flash_attention_bwd"]) != (attn, attn):
+    if not all(math.isfinite(x) for x in r["losses"]) or any(
+            r["launches"][k] != n for k, n in want.items()):
         raise AssertionError(f"{ZOO_TRAIN} training: losses {r['losses']}, "
-                             f"launches {r['launches']} (expected {attn} "
-                             f"flash_attention and flash_attention_bwd a "
+                             f"launches {r['launches']} (expected {want} a "
                              f"step, one microbatch)")
     out["train"] = {"arch": ZOO_TRAIN, "step_s": r["step_s"],
                     "tokens_s": tok_s, "peak": r["peak"],
-                    "launches": r["launches"], "losses": r["losses"]}
+                    "launches": r["launches"], "losses": r["losses"],
+                    **_zoo_remat_gap(dev, cfg)}
     say(f"phase 20 wall {time.time() - t_phase:.1f} s")
     return out
 
@@ -4521,9 +4658,10 @@ def _train_full(dev, arch: str, batch: int, seq: int,
     """``run_train`` of ``arch`` at full width and depth, ``steps`` steps
     of ``batch`` x ``seq`` text tokens (a VLM's patches before them), with
     the launch counts set to 0 just before and read just after: finite,
-    falling losses and one ``flash_attention`` and one
-    ``flash_attention_bwd`` launch an attention layer a step; then the
-    step's synthetic batch alone."""
+    falling losses and ``train_launches(cfg)`` a step (one
+    ``flash_attention_bwd`` launch an attention layer, its forward twice
+    where the config rematerialises); then the step's synthetic batch
+    alone."""
     import gc
     import math
     import torch
@@ -4543,7 +4681,7 @@ def _train_full(dev, arch: str, batch: int, seq: int,
     launches = {k: v / steps for k, v in kernels.launch_counts().items()}
     peak = torch.cuda.max_memory_allocated(dev)
     tok_s = batch * seq / statistics.median(times[1:])
-    attn = mixer_launches(cfg)["flash_attention"]
+    want = train_launches(cfg)
     # A step's synthetic batch alone: the categorical draw hashes batch x
     # seq x vocab gumbels, the stub inputs (a VLM's patches, an
     # encoder-decoder's frames) are normals.
@@ -4573,11 +4711,9 @@ def _train_full(dev, arch: str, batch: int, seq: int,
         f"step {launches}")
     if not all(math.isfinite(x) for x in losses) \
             or not losses[-1] < losses[0] \
-            or (launches["flash_attention"],
-                launches["flash_attention_bwd"]) != (attn, attn):
+            or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{arch} training: losses {losses}, launches "
-                             f"{launches} (expected {attn} flash_attention "
-                             f"and flash_attention_bwd a step)")
+                             f"{launches} (expected {want} a step)")
     return {"batch": batch, "seq": seq, "steps": steps, "losses": losses,
             "step_s": times,
             "tokens_s": tok_s, "peak": peak, "launches": launches,
@@ -4729,6 +4865,173 @@ def phase21_modal(dev, records: dict) -> dict:
         "phi-3-vision-4.2b trained")
     out["vlm_train"] = _vlm_train(dev, records)
     say(f"phase 21 wall {time.time() - t_phase:.1f} s")
+    return out
+
+
+# Phase 22: the reference's activation rematerialisation (cfg.remat,
+# remat_policy full | dots) in the train step at full width: mamba2-1.3b at
+# full depth and qwen3-14b cut to TRAIN_QWEN_LAYERS layers.  (a) one step's
+# gradients at phase 16f's TRAIN_BATCH x TRAIN_SEQ from the same params and
+# batch under each policy and without remat, held bit-equal (the recompute
+# runs the same kernels on the same values); where the remat-off step is
+# not bit-equal to itself run to run, a library kernel on the path is
+# nondeterministic, and the remat gap is held to REMAT_NOISE times that
+# run-to-run gap instead.  (b) REMAT_LONG_STEPS train steps under ``full``
+# at TRAIN_BATCH x REMAT_LONG_SEQ, then one step without remat at that shape
+# (mamba2-1.3b's the dry-run puts at 186 GB; qwen3-14b's at 72 GB, which
+# the card's allocations exceed by a third at this shape under remat).
+REMAT_POLICIES = ("full", "dots")
+REMAT_NOISE = 2.0
+REMAT_LONG_SEQ = 4096
+REMAT_LONG_STEPS = 2
+
+
+def _remat_arch(dev, arch: str, layers) -> dict:
+    """Phase 22 (a) and (b) for one arch; see REMAT_POLICIES."""
+    import gc
+    import math
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import flatten_params
+    from repro_torch.rng import PRNGKey
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    params = init_model(PRNGKey(0, dev), cfg, device=dev)
+    batch = _remat_batch(dev, cfg, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    what = f"{arch} ({cfg.num_layers} layers)"
+    say(f"-- 22a. {what}: weights and batch drawn in "
+        f"{time.perf_counter() - t0:.1f} s; one step's gradients at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+    off = dataclasses.replace(cfg, remat=False)
+    # The first call also warms the path up; the second is the one timed.
+    ref = _step_grads(dev, off, params, batch)
+    again = _step_grads(dev, off, params, batch)
+    deterministic = _grads_equal(again, ref)
+    run_gap = _float_gap(again["grads"], ref["grads"])
+    out = {"layers": cfg.num_layers, "run_gap": run_gap,
+           "deterministic": deterministic}
+    for policy in ("off",) + REMAT_POLICIES:
+        r = again if policy == "off" else _step_grads(
+            dev, dataclasses.replace(cfg, remat_policy=policy), params, batch)
+        row = {k: r[k] for k in ("s", "peak", "above", "launches")}
+        row.update(equal=_grads_equal(r, ref),
+                   gap=_float_gap(r["grads"], ref["grads"]))
+        out[policy] = row
+        del r
+        say(f"{what} remat {policy}: one step's gradients "
+            f"{row['s'] * 1e3:.1f} ms, peak {row['peak'] / 1e9:.2f} GB "
+            f"({row['above'] / 1e9:.2f} GB above the params and the "
+            f"gradients held before it), "
+            f"launches { {k: v for k, v in row['launches'].items() if v} }"
+            f", bit-equal to remat off: {row['equal']} (gap "
+            f"{row['gap']:.3e})")
+        want = train_launches(off if policy == "off" else cfg)
+        if any(row["launches"][k] != n for k, n in want.items()) \
+                or row["launches"]["ssd_vjp"]:
+            raise AssertionError(f"{what} remat {policy}: launches "
+                                 f"{row['launches']}, expected {want} and "
+                                 f"no plain vjp")
+        if deterministic and not row["equal"]:
+            raise AssertionError(f"{what} remat {policy}: gradients differ "
+                                 f"from remat off by {row['gap']} of a "
+                                 f"leaf's max |grad|; the step without "
+                                 f"remat is bit-equal run to run")
+        if not deterministic and not row["gap"] <= REMAT_NOISE * run_gap:
+            raise AssertionError(f"{what} remat {policy}: gap {row['gap']} "
+                                 f"over {REMAT_NOISE} x the run-to-run "
+                                 f"{run_gap}")
+    say(f"{what}: remat off against itself bit-equal: {deterministic} "
+        f"(gap {run_gap:.3e})")
+    if not out["full"]["above"] < out["off"]["above"]:
+        raise AssertionError(f"{what}: the step's own peak "
+                             f"{out['full']['above']} under remat full, "
+                             f"{out['off']['above']} without")
+    del ref, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say(f"-- 22b. {what}: {REMAT_LONG_STEPS} train steps at {TRAIN_BATCH} x "
+        f"{REMAT_LONG_SEQ} under remat full")
+    # The batch before the moments: the synthetic draw hashes a row's
+    # REMAT_LONG_SEQ x vocab gumbels at once (48 GB of int64 temporaries at
+    # qwen3-14b's vocabulary), more than the step itself needs.
+    long_batch = _remat_batch(dev, cfg, REMAT_LONG_SEQ)
+    step, opt = make_train_step(cfg, InputShape(
+        "remat_long", REMAT_LONG_SEQ, TRAIN_BATCH, "train"), microbatches=1)
+    state = opt.init(flatten_params(params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(REMAT_LONG_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, long_batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: v / REMAT_LONG_STEPS
+                for k, v in kernels.launch_counts().items()}
+    say(f"{what} at {TRAIN_BATCH} x {REMAT_LONG_SEQ}, remat full: losses "
+        f"{[round(x, 4) for x in losses]}; steps "
+        f"{[f'{x:.3f}' for x in times]} s; peak {peak / 1e9:.2f} GB "
+        f"(params, AdamW moments and the step); launches a step "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    want = train_launches(cfg)
+    if not all(math.isfinite(x) for x in losses) or any(
+            launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{what} at {REMAT_LONG_SEQ}: losses {losses}, "
+                             f"launches {launches}, expected {want}")
+    out["long"] = {"losses": losses, "step_s": times, "peak": peak,
+                   "launches": launches, "off_peak": None}
+    # The same step without remat, from where the two left off: its peak,
+    # or where it ran out of memory (read, not held).
+    step, _ = make_train_step(off, InputShape(
+        "remat_long", REMAT_LONG_SEQ, TRAIN_BATCH, "train"), microbatches=1)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        params, state, m = step(params, state, long_batch)
+        float(m["loss"])
+        out["long"]["off_peak"] = torch.cuda.max_memory_allocated(dev)
+        say(f"{what} at {TRAIN_BATCH} x {REMAT_LONG_SEQ} without remat: "
+            f"one step, peak {out['long']['off_peak'] / 1e9:.2f} GB")
+    except torch.cuda.OutOfMemoryError:
+        say(f"{what} at {TRAIN_BATCH} x {REMAT_LONG_SEQ} without remat: out "
+            f"of memory ({torch.cuda.max_memory_allocated(dev) / 1e9:.2f} "
+            f"GB allocated at the failed allocation)")
+    del params, state, long_batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase22_remat(dev, card: str, zoo_train: dict) -> dict:
+    """The reference's activation rematerialisation on the card: (a) the
+    gradients under each policy against none, (b) steps at 4 x 4096 under
+    ``full``, (c) phase 20's MoE remat gap."""
+    say("== 22. remat: the train step's activation rematerialisation "
+        f"(remat_policy {' | '.join(REMAT_POLICIES)}) at full width")
+    t_phase = time.time()
+    out = {arch: _remat_arch(dev, arch, layers)
+           for arch, layers in (("mamba2-1.3b", None),
+                                ("qwen3-14b", TRAIN_QWEN_LAYERS))}
+    say(f"-- 22c. {ZOO_TRAIN} (phase 20): remat full against off "
+        f"{zoo_train['remat_gap']:.3e} of each leaf's max |grad|, off "
+        f"against itself {zoo_train['run_gap']:.3e}; losses "
+        f"{zoo_train['remat_loss_gap']:.3e} and "
+        f"{zoo_train['run_loss_gap']:.3e} apart")
+    say(f"phase 22 wall {time.time() - t_phase:.1f} s ({card})")
     return out
 
 
@@ -5045,6 +5348,7 @@ def main() -> int:
         [f"{a} {s}" for a in (VLM, AUDIO) for s in MODAL_DRYRUN_SHAPES]
         + [f"{VLM} train"]))
     stop_background()
+    p22 = phase22_remat(dev, card, p20["train"])
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -5123,7 +5427,11 @@ def main() -> int:
          "audio_train_launches": int(p21["train"]["launches"][
              "flash_attention"] * TRAIN_STEPS),
          "vlm_train_launches": int(p21["vlm_train"]["launches"][
-             "flash_attention"] * VLM_TRAIN_STEPS)},
+             "flash_attention"] * VLM_TRAIN_STEPS),
+         "remat_launches": {p: p22["qwen3-14b"][p]["launches"][
+             "flash_attention"] for p in ("off",) + REMAT_POLICIES},
+         "remat_long_launches": int(p22["qwen3-14b"]["long"]["launches"][
+             "flash_attention"] * REMAT_LONG_STEPS)},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -5137,7 +5445,11 @@ def main() -> int:
          "jamba_bound_ms": ssd_jamba["bound"],
          "jamba_bound_by": ssd_jamba["by"],
          "jamba_launches": p20["jamba-v0.1-52b"]["launches"]["ssd_scan"],
-         "backward_grad_gap": p16bd["ssd_grad_gap"]},
+         "backward_grad_gap": p16bd["ssd_grad_gap"],
+         "remat_launches": {p: p22["mamba2-1.3b"][p]["launches"][
+             "ssd_scan"] for p in ("off",) + REMAT_POLICIES},
+         "remat_long_launches": int(p22["mamba2-1.3b"]["long"]["launches"][
+             "ssd_scan"] * REMAT_LONG_STEPS)},
         {"name": "ssd_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71 (no TPU "

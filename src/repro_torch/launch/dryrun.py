@@ -21,8 +21,16 @@ outside the ops.
 
 A record holds the roofline, ``params``, ``microbatches``, ``trace_s``,
 ``fits_one_card`` (the estimated peak within ``HBM_BYTES``), the note of
-``arch_shape_applicable``, each kernel op's nodes and FLOPs, and the graph's
-node count.  Records go to
+``arch_shape_applicable``, each kernel op's nodes and FLOPs, the graph's
+node count, ``remat`` and ``remat_policy`` and the CLI's ``overrides``.
+``--remat-policy {full,dots}`` sets the config's policy, as the
+reference's flag does.  A train step whose config rematerialises (the
+published configs do; ``reduced()`` and whisper-tiny's do not) runs each
+superblock under ``torch.utils.checkpoint``: the trace holds the recompute
+in the backward (one more forward node of each checkpointed layer's
+kernel), the liveness peak sees the activations freed between the forward
+and the backward, and ``useful_flops_fraction`` falls by the recompute's
+share.  Records go to
 ``experiments/dryrun_torch/<arch>__<shape>__1xH100[__tag].json``.
 
 ``--fl-round`` records the sharded FL round's static attributes (``mode``,
@@ -36,12 +44,13 @@ trace on one host does not have.
 Left out, because they change nothing on one card: ``--multi-pod``,
 ``--fsdp``, ``--tp``, ``--seq-parallel``, ``--kv-policy`` (mesh
 placement), ``--donate`` (the port's steps update caches in place and
-return new params) and ``--remat-policy`` / ``--attention-impl`` (the port
-runs no remat, and both attention implementations run the flash kernel).
+return new params) and ``--attention-impl`` (both attention
+implementations run the flash kernel).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -59,6 +68,7 @@ from ..configs import ARCH_IDS, SHAPES, get_config
 from ..configs.shapes import InputShape
 from ..data.specs import input_specs
 from ..models.config import ModelConfig
+from ..models.transformer import stack_plan
 from .mesh import HBM_BYTES, ONE_CARD, production_mesh
 from .roofline import KERNEL_OPS, extract_roofline, graph_flops
 from .steps import (abstract_opt_state, abstract_params,
@@ -66,6 +76,12 @@ from .steps import (abstract_opt_state, abstract_params,
                     default_microbatches, make_prefill_step, make_serve_step,
                     make_train_step, param_count)
 
+# make_fx runs torch.utils.checkpoint's selective policy as a compile trace
+# (a proxy mode is active), which keeps every output and only tags each node
+# with the policy for a partitioner.
+DOTS_NOTE = ("remat_policy dots not traced: make_fx keeps every output of "
+             "a selectively checkpointed superblock, so this graph's FLOPs "
+             "and peak are those of the step without remat")
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
 
@@ -141,6 +157,9 @@ def dryrun_step(arch: str, cfg: ModelConfig, shape: InputShape,
     given (abstract or real arguments of the step), else over
     :func:`build_step`'s."""
     _, note = arch_shape_applicable(cfg, shape)
+    if (shape.kind == "train" and cfg.remat and cfg.remat_policy == "dots"
+            and stack_plan(cfg)[2] > 1):
+        note = "; ".join(filter(None, (note, DOTS_NOTE)))
     mb = microbatches or default_microbatches(cfg, shape)
     t0 = time.perf_counter()
     step, built = build_step(cfg, shape, mb)
@@ -157,6 +176,7 @@ def dryrun_step(arch: str, cfg: ModelConfig, shape: InputShape,
         "kernel_launches": kernel_nodes(gm),
         "kernel_flops": {k: v for k, v in flops.items() if k != "total"},
         "nodes": len(gm.graph.nodes),
+        "remat": cfg.remat, "remat_policy": cfg.remat_policy,
         "trace_device": str(next(n.meta["val"].device
                                  for n in gm.graph.nodes
                                  if n.op == "placeholder")),
@@ -167,11 +187,18 @@ def dryrun_step(arch: str, cfg: ModelConfig, shape: InputShape,
 def dryrun_one(arch: str, shape_name: str, microbatches: Optional[int] = None,
                save: bool = True, verbose: bool = True,
                tag: str = "",
-               device: "str | torch.device | None" = None) -> Dict[str, Any]:
-    """Trace and record one (arch, shape) pair; see the module note."""
+               device: "str | torch.device | None" = None,
+               cfg_overrides: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
+    """Trace and record one (arch, shape) pair, its config's fields
+    replaced by ``cfg_overrides`` (the CLI's ``--remat-policy``); see the
+    module note."""
     shape = SHAPES[shape_name]
     cfg = config_for_shape(get_config(arch), shape)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
     record = dryrun_step(arch, cfg, shape, microbatches, device=device)
+    record["overrides"] = cfg_overrides or {}
     if verbose:
         print(f"[{arch} × {shape_name} × {ONE_CARD}] trace "
               f"{record['trace_s']:.1f}s  "
@@ -180,6 +207,9 @@ def dryrun_one(arch: str, shape_name: str, microbatches: Optional[int] = None,
               f"{record['eager_bytes_per_device']:.3e})  "
               f"peak-mem {record['peak_memory_per_device'] / 1e9:.2f} GB  "
               f"fits_one_card={record['fits_one_card']}  "
+              f"remat={record['remat'] and record['remat_policy']}  "
+              f"useful_flops_fraction "
+              f"{record['useful_flops_fraction']:.3f}  "
               f"dominant={record['dominant']}  launches "
               f"{ {k: v for k, v in record['kernel_launches'].items() if v} }",
               flush=True)
@@ -243,6 +273,7 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--fl-round", action="store_true")
     ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--remat-policy", choices=["full", "dots"], default=None)
     ap.add_argument("--tag", default="")
     ap.add_argument("--no-save", action="store_true")
     args = ap.parse_args(argv)
@@ -256,11 +287,14 @@ def main(argv: Optional[list] = None) -> int:
         pairs = [(args.arch, args.shape)]
     else:
         ap.error("give --arch and --shape, --all or --fl-round")
+    overrides = ({"remat_policy": args.remat_policy} if args.remat_policy
+                 else None)
     failures = []
     for a, s in pairs:
         try:
             dryrun_one(a, s, microbatches=args.microbatches,
-                       save=not args.no_save, tag=args.tag)
+                       save=not args.no_save, tag=args.tag,
+                       cfg_overrides=overrides)
         except Exception:
             traceback.print_exc()
             failures.append((a, s))

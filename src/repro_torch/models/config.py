@@ -66,7 +66,8 @@ class ModelConfig:
     sliding_window: int = 0            # 0 = full causal attention
     attention_impl: str = "dense"      # dense | chunked; both run the flash kernel here
 
-    # numerics / memory policy (fsdp/remat: reference sharding knobs, unused here)
+    # numerics / memory policy (fsdp: a reference sharding knob, unused here;
+    # remat: stack_apply_train checkpoints each superblock)
     dtype: str = "bfloat16"
     fsdp: bool = True
     remat: bool = True

@@ -7,9 +7,11 @@ final norm -> unembed.
 Mirrors ``repro/models/transformer.py``.  The reference stacks the blocks of
 a homogeneous stack on a leading repeat axis and ``lax.scan``s over params
 and caches together (``scan_layers=True``); the port keeps a per-layer list
-of block params and a per-layer list of caches and runs a Python loop, so
-``stack_plan`` here only describes the reference's layout (for
-``repro_torch.convert``).  The reference's sharding constraints are
+of block params and a per-layer list of caches and runs a Python loop;
+``stack_plan`` describes the reference's layout (for
+``repro_torch.convert``) and its superblocks, which the training forward
+checkpoints as the reference does (``cfg.remat``, ``cfg.remat_policy``:
+``stack_apply_train``).  The reference's sharding constraints are
 single-device no-ops and are dropped.  The encoder-decoder (whisper) is
 unrolled in the reference too: its encoder and decoder blocks are tuples a
 layer, here lists.  The audio encoder's bidirectional attention goes
@@ -29,10 +31,14 @@ Entry points:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from .. import rng
 from ..device import resolve_device
@@ -176,13 +182,60 @@ def stack_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
     return {"blocks": blocks}
 
 
+# The products that ``remat_policy="dots"`` saves, as the reference's
+# ``dots_with_no_batch_dims_saveable`` saves dot_generals without batch
+# dimensions: torch folds a (B, S, D) @ (D, F) projection or MLP product into
+# one 2-D ``mm`` (``addmm`` with a bias).  Everything else is recomputed
+# in the backward: the kernels' ops (``flash_attention``, ``ssd_scan``), the
+# MoE's expert products (``bmm``, the expert a batch dimension), norms, RoPE.
+DOTS_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _superblock(blocks: List[Params], x: torch.Tensor, cfg: ModelConfig,
+                kinds: List[Kind], window: int):
+    """The blocks over x -> (x, each block's aux loss)."""
+    auxes = []
+    for bp, kind in zip(blocks, kinds):
+        x, _, a = block_apply(bp, x, cfg, kind, mode="train", window=window)
+        auxes.append(a)
+    return (x, *auxes)
+
+
 def stack_apply_train(params: Params, x: torch.Tensor, cfg: ModelConfig,
                       window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training/scoring forward through all blocks -> (x, aux_total)."""
+    """Training/scoring forward through all blocks -> (x, aux_total).
+
+    With ``cfg.remat`` and more than one repeat of ``stack_plan``'s
+    superblock, each superblock runs under ``torch.utils.checkpoint``
+    (non-reentrant, for ``torch.autograd.grad``; the forward draws no random
+    numbers), as the reference wraps its scan body in ``jax.checkpoint``:
+    ``remat_policy="dots"`` saves the products of :data:`DOTS_SAVED_OPS`,
+    any other policy only the superblock's input, and the backward runs the
+    rest again, the kernels included.  The values are the same bits either
+    way: the aux losses are summed a layer at a time in both.  torch.func's
+    ``grad`` and ``vjp`` refuse the checkpoint's saved-tensor hooks, so a
+    config that rematerialises is differentiated with ``torch.autograd``
+    (the train step); the FL workloads' configs turn remat off."""
+    kinds, period, reps = stack_plan(cfg)
+    body = _superblock
+    if cfg.remat and reps > 1:
+        body = functools.partial(
+            checkpoint, _superblock, use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=(functools.partial(create_selective_checkpoint_contexts,
+                                          _dots_policy)
+                        if cfg.remat_policy == "dots" else noop_context_fn))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp, kind in zip(params["blocks"], cfg.layer_kinds()):
-        x, _, a = block_apply(bp, x, cfg, kind, mode="train", window=window)
-        aux = aux + a
+    for r in range(reps):
+        x, *auxes = body(params["blocks"][r * period:(r + 1) * period], x,
+                         cfg, kinds, window)
+        for a in auxes:
+            aux = aux + a
     return x, aux
 
 
