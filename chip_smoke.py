@@ -17,7 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the round's shapes, the batched grid's (10500, 290, 10), long rows
    (8, 2^20, 10), C = 1 and 33, n = 0, 1 and 31, rows shared by 8 and 4
    warps, long rows with C > 32, rows that start off a 16-byte boundary,
-   all-invalid rows and labels of -1 and C only;
+   all-invalid rows and labels of -1 and C only; then the reference's
+   always-kernel wrapper ``label_hist.ops.client_statistics`` on -1-padded
+   (100, 290) labels: one launch, histograms and scores bit-equal to the
+   CPU's;
 4. hold ``weighted_agg`` against its plain version on the card at every leaf
    shape of the paper CNN with K=30 clients, in float32 and bfloat16, then
    the whole round's tree in one call (one launch), plain and as the masked
@@ -63,13 +66,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     cache (the cross caches too) and every decode step's logits within
     ``SERVE_TOL``;
 11. the serving main path: ``run_serve(arch, batch=4, prompt_len=1024,
-    gen=16, reduced=False)`` for qwen3-14b, then for mamba2-1.3b, with the
-    launch counts set to 0 just before and read just after (40
+    gen=16, reduced=False, params=...)`` for qwen3-14b, then for
+    mamba2-1.3b, each arch's full-width bf16 weights drawn once (seed 11),
+    with the launch counts set to 0 just before and read just after (40
     flash_attention and 48 ssd_scan launches, one per layer of the prefill;
-    decode launches neither); then, on fresh full-width weights in bf16 and
-    in float32, prefill ≡ forward at the last prompt position and one decode
-    step ≡ forward at the next, held to ``SELF_TOL_BF16`` and
-    ``SELF_TOL_F32``;
+    decode launches neither); then, on the same weights in bf16 and cast
+    leaf by leaf to float32, prefill ≡ forward at the last prompt position
+    and one decode step ≡ forward at the next, held to ``SELF_TOL_BF16``
+    and ``SELF_TOL_F32``;
 12. time ``flash_attention`` and ``ssd_scan`` at phase 11's shapes, the
     forward in turns without and with the row logsumexp it writes for the
     backward (output bit-identical); then the bf16 forward at
@@ -141,7 +145,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     33 and 40, no causal mask, and whisper-tiny's full-width training
     shapes (16, 1500, 6/6, 64) non-causal and (16, 448, 6/6, 64) causal;
     float32, the tensor-core kernels in split TF32, at every head_dim 16 to
-    192, GQA groups 1, 2, 3, 5 and 8, ragged S, windows, no causal mask),
+    192, GQA groups 1, 2, 3, 5 and 8, ragged S, windows, no causal mask;
+    and the GQA groups of phase 20's train steps at 4 x 1024 in bf16:
+    minitron-4b's 3, jamba-v0.1-52b's 4, arctic-480b's 7, qwen2-72b's 8),
     each within ``BWD_TOL`` of its max |grad| of the plain backward and of
     a float64 plain backward, with the plain backward's own error against
     float64 printed beside it; the float32 backward's repeat calls
@@ -202,22 +208,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     cut in depth where its weights do not fit the card (``ZOO_LAYERS``:
     qwen2-72b 8 layers, nemotron-4-340b 2, arctic-480b 1, jamba-v0.1-52b
     8 = one period of its pattern; minitron-4b and granite-moe-1b-a400m
-    whole), one at a time, each freed before the next: ``run_serve(batch=4,
-    prompt_len=1024, gen=16, num_layers=...)`` with capacity routing, its
+    whole), one at a time, each arch's weights drawn once (seed 11) and
+    freed before the next: ``run_serve(batch=4, prompt_len=1024, gen=16,
+    num_layers=..., params=...)`` on them with capacity routing, its
     prefill and decode times, peak memory and launches (one
     ``flash_attention`` an attention layer and one ``ssd_scan`` a Mamba
-    layer in the prefill, none in decode); then prefill ≡ forward and one
-    decode step ≡ forward on seed-11 weights and a 200-token prompt, the
-    MoE archs with ``moe_dropless`` (capacity routing drops other
-    assignments in a decode step than in a forward, by design), held to
-    ``SELF_TOL_BF16``; then ``run_train`` of granite-moe-1b-a400m at full
-    width and depth, 5 steps of 4 x 1024 under its config's remat: finite
-    losses, step time, tokens/s, peak, one ``flash_attention_bwd`` and two
-    ``flash_attention`` launches an attention layer a step (the forward
-    and its recompute), and its remat-on against remat-off gradient gap
-    (capacity routing's ``index_add`` sums in no fixed order on the card,
-    so the two are not held bit-equal: the gap is printed beside the
-    remat-off step's own run-to-run gap).
+    layer in the prefill, none in decode); prefill ≡ forward and one
+    decode step ≡ forward on a 200-token prompt, the MoE archs with
+    ``moe_dropless`` (capacity routing drops other assignments in a decode
+    step than in a forward, by design), held to ``SELF_TOL_BF16``; one
+    train step's gradients at 4 x 1024 with capacity routing under the
+    config's remat (``_zoo_grads``), twice, and without remat where the
+    config rematerialises and the dry-run fits that step: finite losses,
+    ``train_launches(cfg)`` (each mixer's kernel forward twice where the
+    config rematerialises, its backward once; no plain vjp), each run's
+    time and ``max_memory_allocated`` beside the dry-run's estimate
+    (traced in three more background processes, ZOO_DRYRUN_SCRIPT), and
+    every run bit-equal to the first, whose gradients wait on the host;
+    then the float32 gaps on the weights cast up (``ZOO_SELF_DTYPES``);
+    ``run_train`` for 5 steps of 4 x 1024 where the dry-run fits the AdamW
+    step (finite losses, step time, tokens/s, peak, ``train_launches`` a
+    step); and arctic-480b's and jamba-v0.1-52b's reduced-width float32
+    gradients, capacity routing at each one's layer pattern, card against
+    CPU within ``GRAD_TOL`` (``ZOO_REDUCED_GRADS``).  The MoE combine and
+    the dispatch's backward add a token's k rows in a fixed order
+    (``models/layers.py``), so the MoE archs are held bit for bit too.
 21. the VLM and audio pathways: (a) ``flash_attention`` at
     phi-3-vision-4.2b's prefill (4, 2048, 32/32, 96) causal and at
     whisper-tiny's encoder (16, 1500, 6/6, 64) without the causal mask,
@@ -251,7 +266,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     steps of each at 4 x 4096 under ``full``: finite losses, the peak and
     the launches a step; then one step without remat at that shape, its
     peak or its out-of-memory error printed; (c) phase 20's
-    granite-moe-1b-a400m remat gap.
+    granite-moe-1b-a400m gradients, held: remat ``full`` bit-equal run to
+    run and to remat off.
+
+Each phase's wall time is printed as it ends (``wall``).
 
 Without a CUDA device, without the checkout's ``src/repro_torch`` beside
 this file, or with ``REPRO_COMPUTE_BACKEND`` set, the script exits non-zero
@@ -267,17 +285,22 @@ phase 22's ``remat_launches`` (a step's forward launches without remat and
 under each policy) and ``remat_long_launches`` (at 4 x 4096), as
 ``flash_attention``'s;
 ``flash_attention``'s phase 12's ``lse_ms``, its ``d192_*`` times at
-nemotron-4-340b's shape and phase 20's ``zoo_launches``, phase 21's
+nemotron-4-340b's shape and phase 20's ``zoo_launches`` and
+``zoo_grad_launches`` (a gradient step's, by arch), phase 21's
 ``d96_*`` (phi-3-vision-4.2b's prefill shape) and ``noncausal_*``
 (whisper-tiny's encoder), ``modal_launches`` and
 ``audio_train_launches``; ``ssd_scan``'s
-``jamba_*`` times and phase 20's ``jamba_launches``; the backward kernels
+``jamba_*`` times and phase 20's ``jamba_launches`` and
+``jamba_grad_launches``; ``label_hist``'s ``ops_launches`` (phase 3's
+``ops.client_statistics``); the backward kernels
 ``flash_attention_bwd``, its ``launches`` those of phase 16f's qwen3-14b
 run, ``fl_launches`` phase 16e's sim run, ``zoo_train_launches`` phase
-20's granite-moe run, ``audio_train_launches`` phase 21d's whisper-tiny
+20's granite-moe run, ``zoo_grad_launches`` phase 20's gradient steps,
+``audio_train_launches`` phase 21d's whisper-tiny
 run and ``f32_ms`` the float32 kernels at the same shape;
 ``ssd_scan_bwd``, its ``launches`` those of phase 16f's mamba2-1.3b run,
-its times at mamba2-1.3b's shape and ``jamba_*`` at jamba-v0.1-52b's; and
+its times at mamba2-1.3b's shape, ``jamba_*`` at jamba-v0.1-52b's and
+``jamba_grad_launches`` phase 20's jamba-v0.1-52b gradient step; and
 the float32 kernels ``flash_attention_f32`` and ``flash_attention_f32_bwd``
 (split TF32), their ``launches`` those of phase 16e's paper-width lm run,
 their times at the lm round's shape and ``qwen_*`` and ``micro_*`` at
@@ -343,7 +366,7 @@ SSD_TOL = 1e-4
 SERVE_TOL = 2e-4
 # Phase 20: the six archs of the arch zoo at full width in bf16, their depth
 # cut (num_layers) where the weights do not fit the card (PERF.md §4; None:
-# full depth), and the one trained at full width and depth.
+# full depth), and the MoE arch whose remat ≡ no remat phase 22c reports.
 ZOO_LAYERS = {"minitron-4b": None, "granite-moe-1b-a400m": None,
               "qwen2-72b": 8, "nemotron-4-340b": 2, "arctic-480b": 1,
               "jamba-v0.1-52b": 8}
@@ -483,6 +506,17 @@ def say(msg: str) -> None:
     if msg.startswith("== "):      # a phase's header: the time so far
         msg = f"{msg} [{time.time() - _START:.1f} s]"
     print(msg, flush=True)
+
+
+_WALL = [_START]
+
+
+def wall(phase: str) -> None:
+    """Print the wall time since the last call (the script's start at
+    first) as ``phase``'s."""
+    now = time.time()
+    say(f"phase {phase} wall {now - _WALL[0]:.1f} s")
+    _WALL[0] = now
 
 
 def gpu_name_and_power() -> str:
@@ -1073,13 +1107,10 @@ def self_consistency_inputs(dev, cfg):
     return params, toks
 
 
-def self_consistency(dev, cfg, kernel: str) -> dict:
-    """``serve_gaps`` on ``self_consistency_inputs``; asserts one ``kernel``
-    launch per layer in forward and prefill, no launch in decode, and finite
-    logits."""
-    import gc
-    import torch
-    params, toks = self_consistency_inputs(dev, cfg)
+def self_consistency(params, cfg, toks, kernel: str) -> dict:
+    """``serve_gaps`` of ``params`` (in ``cfg``'s dtype) on ``toks``;
+    asserts one ``kernel`` launch per layer in forward and prefill, no
+    launch in decode, and finite logits."""
     out = serve_gaps(params, cfg, toks)
     calls = {"forward": out["launches"]["forward"][kernel],
              "prefill": out["launches"]["prefill"][kernel],
@@ -1091,14 +1122,14 @@ def self_consistency(dev, cfg, kernel: str) -> dict:
         if not ok:
             raise AssertionError(f"{cfg.name}: non-finite {name} logits")
     out["launches"] = calls
-    del params, toks
-    gc.collect()
-    torch.cuda.empty_cache()
     return out
 
 
 def phase11_serve(dev) -> dict:
-    """The serving main path at full width; returns per-arch results."""
+    """The serving main path at full width; returns per-arch results.  Each
+    arch's weights are drawn once (``self_consistency_inputs``, bf16):
+    ``run_serve`` serves them, the bf16 self-consistency gaps read them,
+    and they are cast leaf by leaf to float32 for the float32 gaps."""
     import gc
     import torch
     from repro_torch import kernels
@@ -1109,13 +1140,17 @@ def phase11_serve(dev) -> dict:
     for arch, kernel in (("qwen3-14b", "flash_attention"),
                          ("mamba2-1.3b", "ssd_scan")):
         cfg = get_config(arch)
+        t0 = time.time()
+        params, toks = self_consistency_inputs(dev, cfg)
+        torch.cuda.synchronize()
+        say(f"{arch}: full-width weights drawn in {time.time() - t0:.1f} s")
         want = {k: 0 for k in kernels.launch_counts()}
         want[kernel] = cfg.num_layers
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         seqs, t_prefill, t_decode = run_serve(
             arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
-            reduced=False, device=dev)
+            reduced=False, device=dev, params=params)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         if launches != want:
@@ -1135,8 +1170,12 @@ def phase11_serve(dev) -> dict:
         torch.cuda.empty_cache()
 
         for dtype in ("bfloat16", "float32"):
-            gaps = self_consistency(dev, dataclasses.replace(cfg, dtype=dtype),
-                                    kernel)
+            if dtype == "float32":
+                _cast_tree(params, torch.float32)
+                gc.collect()
+                torch.cuda.empty_cache()
+            gaps = self_consistency(
+                params, dataclasses.replace(cfg, dtype=dtype), toks, kernel)
             tol = SELF_TOL_F32 if dtype == "float32" else SELF_TOL_BF16[arch]
             say(f"{arch} {dtype}: {kernel} launches per call "
                 f"{gaps['launches']}; prefill ≡ forward max |diff| "
@@ -1151,8 +1190,12 @@ def phase11_serve(dev) -> dict:
                         f"{arch} {dtype}: {name} vs forward differs by "
                         f"{gaps[name]} (relative {gaps[name + '_rel']}) "
                         f"over {tol[name]}")
+        del params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
         out[arch] = {"launches": launches[kernel], "t_prefill": t_prefill,
                      "t_decode": t_decode}
+        say(f"{arch}: phase 11 wall {time.time() - t0:.1f} s")
     return out
 
 
@@ -2329,6 +2372,14 @@ BWD_SHAPES = [          # (B, S, H, KV, D, dtype, causal, window)
     (1, 130, 4, 2, 96, "float32", False, 0),
     (2, 77, 6, 2, 192, "float32", True, 9),
     (1, 130, 4, 2, 192, "float32", False, 0),
+    # The GQA groups that phase 20's train steps send through the bf16 pair
+    # at 4 x 1024, held here before any step runs: minitron-4b's 3 (24/8),
+    # jamba-v0.1-52b's 4 (32/8), arctic-480b's 7 (56/8) and qwen2-72b's 8
+    # (64/8); nemotron-4-340b's 12 at head_dim 192 is above.
+    (4, 1024, 24, 8, 128, "bfloat16", True, 0),
+    (4, 1024, 32, 8, 128, "bfloat16", True, 0),
+    (4, 1024, 56, 8, 128, "bfloat16", True, 0),
+    (4, 1024, 64, 8, 128, "bfloat16", True, 0),
     # The float32 kernels (tensor cores, split TF32) at every head_dim:
     # causal with a GQA group of 8, windowed with a group of 1, not causal
     # with a group of 3, each at an S of no multiple of their 16- to 64-row
@@ -3848,21 +3899,73 @@ for b in (4, 2, 1):
         break
 emit("phi-3-vision-4.2b train", {})
 """
+# Phase 20's train steps: each zoo arch at its ZOO_LAYERS depth, one
+# microbatch of TRAIN_BATCH x TRAIN_SEQ under its config's remat, traced as
+# the AdamW train step (``run_train``'s; phase 20 runs it where it fits),
+# as the gradients alone and, where the config rematerialises (more than
+# one superblock), as the gradients without remat.  Three more background
+# processes, two archs each, the heaviest traces apart; one JSON record a
+# line to ZOO_DRYRUN_LOGS.
+ZOO_DRYRUN_GROUPS = (("minitron-4b", "arctic-480b"),
+                     ("granite-moe-1b-a400m", "jamba-v0.1-52b"),
+                     ("qwen2-72b", "nemotron-4-340b"))
+ZOO_DRYRUN_LOGS = tuple(ROOT / "build" / f"phase20_dryrun_{i}.log"
+                        for i in range(len(ZOO_DRYRUN_GROUPS)))
+ZOO_DRYRUN_SCRIPT = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.models.transformer import stack_plan
+
+batch, seq = map(int, sys.argv[1:3])
+torch.set_num_threads(1)
+shape = InputShape("phase20_train", seq, batch, "train")
+for item in sys.argv[3:]:
+    arch, layers = item.split(":")
+    cfg = get_config(arch)
+    if int(layers):
+        cfg = dataclasses.replace(cfg, num_layers=int(layers))
+    runs = [("grad step", cfg, True), ("train step", cfg, False)]
+    if cfg.remat and stack_plan(cfg)[2] > 1:
+        runs.append(("grad step remat off",
+                     dataclasses.replace(cfg, remat=False), True))
+    for what, c, grads_only in runs:
+        rec = dryrun.dryrun_step(arch, c, shape, microbatches=1,
+                                 grads_only=grads_only)
+        print(json.dumps({"what": f"{arch} zoo {what}", **rec}), flush=True)
+"""
 _BACKGROUND: list = []
 
 
+def zoo_dryrun_names(arch: str) -> list:
+    """The records phase 20 reads for ``arch`` (see ZOO_DRYRUN_SCRIPT)."""
+    from repro_torch.models.transformer import stack_plan
+    cfg = zoo_config(arch)
+    names = [f"{arch} zoo grad step", f"{arch} zoo train step"]
+    if cfg.remat and stack_plan(cfg)[2] > 1:
+        names.append(f"{arch} zoo grad step remat off")
+    return names
+
+
 def start_dryrun() -> None:
-    """Start the background dry-run process (see DRYRUN_SCRIPT);
-    ``stop_background`` ends it."""
+    """Start the background dry-run processes (see DRYRUN_SCRIPT and
+    ZOO_DRYRUN_SCRIPT); ``stop_background`` ends them."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
     DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
-    with open(DRYRUN_LOG, "w") as out:
-        _BACKGROUND.append(subprocess.Popen(
-            [sys.executable, "-c", DRYRUN_SCRIPT, str(SERVE_BATCH),
-             str(SERVE_PROMPT), str(TRAIN_SEQ), str(TRAIN_QWEN_LAYERS)],
-            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
-            preexec_fn=lambda: os.nice(10)))
+    jobs = [(DRYRUN_LOG, [DRYRUN_SCRIPT, str(SERVE_BATCH), str(SERVE_PROMPT),
+                          str(TRAIN_SEQ), str(TRAIN_QWEN_LAYERS)])]
+    jobs += [(log, [ZOO_DRYRUN_SCRIPT, str(TRAIN_BATCH), str(TRAIN_SEQ)]
+              + [f"{a}:{ZOO_LAYERS[a] or 0}" for a in group])
+             for log, group in zip(ZOO_DRYRUN_LOGS, ZOO_DRYRUN_GROUPS)]
+    for log, args in jobs:
+        with open(log, "w") as out:
+            _BACKGROUND.append(subprocess.Popen(
+                [sys.executable, "-c", *args], cwd=ROOT, env=env,
+                stdout=out, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(10)))
 
 
 def stop_background() -> None:
@@ -3873,25 +3976,27 @@ def stop_background() -> None:
 
 
 def dryrun_records(wait_for) -> dict:
-    """The background records by ``what``, once every ``what`` in
-    ``wait_for`` is there (or the process has failed, or DRYRUN_WAIT_S has
-    passed since the call)."""
+    """The background records by ``what``, from every process's log, once
+    every ``what`` in ``wait_for`` is there (or a process has failed, or
+    DRYRUN_WAIT_S has passed since the call)."""
     t0 = time.time()
+    logs = (DRYRUN_LOG,) + ZOO_DRYRUN_LOGS
     while True:
         records = {}
-        for line in DRYRUN_LOG.read_text().splitlines():
-            if line.startswith('{"what"'):
-                r = json.loads(line)
-                records[r["what"]] = r
+        for log in logs:
+            for line in log.read_text().splitlines():
+                if line.startswith('{"what"'):
+                    r = json.loads(line)
+                    records[r["what"]] = r
         missing = set(wait_for) - set(records)
         if not missing:
             return records
         failed = any(p.poll() not in (None, 0) for p in _BACKGROUND)
         if failed or time.time() - t0 > DRYRUN_WAIT_S:
+            tails = "\n".join(log.read_text()[-1500:] for log in logs)
             raise AssertionError(f"dry-run records missing: {sorted(missing)}"
                                  f" (process failed: {failed}, waited "
-                                 f"{time.time() - t0:.0f} s)\n"
-                                 f"{DRYRUN_LOG.read_text()[-3000:]}")
+                                 f"{time.time() - t0:.0f} s)\n{tails}")
         time.sleep(2)
 
 
@@ -4205,64 +4310,57 @@ def _cast_tree(tree, dtype) -> None:
             tree[key] = value.to(dtype)
 
 
-def zoo_gaps(dev, arch: str, dtypes) -> dict:
-    """``serve_gaps`` of ``arch`` at its phase-20 depth (a MoE routing
-    dropless) on ``self_consistency_inputs``' weights and prompt, in each
-    of ``dtypes`` in turn: the weights are drawn in the first and cast,
-    leaf by leaf, to the next (TF32 off in float32).  Asserts one kernel
-    launch a mixer layer in forward and prefill, none in decode, and
-    finite logits.  Returns {dtype: gaps}."""
-    import gc
-    import torch
-    cfg = dataclasses.replace(zoo_config(arch, dropless=True),
-                              dtype=dtypes[0])
-    params, toks = self_consistency_inputs(dev, cfg)
-    out = {}
-    for dtype in dtypes:
-        if dtype != cfg.dtype:
-            cfg = dataclasses.replace(cfg, dtype=dtype)
-            _cast_tree(params, getattr(torch, dtype))
-            gc.collect()
-            torch.cuda.empty_cache()
-        old = _tf32(False, False) if dtype == "float32" else None
-        try:
-            gaps = serve_gaps(params, cfg, toks)
-        finally:
-            if old is not None:
-                _tf32(*old)
-        mix = mixer_launches(cfg)
-        for call in ("forward", "prefill", "decode_step"):
-            got = {k: gaps["launches"][call][k] for k in mix}
-            if got != (mix if call != "decode_step"
-                       else dict.fromkeys(mix, 0)):
-                raise AssertionError(f"{arch} {dtype}: {call} launches "
-                                     f"{got}")
-        for name, ok in gaps["finite"].items():
-            if not ok:
-                raise AssertionError(f"{arch} {dtype}: non-finite {name} "
-                                     f"logits")
-        out[dtype] = gaps
-    del params, toks
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+def _zoo_gap(dev, arch: str, params, toks, dtype: str) -> dict:
+    """``serve_gaps`` of ``arch`` at its phase-20 depth, its MoE routing
+    dropless, on ``params`` (already in ``dtype``; TF32 off in float32) and
+    ``self_consistency_inputs``' prompt, held to ``SELF_TOL_BF16`` or
+    ``SELF_TOL_F32``; asserts one kernel launch a mixer layer in forward and
+    prefill, none in decode, and finite logits."""
+    cfg = dataclasses.replace(zoo_config(arch, dropless=True), dtype=dtype)
+    old = _tf32(False, False) if dtype == "float32" else None
+    try:
+        g = serve_gaps(params, cfg, toks)
+    finally:
+        if old is not None:
+            _tf32(*old)
+    mix = mixer_launches(cfg)
+    for call in ("forward", "prefill", "decode_step"):
+        got = {k: g["launches"][call][k] for k in mix}
+        if got != (mix if call != "decode_step" else dict.fromkeys(mix, 0)):
+            raise AssertionError(f"{arch} {dtype}: {call} launches {got}")
+    for name, ok in g["finite"].items():
+        if not ok:
+            raise AssertionError(f"{arch} {dtype}: non-finite {name} logits")
+    tol = SELF_TOL_F32 if dtype == "float32" else SELF_TOL_BF16.get(arch)
+    say(f"{arch} {dtype}{' (moe_dropless)' if cfg.num_experts else ''}, "
+        f"prompt {g['prompt']}: prefill ≡ forward max |diff| "
+        f"{g['prefill']:.3e} (relative {g['prefill_rel']:.3e}, limit "
+        f"{tol['prefill'] if tol else 'none'}), decode_step ≡ forward "
+        f"{g['decode']:.3e} (relative {g['decode_rel']:.3e}, limit "
+        f"{tol['decode'] if tol else 'none'}); |logits| up to "
+        f"{g['scale']:.2f}")
+    for name in ("prefill", "decode"):
+        if tol and not g[name + "_rel"] <= tol[name]:
+            raise AssertionError(f"{arch} {dtype}: {name} vs forward differs "
+                                 f"by {g[name]} (relative "
+                                 f"{g[name + '_rel']}) over {tol[name]}")
+    return {k: g[k] for k in ("prefill_rel", "decode_rel")}
 
 
 def _step_grads(dev, cfg, params, batch) -> dict:
     """One train step's gradients at ``params`` (left as they are) on
-    ``batch``, taken as ``make_train_step`` takes them (plain autograd of
-    ``loss_fn`` over detached leaves), with the launch counts set to 0 just
-    before and read just after -> {"loss", "grads" (flat), "s", "peak",
-    "above", "launches"}; ``peak`` is ``max_memory_allocated`` over the
-    call, ``above`` that less what was allocated when it began (the params
-    and any gradients held): the step's own memory."""
+    ``batch`` (``launch.steps.make_grad_step``: plain autograd of
+    ``loss_fn`` over detached leaves, as ``make_train_step`` takes them),
+    with the launch counts set to 0 just before and read just after ->
+    {"loss", "grads" (flat), "s", "peak", "above", "launches"}; ``peak`` is
+    ``max_memory_allocated`` over the call, ``above`` that less what was
+    allocated when it began (the params and any gradients held): the
+    step's own memory."""
     import gc
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.ssd_scan import backward as ssd_backward
-    from repro_torch.models import loss_fn
-    from repro_torch.models.transformer import (flatten_params,
-                                                unflatten_params)
+    from repro_torch.launch.steps import make_grad_step
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4271,18 +4369,14 @@ def _step_grads(dev, cfg, params, batch) -> dict:
     ssd_backward.vjp_calls = 0
     base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
-    leaves = {k: p.detach().requires_grad_()
-              for k, p in flatten_params(params).items()}
-    loss = loss_fn(unflatten_params(leaves), cfg, batch)[0]
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads, loss = make_grad_step(cfg)(params, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     launches["ssd_vjp"] = ssd_backward.vjp_calls
     peak = torch.cuda.max_memory_allocated(dev)
-    return {"loss": loss.detach(), "grads": dict(zip(leaves, grads)),
-            "s": wall, "peak": peak, "above": peak - base,
-            "launches": launches}
+    return {"loss": loss, "grads": grads, "s": wall, "peak": peak,
+            "above": peak - base, "launches": launches}
 
 
 def _grads_equal(a: dict, b: dict) -> bool:
@@ -4292,8 +4386,10 @@ def _grads_equal(a: dict, b: dict) -> bool:
 
 
 def _float_gap(got: dict, want: dict) -> float:
-    """``_leaf_gap`` in float32, a leaf at a time."""
-    return max(_leaf_gap({k: got[k].float()}, {k: want[k].float()})
+    """``_leaf_gap`` in float32, a leaf at a time (``want``'s leaves moved
+    to ``got``'s device one at a time)."""
+    return max(_leaf_gap({k: got[k].float()},
+                         {k: want[k].to(got[k].device).float()})
                for k in want)
 
 
@@ -4307,133 +4403,220 @@ def _remat_batch(dev, cfg, seq: int) -> dict:
                           TRAIN_BATCH)
 
 
-def _zoo_remat_gap(dev, cfg) -> dict:
-    """The trained MoE arch's gradients under its config's remat against
-    remat off, from the same params and batch, beside the remat-off step's
-    own run-to-run gap: capacity routing's ``index_add`` sums repeated token
-    indices with atomics in no fixed order on the card, so a recompute may
-    differ from its forward by an ulp and a near-tied router may send a
-    token elsewhere; neither gap is held."""
+def _zoo_grads(dev, arch: str, cfg, params, records: dict) -> dict:
+    """Phase 20's gradient step of ``arch`` on its drawn ``params``: one
+    train step's gradients at TRAIN_BATCH x TRAIN_SEQ under the config's
+    remat, twice, then without remat where the config rematerialises and
+    the dry-run puts that step on the card, each with the launch counts set
+    to 0 just before and read just after.  The first run's gradients go to
+    the host, so that no two sets of a 13 B-param step share the card; the
+    later runs are compared with them leaf by leaf, each host leaf brought
+    back to the card in turn.  Raises unless the losses are finite, each
+    run launches ``train_launches`` of its config and no plain vjp, and
+    every run is bit-equal to the first."""
     import gc
+    import math
     import torch
-    from repro_torch.models import init_model
-    from repro_torch.rng import PRNGKey
-    params = init_model(PRNGKey(0, dev), cfg, device=dev)
+    from repro_torch.models.transformer import stack_plan
     batch = _remat_batch(dev, cfg, TRAIN_SEQ)
     off = dataclasses.replace(cfg, remat=False)
-    ref = _step_grads(dev, off, params, batch)
-    again = _step_grads(dev, off, params, batch)
-    on = _step_grads(dev, cfg, params, batch)
-    out = {"remat_gap": _float_gap(on["grads"], ref["grads"]),
-           "run_gap": _float_gap(again["grads"], ref["grads"]),
-           "remat_loss_gap": abs(float(on["loss"]) - float(ref["loss"])),
-           "run_loss_gap": abs(float(again["loss"]) - float(ref["loss"]))}
-    say(f"{ZOO_TRAIN}, one step's gradients at {TRAIN_BATCH} x {TRAIN_SEQ}: "
-        f"remat {cfg.remat_policy} against remat off within "
-        f"{out['remat_gap']:.3e} of each leaf's max |grad| (loss "
-        f"{out['remat_loss_gap']:.3e}); remat off against itself "
-        f"{out['run_gap']:.3e} (loss {out['run_loss_gap']:.3e}): not held "
-        f"(index_add's atomics)")
-    del params, ref, again, on
+    remats = bool(cfg.remat and stack_plan(cfg)[2] > 1)
+    runs = [("first", cfg, records[f"{arch} zoo grad step"]),
+            ("again", cfg, records[f"{arch} zoo grad step"])]
+    if remats:
+        rec = records[f"{arch} zoo grad step remat off"]
+        if rec["fits_one_card"]:
+            runs.append(("off", off, rec))
+        else:
+            say(f"{arch}: no remat-off gradients: the dry-run puts them at "
+                f"{rec['peak_memory_per_device'] / 1e9:.2f} GB")
+    out, host = {"rematerialises": remats}, None
+    for what, c, rec in runs:
+        r = _step_grads(dev, c, params, batch)
+        want = train_launches(c)
+        loss = float(r["loss"])
+        if not math.isfinite(loss) or r["launches"]["ssd_vjp"] or any(
+                r["launches"][k] != n for k, n in want.items()):
+            raise AssertionError(f"{arch} {what}: loss {loss}, launches "
+                                 f"{r['launches']}, expected {want} and no "
+                                 f"plain vjp")
+        t0 = time.perf_counter()
+        if host is None:
+            host = {"loss": r["loss"].cpu(),
+                    "grads": {k: g.cpu() for k, g in r["grads"].items()}}
+            equal = True
+        else:
+            equal = torch.equal(r["loss"].cpu(), host["loss"]) and all(
+                torch.equal(g, host["grads"][k].to(dev))
+                for k, g in r["grads"].items())
+        t_host = time.perf_counter() - t0
+        row = {k: r[k] for k in ("s", "peak", "above", "launches")}
+        row.update(loss=loss, equal=equal, estimate=rec[
+            "peak_memory_per_device"])
+        out[what] = row
+        policy = c.remat_policy if c.remat and remats else "no remat"
+        kept = ("to the host" if what == "first"
+                else f"bit-equal to the first: {equal}")
+        say(f"{arch} gradients ({what}, {policy}), {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}: loss {loss:.4f}; {row['s'] * 1e3:.1f} ms; peak "
+            f"{row['peak'] / 1e9:.2f} GB (max_memory_allocated; the step's "
+            f"own {row['above'] / 1e9:.2f} GB over the params) against the "
+            f"dry-run's {row['estimate'] / 1e9:.2f} GB; launches "
+            f"{ {k: v for k, v in row['launches'].items() if v} }; {kept} "
+            f"({t_host:.1f} s)")
+        if not equal:
+            gap = _float_gap(r["grads"], host["grads"])
+            raise AssertionError(f"{arch} {what}: gradients differ from the "
+                                 f"first run's by {gap} of a leaf's max "
+                                 f"|grad| (loss {loss} against "
+                                 f"{float(host['loss'])})")
+        del r
+    del host, batch
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def phase20_zoo(dev) -> dict:
-    """The arch zoo at full width in bf16: each arch's serving main path
-    (``run_serve``, capacity routing), decode ≡ forward, and granite-moe's
-    full-width training."""
-    import gc
+def _zoo_run_train(dev, arch: str, cfg, layers) -> dict:
+    """``run_train`` of ``arch`` at full width (``_train_run``: batch
+    TRAIN_BATCH, or half that if it runs out of memory), TRAIN_STEPS steps
+    of TRAIN_SEQ tokens under the config's remat, with the launch counts
+    set to 0 just before and read just after: finite losses and
+    ``train_launches(cfg)`` a step."""
     import math
-    import torch
-    from repro_torch import kernels
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import run_serve
-    say(f"== 20. the arch zoo at full width on the card (bf16): run_serve("
-        f"batch={SERVE_BATCH}, prompt_len={SERVE_PROMPT}, gen={SERVE_GEN}),"
-        f" decode ≡ forward, and {ZOO_TRAIN}'s train steps")
-    t_phase = time.time()
-    out = {}
-    for arch, layers in ZOO_LAYERS.items():
-        t0 = time.time()
-        cfg = zoo_config(arch)
-        want = dict.fromkeys(kernels.launch_counts(), 0)
-        want.update(mixer_launches(cfg))
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        kernels.reset_launch_counts()
-        seqs, t_prefill, t_decode = run_serve(
-            arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
-            reduced=False, device=dev, num_layers=layers)
-        torch.cuda.synchronize()
-        launches = kernels.launch_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
-        if launches != want:
-            raise AssertionError(f"{arch}: launches {launches}, expected "
-                                 f"{want} (one a mixer layer of the prefill,"
-                                 f" none in decode)")
-        if seqs.shape != (SERVE_BATCH, SERVE_GEN) or int(seqs.min()) < 0 \
-                or int(seqs.max()) >= cfg.vocab_size:
-            raise AssertionError(f"{arch}: tokens {tuple(seqs.shape)} out of "
-                                 f"range")
-        del seqs
-        say(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} "
-            f"layers{', capacity routing' if cfg.num_experts else ''}; "
-            f"prefill {t_prefill * 1e3:.1f} ms, decode {t_decode * 1e3:.2f} "
-            f"ms/token, peak {peak / 1e9:.2f} GB (max_memory_allocated, the "
-            f"weights' init included), launches {launches}")
-
-        gaps = zoo_gaps(dev, arch, ZOO_SELF_DTYPES[arch])
-        for dtype, g in gaps.items():
-            tol = (SELF_TOL_F32 if dtype == "float32"
-                   else SELF_TOL_BF16.get(arch))
-            say(f"{arch} {dtype}{' (moe_dropless)' if cfg.num_experts else ''}"
-                f", prompt {g['prompt']}: prefill ≡ forward max |diff| "
-                f"{g['prefill']:.3e} (relative {g['prefill_rel']:.3e}, limit "
-                f"{tol['prefill'] if tol else 'none'}), decode_step ≡ forward "
-                f"{g['decode']:.3e} (relative {g['decode_rel']:.3e}, limit "
-                f"{tol['decode'] if tol else 'none'}); |logits| up to "
-                f"{g['scale']:.2f}")
-            for name in ("prefill", "decode"):
-                if tol and not g[name + "_rel"] <= tol[name]:
-                    raise AssertionError(
-                        f"{arch} {dtype}: {name} vs forward differs by "
-                        f"{g[name]} (relative {g[name + '_rel']}) over "
-                        f"{tol[name]}")
-        out[arch] = {"layers": cfg.num_layers, "launches": launches,
-                     "t_prefill": t_prefill, "t_decode": t_decode,
-                     "peak": peak,
-                     "gaps": {dt: {k: g[k] for k in ("prefill_rel",
-                                                     "decode_rel")}
-                              for dt, g in gaps.items()}}
-        say(f"{arch}: phase 20 wall {time.time() - t0:.1f} s")
-
     t0 = time.time()
-    cfg = zoo_config(ZOO_TRAIN)
-    r = _train_run(dev, ZOO_TRAIN)
+    r = _train_run(dev, arch, **({"num_layers": layers} if layers else {}))
     warm = r["step_s"][1:]
     tok_s = r["batch"] * TRAIN_SEQ / statistics.median(warm)
     want = train_launches(cfg)
-    say(f"{ZOO_TRAIN} run_train at full width and depth, capacity routing: "
-        f"batch {r['batch']} x {TRAIN_SEQ}; losses "
+    say(f"{arch} run_train at full width, {cfg.num_layers} layers"
+        f"{', capacity routing' if cfg.num_experts else ''}: batch "
+        f"{r['batch']} x {TRAIN_SEQ}; losses "
         f"{[round(x, 4) for x in r['losses']]}; step "
         f"{[f'{x:.3f}' for x in r['step_s']]} s (first with the kernels' "
         f"first launches), {tok_s:.0f} tokens/s warm; the batch's token draw "
         f"alone {r['draw_s']:.3f} s; peak {r['peak'] / 1e9:.2f} GB; launches"
         f" a step {r['launches']}; wall {time.time() - t0:.1f} s")
-    if not all(math.isfinite(x) for x in r["losses"]) or any(
-            r["launches"][k] != n for k, n in want.items()):
-        raise AssertionError(f"{ZOO_TRAIN} training: losses {r['losses']}, "
+    if not all(math.isfinite(x) for x in r["losses"]) or r["launches"][
+            "ssd_vjp"] or any(r["launches"][k] != n for k, n in want.items()):
+        raise AssertionError(f"{arch} training: losses {r['losses']}, "
                              f"launches {r['launches']} (expected {want} a "
-                             f"step, one microbatch)")
-    out["train"] = {"arch": ZOO_TRAIN, "step_s": r["step_s"],
-                    "tokens_s": tok_s, "peak": r["peak"],
-                    "launches": r["launches"], "losses": r["losses"],
-                    **_zoo_remat_gap(dev, cfg)}
-    say(f"phase 20 wall {time.time() - t_phase:.1f} s")
+                             f"step, one microbatch, no plain vjp)")
+    return {"arch": arch, "step_s": r["step_s"], "tokens_s": tok_s,
+            "peak": r["peak"], "launches": r["launches"],
+            "losses": r["losses"], "batch": r["batch"]}
+
+
+# Phase 20's reduced-width float32 gradients, card against CPU (TF32 off),
+# at each MoE-bearing arch's layer pattern with capacity routing (the
+# published configs' routing; reduced() routes dropless): arctic-480b's
+# dense residual beside its MoE, jamba-v0.1-52b's period of 8 (attention at
+# layer 4, Mamba elsewhere, MoE every other layer).
+ZOO_REDUCED_GRADS = {
+    "arctic-480b": ({"moe_dropless": False}, 7),
+    "jamba-v0.1-52b": ({"moe_dropless": False, "num_layers": 8,
+                        "attn_layer_offset": 4, "attn_layer_period": 8}, 8)}
+
+
+def _zoo_arch(dev, arch: str, records: dict) -> dict:
+    """Phase 20 for one arch, its weights drawn once (seed 11, bf16): the
+    serving main path on them, decode ≡ forward in bf16, the gradient step,
+    decode ≡ forward in float32 on the weights cast up; then ``run_train``
+    where the dry-run fits its AdamW step, and the reduced-width gradients
+    card against CPU where ZOO_REDUCED_GRADS lists the arch."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+    layers = ZOO_LAYERS[arch]
+    cfg = zoo_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    params, toks = self_consistency_inputs(dev, cfg)
+    torch.cuda.synchronize()
+    t_draw = time.time() - t0
+    want = dict.fromkeys(kernels.launch_counts(), 0)
+    want.update(mixer_launches(cfg))
+    kernels.reset_launch_counts()
+    seqs, t_prefill, t_decode = run_serve(
+        arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+        reduced=False, device=dev, num_layers=layers, params=params)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, expected {want} "
+                             f"(one a mixer layer of the prefill, none in "
+                             f"decode)")
+    if seqs.shape != (SERVE_BATCH, SERVE_GEN) or int(seqs.min()) < 0 \
+            or int(seqs.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: tokens {tuple(seqs.shape)} out of "
+                             f"range")
+    del seqs
+    say(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} layers"
+        f"{', capacity routing' if cfg.num_experts else ''}; weights drawn "
+        f"in {t_draw:.1f} s; prefill {t_prefill * 1e3:.1f} ms, decode "
+        f"{t_decode * 1e3:.2f} ms/token, peak {peak / 1e9:.2f} GB "
+        f"(max_memory_allocated, the weights included), launches {launches}")
+    out = {"layers": cfg.num_layers, "launches": launches,
+           "t_prefill": t_prefill, "t_decode": t_decode, "peak": peak,
+           "gaps": {"bfloat16": _zoo_gap(dev, arch, params, toks,
+                                         "bfloat16")}}
+    out["grads"] = _zoo_grads(dev, arch, cfg, params, records)
+    if "float32" in ZOO_SELF_DTYPES[arch]:
+        _cast_tree(params, torch.float32)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["gaps"]["float32"] = _zoo_gap(dev, arch, params, toks, "float32")
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = records[f"{arch} zoo train step"]
+    say(f"dry-run {arch} train step (AdamW, {opt_moments(cfg)} moments), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: estimated peak "
+        f"{rec['peak_memory_per_device'] / 1e9:.2f} GB, fits_one_card="
+        f"{rec['fits_one_card']}: "
+        f"{'run_train' if rec['fits_one_card'] else 'the gradient step only'}")
+    out["run_train"] = (_zoo_run_train(dev, arch, cfg, layers)
+                        if rec["fits_one_card"] else None)
+    if arch in ZOO_REDUCED_GRADS:
+        over, seed = ZOO_REDUCED_GRADS[arch]
+        out["reduced_grad_gap"] = _reduced_grads(
+            dev, arch, get_config(arch).reduced(dtype="float32", **over), seed)
+    return out
+
+
+def opt_moments(cfg) -> str:
+    """The dtype of the AdamW moments of ``cfg``'s train step."""
+    from repro_torch.launch.steps import opt_state_dtype
+    return str(opt_state_dtype(cfg)).replace("torch.", "")
+
+
+def phase20_zoo(dev) -> dict:
+    """The arch zoo at full width in bf16, each arch's weights drawn once:
+    its serving main path (``run_serve``, capacity routing), decode ≡
+    forward, a train step's gradients (run to run and remat ≡ no remat bit
+    for bit), ``run_train`` where its AdamW step fits, and the MoE archs'
+    reduced gradients card against CPU."""
+    say(f"== 20. the arch zoo at full width on the card (bf16): run_serve("
+        f"batch={SERVE_BATCH}, prompt_len={SERVE_PROMPT}, gen={SERVE_GEN}),"
+        f" decode ≡ forward, a train step's gradients at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, run_train where it fits")
+    t_phase = time.time()
+    records = dryrun_records([n for a in ZOO_LAYERS
+                              for n in zoo_dryrun_names(a)])
+    say(f"phase 20's dry-run records read after {time.time() - t_phase:.1f}"
+        f" s of waiting")
+    out = {}
+    for arch in ZOO_LAYERS:
+        t0 = time.time()
+        out[arch] = _zoo_arch(dev, arch, records)
+        say(f"{arch}: phase 20 wall {time.time() - t0:.1f} s")
+    out["train"] = out[ZOO_TRAIN]["run_train"]
     return out
 
 
@@ -4620,33 +4803,39 @@ def _modal_serve(dev, arch: str, batch: int, prompt: int) -> dict:
 
 def _reduced_grads(dev, what: str, cfg, seed: int) -> float:
     """``cfg``'s float32 model gradients on the card against the CPU (TF32
-    off), within GRAD_TOL of each leaf's largest magnitude, with one
-    ``flash_attention`` and one ``flash_attention_bwd`` launch an attention
-    layer -> the gap."""
+    off), within GRAD_TOL of each leaf's largest magnitude, with the
+    launches of ``train_launches(cfg)`` (one ``flash_attention`` and one
+    ``flash_attention_bwd`` an attention layer, one ``ssd_scan`` and one
+    ``ssd_scan_bwd`` a Mamba layer) and no plain vjp -> the gap."""
     import numpy as np
     import torch
     from repro_torch import kernels, rng
+    from repro_torch.kernels.ssd_scan import backward as ssd_backward
     old = _tf32(False, False)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (2, 200)))
     extra = modality_batch(cfg, 2, seed=seed)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    ssd_backward.vjp_calls = 0
     got = _lm_grads(cfg, dev, rng.PRNGKey(seed), toks, _targets(toks), extra)
     launches = kernels.launch_counts()
+    launches["ssd_vjp"] = ssd_backward.vjp_calls
     want = _lm_grads(cfg, torch.device("cpu"), rng.PRNGKey(seed), toks,
                      _targets(toks), extra)
     _tf32(*old)
     gap = _leaf_gap(got, want)
     zero = [k for k in want if not want[k].abs().max() > 0]
+    mixers = "".join(m[0] for m, _ in cfg.layer_kinds())   # a, m
+    routing = (", capacity routing"
+               if cfg.num_experts and not cfg.moe_dropless else "")
     say(f"{what} reduced float32 gradients (head_dim "
-        f"{cfg.resolved_head_dim}, {len(want)} leaves): card vs CPU within "
-        f"{gap:.2e} of each leaf's max |grad| (limit {GRAD_TOL:.0e}); "
-        f"launches {launches}")
-    attn = mixer_launches(cfg)["flash_attention"]
-    if not gap <= GRAD_TOL or zero or (
-            launches["flash_attention"],
-            launches["flash_attention_bwd"]) != (attn, attn):
+        f"{cfg.resolved_head_dim}, layers {mixers}{routing}, "
+        f"{len(want)} leaves): card vs CPU within {gap:.2e} of each "
+        f"leaf's max |grad| (limit {GRAD_TOL:.0e}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not gap <= GRAD_TOL or zero or launches["ssd_vjp"] or any(
+            launches[k] != n for k, n in train_launches(cfg).items()):
         raise AssertionError(f"{what}: card gradients differ from the "
                              f"CPU's by {gap}, zero leaves {zero}, launches "
                              f"{launches}")
@@ -4846,7 +5035,6 @@ def phase21_modal(dev, records: dict) -> dict:
     phi-3-vision-4.2b trained."""
     say("== 21. the VLM and audio pathways: phi-3-vision-4.2b and "
         "whisper-tiny at full width")
-    t_phase = time.time()
     out = {}
     say("-- 21a. flash_attention at head_dim 96 and without the causal mask")
     out["d96"] = _attention_times(dev, VLM_BATCH, 2 * VLM_PROMPT, 32, 32, 96,
@@ -4864,7 +5052,6 @@ def phase21_modal(dev, records: dict) -> dict:
     say("-- 21f. the attention backward at head_dim 96 and 192 on a model; "
         "phi-3-vision-4.2b trained")
     out["vlm_train"] = _vlm_train(dev, records)
-    say(f"phase 21 wall {time.time() - t_phase:.1f} s")
     return out
 
 
@@ -5016,22 +5203,23 @@ def _remat_arch(dev, arch: str, layers) -> dict:
     return out
 
 
-def phase22_remat(dev, card: str, zoo_train: dict) -> dict:
+def phase22_remat(dev, zoo: dict) -> dict:
     """The reference's activation rematerialisation on the card: (a) the
     gradients under each policy against none, (b) steps at 4 x 4096 under
-    ``full``, (c) phase 20's MoE remat gap."""
+    ``full``, (c) phase 20's MoE remat check, held."""
     say("== 22. remat: the train step's activation rematerialisation "
         f"(remat_policy {' | '.join(REMAT_POLICIES)}) at full width")
-    t_phase = time.time()
     out = {arch: _remat_arch(dev, arch, layers)
            for arch, layers in (("mamba2-1.3b", None),
                                 ("qwen3-14b", TRAIN_QWEN_LAYERS))}
-    say(f"-- 22c. {ZOO_TRAIN} (phase 20): remat full against off "
-        f"{zoo_train['remat_gap']:.3e} of each leaf's max |grad|, off "
-        f"against itself {zoo_train['run_gap']:.3e}; losses "
-        f"{zoo_train['remat_loss_gap']:.3e} and "
-        f"{zoo_train['run_loss_gap']:.3e} apart")
-    say(f"phase 22 wall {time.time() - t_phase:.1f} s ({card})")
+    moe = zoo[ZOO_TRAIN]["grads"]
+    say(f"-- 22c. {ZOO_TRAIN} (phase 20), one step's gradients at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: remat full bit-equal run to run: "
+        f"{moe['again']['equal']}; remat off bit-equal to remat full: "
+        f"{moe.get('off', {}).get('equal')}")
+    if not (moe["again"]["equal"] and moe.get("off", {}).get("equal")):
+        raise AssertionError(f"{ZOO_TRAIN}: remat ≡ no remat not shown "
+                             f"bit for bit ({moe})")
     return out
 
 
@@ -5061,6 +5249,8 @@ def main() -> int:
     from repro_torch.kernels.dispatch import client_histograms
     from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref
     from repro_torch.kernels.label_hist.label_hist import plan_hist
+    from repro_torch.kernels.label_hist.ops import (
+        client_statistics as ops_client_statistics)
     from repro_torch.kernels.dispatch import masked_weighted_mean
     from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,
                                                   weighted_agg_leaves,
@@ -5088,6 +5278,7 @@ def main() -> int:
     say(Path(str(lib) + ".log").read_text().strip())
     tensor_core_report(lib)
 
+    wall("1-2")
     say("== 3. label_hist against its plain version (bit-equal)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     hist_err = 0.0
@@ -5103,7 +5294,27 @@ def main() -> int:
             f"{plan.blocks} blocks of {plan.threads} threads, "
             f"{plan.team_threads} threads a row, {plan.chunks_per_row} "
             f"chunks a row")
+    # The reference's always-kernel wrapper (label_hist/ops.py): -1-padded
+    # labels in, the kernel's histograms and their scores out.
+    padded = torch.from_numpy(np.where(
+        np.random.default_rng(3).random((100, 290)) < 0.2, -1,
+        np.random.default_rng(4).integers(0, 10, (100, 290))).astype(
+            np.int32))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = ops_client_statistics(padded.to(dev), 10)
+    torch.cuda.synchronize()
+    ops_launches = kernels.launch_counts()["label_hist"]
+    want = ops_client_statistics(padded, 10)
+    if ops_launches != 1 or not all(torch.equal(a.cpu(), b)
+                                    for a, b in zip(got, want)):
+        raise AssertionError(f"label_hist.ops.client_statistics: "
+                             f"{ops_launches} launches, or the histograms "
+                             f"or scores differ from the CPU's")
+    say("label_hist.ops.client_statistics (100, 290) with -1 padding: one "
+        "launch, histograms and scores bit-equal to the CPU's")
 
+    wall("3")
     say("== 4. weighted_agg against its plain version")
     cfg = FLConfig()
     shapes = {k: v.shape for k, v in cnn_init(device=dev).items()}
@@ -5182,6 +5393,7 @@ def main() -> int:
         f"abs err {tree_err:.3e}; masked_weighted_mean of the tree in one "
         f"launch, within its bound")
 
+    wall("4")
     say("== 5. one paper-width round on the card against the CPU")
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32,
@@ -5239,6 +5451,7 @@ def main() -> int:
         tf32[:2]
     torch.set_float32_matmul_precision(tf32[2])
 
+    wall("5")
     say("== 6. main path: run_fl_host, 3 paper-width rounds on the card")
     rounds = 3
     plan = case_label_plan("case1b", 0, rounds, cfg.num_clients)
@@ -5263,6 +5476,7 @@ def main() -> int:
     if hist.num_selected != [float(cfg.clients_per_round)] * rounds:
         raise AssertionError(f"selected {hist.num_selected}")
 
+    wall("6")
     say("== 7. kernel times at the main path's shapes (device time per call)")
     lab = torch.from_numpy(labels).to(dev)
     val = torch.from_numpy(valid).to(dev)
@@ -5309,46 +5523,62 @@ def main() -> int:
         f"{agg['bytes'] / 1e6:.1f} MB); per leaf summed: plain "
         f"{agg['plain']:.4f} ms, s @ stacked {agg['lib']:.4f} ms")
 
+    wall("7")
     flash_err, flash_f32_err = phase8_flash(dev)
+    wall("8")
     ssd_err = phase9_ssd(dev)
+    wall("9")
     phase10_serve_card_vs_cpu(dev)
+    wall("10")
     served = phase11_serve(dev)
+    wall("11")
     times = phase12_times(dev)
     fa, ssd = times["flash_attention"], times["ssd_scan"]
     fa192, ssd_jamba = times["flash_d192"], times["ssd_jamba"]
+    wall("12")
     phase13a_threefry(dev)
     grid = phase13b_grid(dev)
     phase13c_grid_vs_host(dev)
     axis = phase13d_trial_axis(dev)
     ta, eh = axis["weighted_agg"], axis["label_hist"]
+    wall("13")
     p14 = phase14ab_grid(dev, grid["round_s"][-1])
     phase14c_vs_host(dev)
     p14d = phase14d_card_vs_cpu(dev, p14["trials"])
     clus = p14["clustered"]
+    wall("14")
     p15 = phase15ab_engines(dev)
     p15c = phase15c_population(dev)
     p15d = phase15d_kernels(dev)
     pop_hist, pop_agg = p15d["label_hist"], p15d["weighted_agg"]
+    wall("15")
     bwd = phase16a_flash_backward(dev)
     p16bd = phase16bd_gradients(dev)
     ssd_bwd = p16bd["ssd_bwd"]
     phase16c_vmap_grad(dev)
     p16e = phase16e_lm_fl(dev)
     p16f = phase16f_full_width(dev)
+    wall("16")
     p17 = phase17_sharded(dev)
+    wall("17")
 
     phase18a_cli(dev, card)
     phase18b_registries(dev, card)
     phase18c_validate(dev, card)
     phase18d_extension(dev, card)
     phase18e_refusal(dev, card)
+    wall("18")
     phase19(dev, card, p16f)
+    wall("19")
     p20 = phase20_zoo(dev)
+    wall("20")
     p21 = phase21_modal(dev, dryrun_records(
         [f"{a} {s}" for a in (VLM, AUDIO) for s in MODAL_DRYRUN_SHAPES]
         + [f"{VLM} train"]))
+    wall("21")
     stop_background()
-    p22 = phase22_remat(dev, card, p20["train"])
+    p22 = phase22_remat(dev, p20)
+    wall("22")
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -5377,7 +5607,8 @@ def main() -> int:
          "sharded_launches": p17["a"]["launches"]["label_hist"],
          "sharded_clustered_launches":
              p17["clustered_fedavg4"]["launches"]["label_hist"],
-         "sharded_lm_launches": p17["lm"]["launches"]["label_hist"]},
+         "sharded_lm_launches": p17["lm"]["launches"]["label_hist"],
+         "ops_launches": ops_launches},
         {"name": "weighted_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
          "replaces": "src/repro/kernels/weighted_agg/weighted_agg.py:28",
@@ -5416,6 +5647,8 @@ def main() -> int:
          "d192_library_ms": fa192["lib"],
          "zoo_launches": {a: r["launches"]["flash_attention"]
                           for a, r in p20.items() if a != "train"},
+         "zoo_grad_launches": {a: p20[a]["grads"]["first"]["launches"][
+             "flash_attention"] for a in ZOO_LAYERS},
          **{f"{key}_{field}": p21[key][src]
             for key in ("d96", "noncausal")
             for field, src in (("shape", "shape"), ("ms", "ms"),
@@ -5445,6 +5678,8 @@ def main() -> int:
          "jamba_bound_ms": ssd_jamba["bound"],
          "jamba_bound_by": ssd_jamba["by"],
          "jamba_launches": p20["jamba-v0.1-52b"]["launches"]["ssd_scan"],
+         "jamba_grad_launches": p20["jamba-v0.1-52b"]["grads"]["first"][
+             "launches"]["ssd_scan"],
          "backward_grad_gap": p16bd["ssd_grad_gap"],
          "remat_launches": {p: p22["mamba2-1.3b"][p]["launches"][
              "ssd_scan"] for p in ("off",) + REMAT_POLICIES},
@@ -5462,6 +5697,8 @@ def main() -> int:
          "bound_ms": ssd_bwd["mamba"]["bound"],
          "bound_by": ssd_bwd["mamba"]["by"],
          "library_ms": ssd_bwd["mamba"]["lib"],
+         "jamba_grad_launches": p20["jamba-v0.1-52b"]["grads"]["first"][
+             "launches"]["ssd_scan_bwd"],
          **{f"jamba_{field}": ssd_bwd["jamba"][src]
             for field, src in (("shape", "shape"), ("ms", "ms"),
                                ("plain_ms", "plain"), ("bound_ms", "bound"),
@@ -5479,6 +5716,8 @@ def main() -> int:
          "fl_launches": p16e["sim"]["launches"]["flash_attention_bwd"],
          "zoo_train_launches": int(p20["train"]["launches"][
              "flash_attention_bwd"] * TRAIN_STEPS),
+         "zoo_grad_launches": {a: p20[a]["grads"]["first"]["launches"][
+             "flash_attention_bwd"] for a in ZOO_LAYERS},
          "audio_train_launches": int(p21["train"]["launches"][
              "flash_attention_bwd"] * TRAIN_STEPS),
          "vlm_train_launches": int(p21["vlm_train"]["launches"][

@@ -73,8 +73,8 @@ from .mesh import HBM_BYTES, ONE_CARD, production_mesh
 from .roofline import KERNEL_OPS, extract_roofline, graph_flops
 from .steps import (abstract_opt_state, abstract_params,
                     arch_shape_applicable, config_for_shape,
-                    default_microbatches, make_prefill_step, make_serve_step,
-                    make_train_step, param_count)
+                    default_microbatches, make_grad_step, make_prefill_step,
+                    make_serve_step, make_train_step, param_count)
 
 # make_fx runs torch.utils.checkpoint's selective policy as a compile trace
 # (a proxy mode is active), which keeps every output and only tags each node
@@ -93,11 +93,16 @@ def trace_device() -> torch.device:
 
 
 def build_step(cfg: ModelConfig, shape: InputShape,
-               microbatches: Optional[int] = None
+               microbatches: Optional[int] = None, grads_only: bool = False
                ) -> Tuple[Callable, Tuple[Any, ...]]:
     """The step of ``shape.kind`` and its abstract (``meta``) arguments:
     ``train_step(params, opt_state, batch)``, ``prefill_step(params,
-    batch)`` or ``serve_step(params, tokens, caches)``."""
+    batch)`` or ``serve_step(params, tokens, caches)``; with ``grads_only``
+    a train shape's ``grad_step(params, batch)`` (one microbatch's
+    gradients, no optimizer state)."""
+    if shape.kind == "train" and grads_only:
+        batch, _ = input_specs(cfg, shape)
+        return make_grad_step(cfg), (abstract_params(cfg), batch)
     if shape.kind == "train":
         step, _ = make_train_step(cfg, shape, microbatches)
         params = abstract_params(cfg)
@@ -150,19 +155,22 @@ def kernel_nodes(gm: torch.fx.GraphModule) -> Dict[str, int]:
 def dryrun_step(arch: str, cfg: ModelConfig, shape: InputShape,
                 microbatches: Optional[int] = None,
                 args: Optional[Tuple[Any, ...]] = None,
-                device: "str | torch.device | None" = None
-                ) -> Dict[str, Any]:
+                device: "str | torch.device | None" = None,
+                grads_only: bool = False) -> Dict[str, Any]:
     """The record of ``cfg``'s step at ``shape`` (any config and shape; the
     CLI's pairs go through :func:`dryrun_one`), traced over ``args`` when
     given (abstract or real arguments of the step), else over
-    :func:`build_step`'s."""
+    :func:`build_step`'s; ``grads_only`` traces a train shape's gradients
+    without the optimizer (``launch.steps.make_grad_step``, one
+    microbatch)."""
     _, note = arch_shape_applicable(cfg, shape)
     if (shape.kind == "train" and cfg.remat and cfg.remat_policy == "dots"
             and stack_plan(cfg)[2] > 1):
         note = "; ".join(filter(None, (note, DOTS_NOTE)))
-    mb = microbatches or default_microbatches(cfg, shape)
+    mb = 1 if grads_only else (microbatches
+                               or default_microbatches(cfg, shape))
     t0 = time.perf_counter()
-    step, built = build_step(cfg, shape, mb)
+    step, built = build_step(cfg, shape, mb, grads_only)
     gm = trace_step(step, built if args is None else args, device)
     t1 = time.perf_counter()
     flops = graph_flops(gm, cfg.ssm_chunk)
@@ -177,6 +185,7 @@ def dryrun_step(arch: str, cfg: ModelConfig, shape: InputShape,
         "kernel_flops": {k: v for k, v in flops.items() if k != "total"},
         "nodes": len(gm.graph.nodes),
         "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+        "grads_only": grads_only,
         "trace_device": str(next(n.meta["val"].device
                                  for n in gm.graph.nodes
                                  if n.op == "placeholder")),

@@ -10,10 +10,12 @@ them, as are a VLM's stub patch embeddings and an encoder-decoder's stub
 frame embeddings (``data.modality_inputs``); no checkpoint or tokenizer is
 involved.  A VLM's caches hold its patches too.  The CLI keeps the
 reference's flags, whose ``--reduced`` is always on; ``run_serve(...,
-reduced=False)`` serves the full-width config.  ``num_layers`` is the
-port's one addition, as in ``launch/train.py``: a depth cut for a
-full-width config whose weights do not fit one card; it changes no
-width.
+reduced=False)`` serves the full-width config.  Two arguments are the
+port's additions: ``num_layers``, as in ``launch/train.py``, a depth cut
+for a full-width config whose weights do not fit one card (it changes no
+width); and ``params``, weights already on the device to serve instead of
+drawing them, so that a caller that checks other things on the same
+full-width weights draws them once.
 """
 from __future__ import annotations
 
@@ -40,12 +42,15 @@ def _sync(device: torch.device) -> None:
 def run_serve(arch: str, batch: int, prompt_len: int, gen: int,
               reduced: bool = True, greedy: bool = True,
               device: "str | torch.device | None" = None,
-              num_layers: Optional[int] = None):
+              num_layers: Optional[int] = None,
+              params: Optional[dict] = None):
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode greedily
     to ``gen`` tokens each.  Returns (seqs (batch, gen), t_prefill seconds,
     t_decode seconds per token); the card is synchronised before each clock
     reading.  ``greedy`` is kept from the reference, which also only decodes
-    greedily; ``num_layers`` cuts the depth (see the module note)."""
+    greedily; ``num_layers`` cuts the depth and ``params`` (the model's
+    weights for the config the other arguments make, on ``device``) takes
+    the place of the draw (see the module note)."""
     if not greedy:
         raise NotImplementedError("only greedy decoding is served, as in the "
                                   "reference")
@@ -56,7 +61,8 @@ def run_serve(arch: str, batch: int, prompt_len: int, gen: int,
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     key = rng.PRNGKey(0, device)
-    params = init_model(key, cfg, device=device)
+    if params is None:
+        params = init_model(key, cfg, device=device)
     ds = TokenDataset(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       device=device)
     domains = torch.arange(batch, device=device) % ds.num_domains

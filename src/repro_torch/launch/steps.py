@@ -71,6 +71,28 @@ def default_microbatches(cfg: ModelConfig, shape: InputShape) -> int:
     return mb
 
 
+def make_grad_step(cfg: ModelConfig) -> Callable:
+    """-> ``grad_step(params, batch) -> (grads, loss)``: one microbatch's
+    gradients of ``loss_fn`` over the nested LM params, keyed by
+    ``flatten_params``' names, and its loss, as the train step takes them,
+    without clipping or the optimizer (a step for weights whose AdamW state
+    does not fit beside them).
+
+    Plain autograd, not ``torch.func.grad``: the latter differentiates with
+    ``create_graph=True``, which keeps the backward's intermediates alive
+    and about doubles a full-width step's activation memory, and it refuses
+    the checkpoint hooks of a rematerialising config."""
+
+    def grad_step(params: Params, batch: Dict[str, torch.Tensor]):
+        leaves = {k: p.detach().requires_grad_()
+                  for k, p in flatten_params(params).items()}
+        loss = loss_fn(unflatten_params(leaves), cfg, batch)[0]
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return dict(zip(leaves, grads)), loss.detach()
+
+    return grad_step
+
+
 def make_train_step(cfg: ModelConfig, shape: InputShape,
                     microbatches: "int | None" = None
                     ) -> Tuple[Callable, Optimizer]:
@@ -91,15 +113,10 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     is the optimizer's, leaf by leaf, so the values are the same bits."""
     mb = microbatches or default_microbatches(cfg, shape)
     opt = adamw(3e-4, state_dtype=opt_state_dtype(cfg))
+    grad_step = make_grad_step(cfg)
 
     def grad_fn(flat: Params, mbatch: Dict[str, torch.Tensor]):
-        # Plain autograd, not torch.func.grad: the latter differentiates
-        # with create_graph=True, which keeps the backward's intermediates
-        # alive and about doubles a full-width step's activation memory.
-        leaves = {k: p.detach().requires_grad_() for k, p in flat.items()}
-        loss = loss_fn(unflatten_params(leaves), cfg, mbatch)[0]
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return dict(zip(leaves, grads)), loss.detach()
+        return grad_step(unflatten_params(flat), mbatch)
 
     def train_step(params: Params, opt_state: OptState,
                    batch: Dict[str, torch.Tensor]):

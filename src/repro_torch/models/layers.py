@@ -399,9 +399,19 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     a (t, E) combine matrix); otherwise the assignments, sorted stably by
     expert, fill (E, cap) buffers in that order, those past ``cap`` are
     dropped (they contribute exactly zero), the experts run as batched
-    products and the outputs are summed back per token.  Out-of-place
-    scatters only, so ``torch.func.vmap`` and ``grad`` go through; under
-    vmap t and cap are a client's own."""
+    products and the outputs are summed back per token.
+
+    The capacity path sums in a fixed order, on any device: a token's k
+    outputs are added one at a time in the leaf dtype in ascending expert
+    id (the reference's scatter-add order: its sorted positions), and in
+    the backward a token's k dispatched rows' gradients are added the same
+    way (autograd accumulates the fan-out's k gradients in the order it
+    made them).  The dispatch, the combine's reads and the reorder are
+    gathers whose gradients are gathers by the inverse map
+    (``_GatherRows``), so no index is scattered into and no sum depends on
+    the order of atomics.  Out-of-place ops only, so
+    ``torch.func.vmap`` and ``grad`` go through; under vmap t and cap are
+    a client's own."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -431,24 +441,102 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
         y = torch.einsum("tef,efd->td", h, p["w2"])
         return y.reshape(b, s, d), aux
 
+    y = _moe_capacity(p, xt, gate_idx, gate_vals, cfg)
+    return y.reshape(b, s, d), aux
+
+
+class _GatherRows(torch.autograd.Function):
+    """``y[o] = x[idx[o]]`` where ``mask[o]``, else 0, for rows of x (n, d),
+    whose gradient is a gather too: ``dx[r] = dy[back[r]]`` where
+    ``back_mask[r]``, else 0.  The caller passes the inverse map: every row
+    r that a kept output reads is read by exactly one, output ``back[r]``,
+    and rows no kept output reads have ``back_mask`` False.  So neither
+    direction sums two rows, in any order (a mask of None is all True).
+    A plain index's backward would scatter-add instead."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, idx, mask, back, back_mask):
+        y = x[idx]
+        return y if mask is None else torch.where(mask[:, None], y, 0.0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[3])
+        ctx.back_mask = inputs[4]
+
+    @staticmethod
+    def backward(ctx, dy):
+        back, = ctx.saved_tensors
+        dx = dy[back]
+        if ctx.back_mask is not None:
+            dx = torch.where(ctx.back_mask[:, None], dx, 0.0)
+        return dx, None, None, None, None
+
+
+def _moe_capacity(p: Params, xt: torch.Tensor, gate_idx: torch.Tensor,
+                  gate_vals: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``moe_apply``'s capacity path: tokens xt (t, d) and each token's k
+    choices, experts ``gate_idx`` and gates ``gate_vals`` (t, k) in any
+    order -> y (t, d)."""
+    t, d = xt.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
     cap = moe_capacity(cfg, t)
+    # Each token's k choices in ascending expert id.  The stable sort by
+    # expert below meets the (expert, token) pairs in the same order
+    # whatever order the choices came in, so the buffers and the drops are
+    # the same.
+    gate_idx, perm = torch.sort(gate_idx, dim=-1)
+    gate_vals = torch.gather(gate_vals, 1, perm)
     flat_e = gate_idx.reshape(-1)                                  # (t·k,)
-    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
-    flat_g = gate_vals.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    order = torch.argsort(flat_e, stable=True)   # sorted -> (token, choice)
+    inv = _inverse(order)                        # (token, choice) -> sorted
+    se, sg = flat_e[order], gate_vals.reshape(-1)[order]
+    experts = torch.arange(e, device=xt.device)
     counts = (flat_e[:, None] == experts).sum(0)
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(t * k, device=x.device) - starts[se]
+    pos = torch.arange(t * k, device=xt.device) - starts[se]
     keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, 0)        # dropped: slot 0, x 0
-    xbuf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
-    xbuf = xbuf.index_add(0, slot, xt[st] * keep[:, None].to(x.dtype))
+    slot = torch.where(keep, se * cap + pos, 0)  # an assignment's slot
+    # Slot (e, p) holds the assignment at sorted position starts[e] + p
+    # when expert e has one there, else a zero.
+    slots = torch.arange(e * cap, device=xt.device)
+    slot_e, slot_p = slots // cap, slots % cap
+    filled = slot_p < counts[slot_e]
+    src = torch.where(filled, starts[slot_e] + slot_p, 0)
+    # Dispatch: a token's row once a choice ((token, choice) order), each
+    # slot reading its assignment's; the fan-out's backward adds a token's
+    # k rows' gradients in the order it made them, ascending expert id.
+    xs = torch.stack([xt] * k, 1).reshape(t * k, d)
+    xbuf = _GatherRows.apply(xs, order[src], filled, slot[inv], keep[inv])
     ybuf = _expert_ffn(p, xbuf.reshape(e, cap, d), cfg).reshape(e * cap, d)
-    contrib = ybuf[slot] * (sg * keep)[:, None].to(x.dtype)
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    y = y.index_add(0, st, contrib)
-    return y.reshape(b, s, d), aux
+    # Each assignment's output times its gate, in sorted order; a dropped
+    # one is zero.
+    contrib = _GatherRows.apply(ybuf, slot, keep, src, filled)
+    return _moe_combine(contrib * sg.to(xt.dtype)[:, None], order, k)
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation of 0..n-1 (a scatter of distinct
+    indices, no sort)."""
+    return torch.zeros_like(perm).scatter(
+        0, perm, torch.arange(perm.shape[0], device=perm.device))
+
+
+def _moe_combine(contrib: torch.Tensor, order: torch.Tensor, k: int
+                 ) -> torch.Tensor:
+    """Sum each token's k rows of ``contrib`` (t·k, d), given in sorted
+    order (row i belongs to (token, choice) ``order[i]`` of a (t, k) layout
+    whose choices ascend by expert) -> (t, d): the k rows of a token added
+    one at a time in the leaf dtype, in ascending sorted position, as the
+    reference's ``zeros.at[st].add(contrib)``."""
+    d = contrib.shape[-1]
+    rows = _GatherRows.apply(contrib, _inverse(order), None, order, None)
+    parts = rows.reshape(-1, k, d).unbind(1)
+    y = parts[0]
+    for part in parts[1:]:
+        y = y + part
+    return y
 
 
 # ---------------------------------------------------------------------------

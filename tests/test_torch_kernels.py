@@ -20,12 +20,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import dispatch as jdispatch  # noqa: E402
 from repro.kernels.label_hist.label_hist import label_hist_kernel as jhist  # noqa: E402
+from repro.kernels.label_hist import ops as jhist_ops  # noqa: E402
 from repro.kernels.weighted_agg.weighted_agg import weighted_agg_kernel as jagg  # noqa: E402
 
 from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.kernels import dispatch as tdispatch  # noqa: E402
 from repro_torch.kernels.label_hist import label_hist_kernel, label_hist_ref  # noqa: E402
 from repro_torch.kernels.label_hist import label_hist as tlabel_hist  # noqa: E402
+from repro_torch.kernels.label_hist import ops as thist_ops  # noqa: E402
 from repro_torch.kernels.weighted_agg import (weighted_agg_kernel,  # noqa: E402
                                               weighted_agg_leaves,
                                               weighted_agg_ref)
@@ -77,6 +79,26 @@ def test_label_hist_plain_version_equals_pallas_kernel(b, n, c, invalid_rows):
     np.testing.assert_array_equal(port.numpy(), ref)
     np.testing.assert_array_equal(label_hist_ref(_t(labels), _t(valid), c)
                                   .numpy(), ref)
+
+
+@pytest.mark.parametrize("b,n,c", [
+    pytest.param(6, 29, 10, id="6-29-10"),
+    pytest.param(9, 600, 13, id="9-600-13"),
+    pytest.param(4, 1, 3, id="one-sample-4-1-3")])
+def test_ops_client_statistics_bit_equal(b, n, c):
+    """``label_hist.ops.client_statistics`` on (B, n) labels with -1
+    padding (whole padded rows too) against the reference's wrapper in
+    interpret mode: histograms and scores bit-equal."""
+    rng = np.random.default_rng(b * n + c)
+    labels = rng.integers(0, c, (b, n)).astype(np.int32)
+    labels[rng.random((b, n)) < 0.3] = -1
+    labels[1] = -1
+    want_h, want_s = jhist_ops.client_statistics(jnp.asarray(labels), c,
+                                                 interpret=True)
+    got_h, got_s = thist_ops.client_statistics(_t(labels), c)
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    assert got_h[1].sum() == 0
 
 
 @pytest.mark.parametrize("backend", JAX_BACKENDS)

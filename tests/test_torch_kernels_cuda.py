@@ -793,3 +793,94 @@ def test_vmap_grad_over_clients_is_one_launch_each_way(cuda):
         one = grad(loss, argnums=(0, 1, 2))(q[i], k[i], v[i])
         for a, b_ in zip(batched, one):
             torch.testing.assert_close(a[i], b_, rtol=1e-5, atol=1e-6)
+
+
+def test_label_hist_ops_client_statistics_launches_the_kernel(cuda):
+    """``label_hist.ops.client_statistics`` on the card: one ``label_hist``
+    launch, histograms and scores bit-equal to the CPU's plain version."""
+    from repro_torch.kernels.label_hist.ops import client_statistics
+    rng = np.random.default_rng(11)
+    labels = torch.from_numpy(rng.integers(0, 10, (100, 290)).astype(
+        np.int32))
+    labels[torch.from_numpy(rng.random((100, 290)) < 0.2)] = -1
+    labels[3] = -1
+    got_h, got_s = client_statistics(labels.to(cuda), 10)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["label_hist"] == 1
+    want_h, want_s = client_statistics(labels, 10)
+    assert torch.equal(got_h.cpu(), want_h)
+    assert torch.equal(got_s.cpu(), want_s)
+
+
+def _moe_case(cfg, b, s, dev, seed):
+    """``moe_init`` of ``cfg`` from PRNGKey(seed) on the CPU, and x (b, s, d)
+    and a loss weight from NumPy, all moved to ``dev``."""
+    from repro_torch import rng
+    from repro_torch.models.layers import moe_init
+    p = {k: v.to(dev) for k, v in moe_init(rng.PRNGKey(seed), cfg).items()}
+    g = np.random.default_rng(seed)
+    x = torch.from_numpy(g.standard_normal((b, s, cfg.d_model)).astype(
+        np.float32)).to(dev, getattr(torch, cfg.dtype))
+    w = torch.from_numpy(g.standard_normal((b, s, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    return p, x, w
+
+
+def _moe_grads(p, x, w, cfg):
+    """``moe_apply``'s (y, aux) and the gradients of sum(y·w) + 3·aux in x
+    and every leaf."""
+    from repro_torch.models.layers import moe_apply
+    leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+    xx = x.detach().requires_grad_()
+    y, aux = moe_apply(leaves, xx, cfg)
+    grads = torch.autograd.grad((y.float() * w).sum() + 3.0 * aux,
+                                [xx] + list(leaves.values()))
+    return [y.detach(), aux.detach()] + list(grads)
+
+
+def test_moe_capacity_is_bit_identical_run_to_run(cuda):
+    """granite-moe-1b-a400m's MoE layer at its training shape (t = 4096,
+    E = 32, top 8, d 1024, bf16, capacity routing): forward and backward
+    twice, every output and gradient bit-equal (the combine and the
+    dispatch's backward add a token's k rows in a fixed order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe_capacity
+    cfg = get_config("granite-moe-1b-a400m")
+    assert (cfg.num_experts, cfg.experts_per_token, cfg.d_model,
+            cfg.dtype, cfg.moe_dropless) == (32, 8, 1024, "bfloat16", False)
+    p, x, w = _moe_case(cfg, 4, 1024, cuda, 0)
+    first = _moe_grads(p, x, w, cfg)
+    second = _moe_grads(p, x, w, cfg)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    # A hot expert (capacity factor 0.5, expert 0 favoured) drops tokens;
+    # the dropped rows' zero weights change no bit either.
+    hot = dataclasses.replace(cfg, capacity_factor=0.5)
+    p["router"][:, 0] += 0.05
+    assert moe_capacity(hot, 4096) < 4096 * 8 // 32
+    first = _moe_grads(p, x, w, hot)
+    second = _moe_grads(p, x, w, hot)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+def test_moe_capacity_card_matches_cpu_float32(cuda):
+    """A reduced granite-moe layer with capacity routing (8 experts, top 2,
+    a hot expert that drops tokens), float32 with TF32 off: output and
+    gradients on the card within ``GRAD_TOL`` of each one's largest
+    magnitude of the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(
+        dtype="float32"), num_experts=8, experts_per_token=2,
+        capacity_factor=0.5, moe_dropless=False)
+    p, x, w = _moe_case(cfg, 2, 40, torch.device("cpu"), 1)
+    p["router"][:, 0] += 0.05
+    want = _moe_grads(p, x, w, cfg)
+    got = _moe_grads({k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
+                     w.to(cuda), cfg)
+    for a, b_ in zip(got, want):
+        scale = b_.abs().max().item()
+        assert (a.cpu() - b_).abs().max().item() <= GRAD_TOL * max(scale,
+                                                                   1e-30)

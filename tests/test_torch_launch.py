@@ -51,7 +51,8 @@ from repro_torch.data import specs  # noqa: E402
 from repro_torch.launch import dryrun, mesh, roofline, steps  # noqa: E402
 from repro_torch.models import ModelConfig, init_model, loss_fn  # noqa: E402
 from repro_torch.rng import PRNGKey  # noqa: E402
-from repro_torch.models.transformer import stack_plan  # noqa: E402
+from repro_torch.models.transformer import (flatten_params,  # noqa: E402
+                                            stack_plan, unflatten_params)
 
 TOL = 2e-4
 ARCHS = ("qwen3-14b", "mamba2-1.3b")
@@ -542,6 +543,49 @@ def test_traced_mamba_train_step_holds_one_backward_node_a_layer():
     assert flops["ssd_scan_bwd"] == cfg.num_layers * roofline.ssd_bwd_flops(
         (2, 32, cfg.ssm_heads, cfg.ssm_head_dim),
         (2, 32, cfg.ssm_groups, cfg.ssm_state), cfg.ssm_chunk)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "granite-moe-1b-a400m"])
+def test_grads_only_dryrun_is_the_train_step_less_the_optimizer(arch):
+    """A reduced train step's record with ``grads_only``: the same kernel
+    nodes (one forward and one backward node a mixer layer), a peak no
+    higher than the whole step's (which also holds the AdamW moments), and
+    ``make_grad_step``'s gradients equal the train step's first
+    microbatch's own."""
+    cfg = get_config(arch).reduced(num_layers=4, moe_dropless=False)
+    shape = InputShape("t", 32, 2, "train")
+    full = dryrun.dryrun_step(arch, cfg, shape, microbatches=1)
+    grads = dryrun.dryrun_step(arch, cfg, shape, grads_only=True)
+    assert grads["grads_only"] and not full["grads_only"]
+    assert grads["microbatches"] == 1
+    assert grads["kernel_launches"] == full["kernel_launches"]
+    assert sum(grads["kernel_launches"].values()) > 0
+    assert grads["peak_memory_per_device"] <= full["peak_memory_per_device"]
+    params = init_model(PRNGKey(4), cfg, device="cpu")
+    g = np.random.default_rng(4)
+    toks = torch.from_numpy(g.integers(0, cfg.vocab_size, (2, 32)))
+    batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    got, loss = steps.make_grad_step(cfg)(params, batch)
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in flatten_params(params).items()}
+    want_loss = loss_fn(unflatten_params(leaves), cfg, batch)[0]
+    want = torch.autograd.grad(want_loss, list(leaves.values()))
+    assert torch.equal(loss, want_loss.detach())
+    assert list(got) == list(leaves)
+    for a, b in zip(got.values(), want):
+        assert torch.equal(a, b)
+
+
+def test_run_serve_on_given_weights_serves_what_it_draws():
+    """``run_serve(..., params=...)`` on the weights ``run_serve`` would draw
+    (PRNGKey(0)) gives its tokens bit for bit."""
+    from repro_torch.launch.serve import run_serve
+    cfg = get_config("granite-moe-1b-a400m").reduced(vocab_size=512)
+    params = init_model(PRNGKey(0), cfg, device="cpu")
+    drawn, _, _ = run_serve("granite-moe-1b-a400m", 2, 12, 4, device="cpu")
+    given, _, _ = run_serve("granite-moe-1b-a400m", 2, 12, 4, device="cpu",
+                            params=params)
+    assert torch.equal(drawn, given)
 
 
 def test_dryrun_cli_runs_without_a_card(dryrun_cli):

@@ -51,6 +51,7 @@ MODULE_NAMES = [
     ("core.aggregation", "fedavg_aggregate"),
     ("core.aggregation", "fedsgd_aggregate"),
     ("core.aggregation", "BUILTIN_AGGREGATORS"),
+    ("kernels.label_hist.ops", "client_statistics"),
     ("kernels.weighted_agg.ops", "aggregate_params"),
     ("kernels.weighted_agg.ops", "normalized_scales"),
     ("kernels.dispatch", "compute_backend"),
