@@ -267,7 +267,22 @@ Phases, in order; any failure raises and the script exits non-zero:
     the launches a step; then one step without remat at that shape, its
     peak or its out-of-memory error printed; (c) phase 20's
     granite-moe-1b-a400m gradients, held: remat ``full`` bit-equal run to
-    run and to remat off.
+    run and to remat off;
+23. the mesh train step (data parallelism with FSDP of the weights'
+    ``EMBED`` rows over a ``data`` axis of cards): ``run_train`` of (a)
+    qwen3-14b cut to 4 layers with FSDP on and (b) granite-moe-1b-a400m
+    whole on its replicated (``fsdp=False``) capacity path, 3 steps at
+    4 x 1024 in bf16, with no process group and on ``make_debug_mesh()``
+    of a one-rank NCCL group, the launch counts set to 0 just before and
+    read just after each run: losses, grad norms, every param and every
+    AdamW moment bit-equal, each kernel launched as ``train_launches``
+    says; (c) where the machine has more than one card, (a)'s run on
+    min(count, 4) NCCL ranks, one process a card
+    (``scripts/torch_mesh_train.py``): losses within ``P23_LOSS_RTOL`` of
+    (a)'s, each rank's peak memory printed; with one card a line says
+    that the multi-card run is not verified.
+    ``python3 chip_smoke.py --phase 23`` builds the kernels and runs this
+    phase alone, on every card the machine has.
 
 Each phase's wall time is printed as it ends (``wall``).
 
@@ -283,7 +298,8 @@ phase 13's ``engine_grid_*`` and phase 15's ``hier_launches``,
 ``ssd_scan``'s phase 16's ``train_launches`` and ``backward_grad_gap``;
 phase 22's ``remat_launches`` (a step's forward launches without remat and
 under each policy) and ``remat_long_launches`` (at 4 x 4096), as
-``flash_attention``'s;
+``flash_attention``'s; phase 23's ``mesh_launches`` (each arch's no-group
+run, 3 steps), as ``flash_attention``'s and ``flash_attention_bwd``'s;
 ``flash_attention``'s phase 12's ``lse_ms``, its ``d192_*`` times at
 nemotron-4-340b's shape and phase 20's ``zoo_launches`` and
 ``zoo_grad_launches`` (a gradient step's, by arch), phase 21's
@@ -5223,6 +5239,148 @@ def phase22_remat(dev, zoo: dict) -> dict:
     return out
 
 
+# Phase 23: the mesh train step through run_train, 3 steps at
+# TRAIN_BATCH x TRAIN_SEQ; (arch, layers, fsdp) of (a) and (b).
+P23_STEPS = 3
+P23_RUNS = (("qwen3-14b", TRAIN_QWEN_LAYERS, True),
+            ("granite-moe-1b-a400m", None, False))
+# (c)'s ranks against (a)'s one card: tests/test_torch_train.py's bf16 loss
+# tolerance (BF16_LOSS_RTOL), the two running bf16 products over other row
+# counts and summing the ranks' bf16 gradients.
+P23_LOSS_RTOL = 1e-3
+P23_DIR = ROOT / "build" / "phase23"
+
+
+def _p23_run(dev, arch: str, layers, fsdp: bool) -> dict:
+    """run_train of ``arch`` (P23_STEPS steps), its state kept, with the
+    launch counts set to 0 just before and read just after."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.train import run_train
+    from repro_torch.models.transformer import flatten_params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    rec, times = {}, []
+    t0 = time.perf_counter()
+    losses = run_train(arch, P23_STEPS, TRAIN_BATCH, TRAIN_SEQ, reduced=False,
+                       device=dev, num_layers=layers, step_times=times,
+                       log_every=P23_STEPS, fsdp=fsdp, record=rec)
+    torch.cuda.synchronize()
+    return {"losses": losses, "grad_norms": rec["grad_norms"],
+            "params": flatten_params(rec["params"]),
+            "mu": rec["opt_state"].mu, "nu": rec["opt_state"].nu,
+            "launches": kernels.launch_counts(), "step_s": times,
+            "s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def _p23_equal(a: dict, b: dict) -> bool:
+    """Losses, grad norms and every param and moment of two runs bit-equal
+    (``a``'s state on the host, read back to ``b``'s device a leaf at a
+    time)."""
+    import torch
+    return (a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"]
+            and all(torch.equal(a[t][k].to(b[t][k].device), b[t][k])
+                    for t in ("params", "mu", "nu") for k in a[t]))
+
+
+def phase23_mesh(dev) -> dict:
+    """The mesh train step: (a), (b) one card with no group and as a
+    one-rank NCCL mesh, bit for bit; (c) (a) on up to four cards."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    say("== 23. the mesh train step: run_train on make_debug_mesh() "
+        f"(data parallelism + FSDP over `data`), {P23_STEPS} steps at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16")
+    out = {}
+    for part, (arch, layers, fsdp) in zip("ab", P23_RUNS):
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        what = (f"{arch} ({cfg.num_layers} layers, "
+                f"{'FSDP' if fsdp else 'replicated'})")
+        alone = _p23_run(dev, arch, layers, fsdp)
+        # Its state on the host, so that the second run has the card's
+        # memory as the first had it.
+        for t in ("params", "mu", "nu"):
+            alone[t] = {k: v.cpu() for k, v in alone[t].items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            ranked = _p23_run(dev, arch, layers, fsdp)
+        finally:
+            dist.destroy_process_group()
+        equal = _p23_equal(alone, ranked)
+        want = {k: n * P23_STEPS for k, n in train_launches(cfg).items()}
+        for how, r in (("no group", alone), ("one-rank mesh", ranked)):
+            _expect(f"23{part}. {what}, {how}", r["launches"], 0, 0, lm=True)
+            if any(r["launches"][k] != n for k, n in want.items()):
+                raise AssertionError(f"23{part}. {what}, {how}: launches "
+                                     f"{r['launches']}, expected {want}")
+            say(f"-- 23{part}. {what}, {how}: losses "
+                f"{[round(x, 4) for x in r['losses']]}, grad norms "
+                f"{[round(x, 4) for x in r['grad_norms']]}; steps "
+                f"{[f'{x:.3f}' for x in r['step_s']]} s; run {r['s']:.1f} s; "
+                f"peak {r['peak'] / 1e9:.2f} GB; launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }")
+        say(f"23{part}. {what}: the one-rank mesh bit-equal to no group "
+            f"(losses, grad norms, {len(alone['params'])} params and their "
+            f"moments): {equal}")
+        if not equal:
+            raise AssertionError(f"23{part}. {what}: the one-rank mesh "
+                                 f"differs from no group")
+        out[arch] = {k: alone[k] for k in ("losses", "grad_norms", "step_s",
+                                           "peak", "launches")}
+        out[arch].update(mesh_step_s=ranked["step_s"],
+                         mesh_peak=ranked["peak"])
+        del alone, ranked, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say("23c. one card present: the multi-card run (NCCL across cards) "
+            "is not verified on this machine")
+        return out
+    world = min(cards, 4)
+    arch, layers, fsdp = P23_RUNS[0]
+    want = out[arch]["losses"]
+    P23_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                        "torch_mesh_train.py"),
+                    "--arch", arch, "--world", str(world),
+                    "--steps", str(P23_STEPS), "--batch", str(TRAIN_BATCH),
+                    "--seq", str(TRAIN_SEQ),
+                    "--out", str(P23_DIR / "ranks.json")]
+                   + (["--layers", str(layers)] if layers else [])
+                   + ([] if fsdp else ["--no-fsdp"]),
+                   check=True, timeout=600, stdout=subprocess.DEVNULL)
+    ranks = json.loads((P23_DIR / "ranks.json").read_text())["ranks"]
+    gap = max(abs(g - w) / abs(w) for r in ranks
+              for g, w in zip(r["losses"], want))
+    for r, got in enumerate(ranks):
+        say(f"-- 23c. rank {r} of {world}: losses "
+            f"{[round(x, 4) for x in got['losses']]}; steps "
+            f"{[f'{x:.3f}' for x in got['step_s']]} s; peak "
+            f"{got['peak'] / 1e9:.2f} GB")
+    say(f"23c. {arch} on {world} cards (one NCCL rank each, "
+        f"scripts/torch_mesh_train.py) in {time.perf_counter() - t0:.1f} "
+        f"s: losses within {gap:.2e} (relative) of one card's, limit "
+        f"{P23_LOSS_RTOL}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks) \
+            or not gap <= P23_LOSS_RTOL:
+        raise AssertionError(f"23c: the ranks' losses "
+                             f"{[r['losses'] for r in ranks]} against one "
+                             f"card's {want}")
+    out["cards"] = {"world": world, "gap": gap, "ranks": ranks}
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5264,6 +5422,18 @@ def main() -> int:
     say("== 1. card")
     card = gpu_name_and_power()
     say(card)
+    if sys.argv[1:] == ["--phase", "23"]:
+        lib = build.build()
+        build.library()
+        say(f"built {lib.name} in {time.time() - t_start:.1f} s; "
+            f"{torch.cuda.device_count()} cards")
+        phase23_mesh(dev)
+        wall("23")
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
 
     atexit.register(stop_background)
     start_dryrun()
@@ -5579,6 +5749,8 @@ def main() -> int:
     stop_background()
     p22 = phase22_remat(dev, p20)
     wall("22")
+    p23 = phase23_mesh(dev)
+    wall("23")
 
     say(f"card: {card}; total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -5664,7 +5836,9 @@ def main() -> int:
          "remat_launches": {p: p22["qwen3-14b"][p]["launches"][
              "flash_attention"] for p in ("off",) + REMAT_POLICIES},
          "remat_long_launches": int(p22["qwen3-14b"]["long"]["launches"][
-             "flash_attention"] * REMAT_LONG_STEPS)},
+             "flash_attention"] * REMAT_LONG_STEPS),
+         "mesh_launches": {a: p23[a]["launches"]["flash_attention"]
+                           for a, _, _ in P23_RUNS}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -5722,6 +5896,8 @@ def main() -> int:
              "flash_attention_bwd"] * TRAIN_STEPS),
          "vlm_train_launches": int(p21["vlm_train"]["launches"][
              "flash_attention_bwd"] * VLM_TRAIN_STEPS),
+         "mesh_launches": {a: p23[a]["launches"]["flash_attention_bwd"]
+                           for a, _, _ in P23_RUNS},
          **{f"{key}_{field}": bwd[key][src]
             for key in ("d96", "d192")
             for field, src in (("shape", "shape"), ("ms", "ms"),

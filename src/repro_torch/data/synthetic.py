@@ -173,16 +173,33 @@ class TokenDataset:
         return rng.categorical_rows(keys, seq * per_seq, lp, self.seq_len)
 
 
-def modality_inputs(cfg, key, batch: int) -> dict:
+def _normal_rows_of(key, shape, rows: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """``normal(key, shape)``, or only its ``rows`` of the leading axis,
+    bit-equal to those rows of the whole draw."""
+    if rows is None:
+        return rng.normal(key, shape)
+    per = math.prod(shape[1:])
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    key = rng.as_key(key)
+    return rng.normal_rows(key, rows.to(key.device) * per, per).reshape(
+        (rows.shape[0],) + tuple(shape[1:]))
+
+
+def modality_inputs(cfg, key, batch: int,
+                    rows: Optional[torch.Tensor] = None) -> dict:
     """The stub frontends' inputs under ``key``, as the reference's launchers
     draw them: a VLM's ``patch_embeds`` (B, num_patch_tokens,
     vision_embed_dim), an encoder-decoder's ``frames`` (B, num_frames,
     d_model), each ``normal(key, shape)`` in float32; nothing for the text
-    archs.  ``cfg`` is a ``models.config.ModelConfig``."""
+    archs.  ``cfg`` is a ``models.config.ModelConfig``.  With ``rows`` only
+    those rows of B are drawn (a rank's share), bit-equal to the whole
+    draw's."""
     out = {}
     if cfg.arch_type == "vlm":
-        out["patch_embeds"] = rng.normal(
-            key, (batch, cfg.num_patch_tokens, cfg.vision_embed_dim))
+        out["patch_embeds"] = _normal_rows_of(
+            key, (batch, cfg.num_patch_tokens, cfg.vision_embed_dim), rows)
     if cfg.is_encoder_decoder:
-        out["frames"] = rng.normal(key, (batch, cfg.num_frames, cfg.d_model))
+        out["frames"] = _normal_rows_of(
+            key, (batch, cfg.num_frames, cfg.d_model), rows)
     return out

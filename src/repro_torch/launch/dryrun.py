@@ -41,11 +41,15 @@ ranks, the single-pod mesh's ``data`` axis) and its round batch, read from
 port's collectives are ``torch.distributed`` calls on a live group, which a
 trace on one host does not have.
 
-Left out, because they change nothing on one card: ``--multi-pod``,
-``--fsdp``, ``--tp``, ``--seq-parallel``, ``--kv-policy`` (mesh
-placement), ``--donate`` (the port's steps update caches in place and
-return new params) and ``--attention-impl`` (both attention
-implementations run the flash kernel).
+Left out: ``--multi-pod``, ``--fsdp``, ``--tp``, ``--seq-parallel`` and
+``--kv-policy``.  The dry-run traces one process's step on one card; the
+port places across cards by running one process a rank
+(``make_train_step(..., mesh=...)``: data parallelism with FSDP over
+``data``, no tensor or sequence parallelism yet), so a mesh's record would
+be a per-rank trace of that step, which this tool does not make yet.  Also
+left out: ``--donate`` (the port's steps update caches in place and return
+new params) and ``--attention-impl`` (both attention implementations run
+the flash kernel).
 """
 from __future__ import annotations
 

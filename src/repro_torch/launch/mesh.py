@@ -2,13 +2,17 @@
 meshes as axis sizes.
 
 The reference (``repro/launch/mesh.py``) builds JAX device meshes and states
-a TPU v5e's peaks.  The port runs on one NVIDIA H100 SXM (80 GB HBM3,
-700 W), whose dense peaks from NVIDIA's data sheet take their place.  The
-16×16 and 2×16×16 production meshes survive only as ``{axis: size}``
-mappings, which the rule tables of ``repro_torch.sharding`` read; building a
-256- or 512-rank mesh has no meaning on one card, so no device mesh is
-built here (the multi-rank FL engine, ``fl/sharded.py``, takes its process
-group from the caller).
+a TPU v5e's peaks.  The port runs on NVIDIA H100 SXM cards (80 GB HBM3,
+700 W), whose dense peaks from NVIDIA's data sheet take their place.
+
+``make_debug_mesh`` builds the reference's debug mesh, every rank of the
+initialised default process group (one card a rank, or one CPU process
+under ``gloo``) on (``data``, ``model`` = 1), as a named
+``torch.distributed`` ``DeviceMesh``: the mesh of the FSDP train step
+(``launch.steps.make_train_step(..., mesh=...)``).  The 16×16 and 2×16×16
+production meshes survive only as ``{axis: size}`` mappings, which the rule
+tables of ``repro_torch.sharding`` read: the dry-run sizes its records
+against them without a process group.
 """
 from __future__ import annotations
 
@@ -34,5 +38,25 @@ def production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
     return {"data": 16, "model": 16}
 
 
+def make_debug_mesh(model: int = 1):
+    """Every rank of the default process group on a (``data``, ``model``)
+    ``DeviceMesh`` of (world // model, model), on the group's device type
+    (``cuda`` under NCCL, else ``cpu``).  Tensor parallelism is not ported,
+    so ``model`` must be 1."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if model != 1:
+        raise NotImplementedError(
+            f"model={model}: tensor parallelism over a `model` axis is not "
+            f"ported; the debug mesh takes model=1")
+    if not dist.is_initialized():
+        raise RuntimeError("make_debug_mesh needs an initialised default "
+                           "process group")
+    world = dist.get_world_size()
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (world // model, model),
+                            mesh_dim_names=("data", "model"))
+
+
 __all__ = ["HBM_BW", "HBM_BYTES", "NVLINK_BW", "ONE_CARD", "PEAK_FLOPS_BF16",
-           "production_mesh"]
+           "make_debug_mesh", "production_mesh"]

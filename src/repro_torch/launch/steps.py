@@ -5,10 +5,14 @@ prefill step (the prompt -> argmax tokens and the caches) and the serve step
 (one token against resident caches).
 
 The reference returns a function for ``jax.jit`` with its mesh shardings;
-the port runs eagerly on one card, so there is no mesh, no sharding and no
-``jit``.  ``make_prefill_step`` and ``make_serve_step`` return the step and
-its abstract arguments (``meta``-device tensors from ``data.specs``), which
-``launch.dryrun`` traces; on real tensors the steps launch the kernels.
+the port runs eagerly, with no ``jit``.  Its train step runs on one card, or
+with ``mesh=`` as one rank of a ``DeviceMesh`` (``launch.mesh``): data
+parallelism with the weights' ``EMBED`` rows split over the ``data`` axis
+(FSDP, ``param_layout``), each rank holding its rows of every microbatch
+(``batch_rows``).  ``make_prefill_step`` and ``make_serve_step`` run on one
+card and return the step and its abstract arguments (``meta``-device
+tensors from ``data.specs``), which ``launch.dryrun`` traces; on real
+tensors the steps launch the kernels.
 """
 from __future__ import annotations
 
@@ -19,9 +23,12 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from .. import sharding as sh
 from ..configs.shapes import InputShape
+from ..core.aggregation import all_reduce_sum
 from ..data.specs import input_specs
-from ..models import decode_step, init_model, loss_fn, prefill
+from ..models import (decode_step, init_model, loss_fn, model_param_specs,
+                      prefill)
 from ..models.config import ModelConfig
 from ..models.transformer import flatten_params, unflatten_params
 from ..optim import (OptState, Optimizer, adamw, apply_updates,
@@ -71,6 +78,34 @@ def default_microbatches(cfg: ModelConfig, shape: InputShape) -> int:
     return mb
 
 
+def param_layout(cfg: ModelConfig, mesh: Any, fsdp: "bool | None" = None
+                 ) -> sh.ParamLayout:
+    """Where ``cfg``'s flat params live on ``mesh``'s ``data`` ranks under
+    the train rules (``fsdp``, default ``cfg.fsdp``): each leaf's ``EMBED``
+    dimension split where FSDP is on and the axis size divides it, else
+    the leaf replicated (``sharding.param_layout``)."""
+    fsdp = cfg.fsdp if fsdp is None else fsdp
+    rules = sh.make_rules(mesh, "train", fsdp)
+    shapes = {k: tuple(p.shape)
+              for k, p in flatten_params(abstract_params(cfg)).items()}
+    return sh.param_layout(shapes, flatten_params(model_param_specs(cfg)),
+                           mesh, rules, sh.data_group_of(mesh))
+
+
+def batch_rows(global_batch: int, microbatches: int, rank: int, size: int,
+               device: "str | torch.device | None" = None) -> torch.Tensor:
+    """The global batch rows that ``data`` rank ``rank`` of ``size`` holds,
+    in the order its train step takes them: its contiguous piece of each
+    microbatch (microbatch i is rows [i·B/mb, (i+1)·B/mb)), so that every
+    microbatch groups the reference's tokens."""
+    if global_batch % (microbatches * size):
+        raise ValueError(f"a batch of {global_batch} does not split into "
+                         f"{microbatches} microbatches over {size} ranks")
+    per = global_batch // (microbatches * size)
+    first = (torch.arange(microbatches) * size + rank) * per
+    return (first[:, None] + torch.arange(per)).reshape(-1).to(device)
+
+
 def make_grad_step(cfg: ModelConfig) -> Callable:
     """-> ``grad_step(params, batch) -> (grads, loss)``: one microbatch's
     gradients of ``loss_fn`` over the nested LM params, keyed by
@@ -81,11 +116,20 @@ def make_grad_step(cfg: ModelConfig) -> Callable:
     Plain autograd, not ``torch.func.grad``: the latter differentiates with
     ``create_graph=True``, which keeps the backward's intermediates alive
     and about doubles a full-width step's activation memory, and it refuses
-    the checkpoint hooks of a rematerialising config."""
+    the checkpoint hooks of a rematerialising config.
 
-    def grad_step(params: Params, batch: Dict[str, torch.Tensor]):
+    Inside a shard context, with the ``layout`` of ``params`` (a rank's
+    blocks), the model gathers the blocks where it uses them and a split
+    leaf's gradient is its block of the ranks' summed gradient; a
+    replicated leaf's is this rank's own share, which the caller sums over
+    the ranks."""
+
+    def grad_step(params: Params, batch: Dict[str, torch.Tensor],
+                  layout: "sh.ParamLayout | None" = None):
         leaves = {k: p.detach().requires_grad_()
                   for k, p in flatten_params(params).items()}
+        if layout is not None:
+            sh.bind_shards(leaves, layout)
         loss = loss_fn(unflatten_params(leaves), cfg, batch)[0]
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return dict(zip(leaves, grads)), loss.detach()
@@ -94,7 +138,8 @@ def make_grad_step(cfg: ModelConfig) -> Callable:
 
 
 def make_train_step(cfg: ModelConfig, shape: InputShape,
-                    microbatches: "int | None" = None
+                    microbatches: "int | None" = None, *, mesh: Any = None,
+                    fsdp: "bool | None" = None
                     ) -> Tuple[Callable, Optimizer]:
     """-> (train_step, opt): ``train_step(params, opt_state, batch) ->
     (params, opt_state, {"loss", "grad_norm"})`` over the nested LM params
@@ -110,13 +155,36 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     a full-width step would hold the old and new params and moments and the
     whole tree's float32 updates at once (83 GB by the dry-run at
     phi-3-vision-4.2b's 3.7 B params with float32 moments).  The arithmetic
-    is the optimizer's, leaf by leaf, so the values are the same bits."""
+    is the optimizer's, leaf by leaf, so the values are the same bits.
+
+    With ``mesh`` (a ``DeviceMesh`` with a ``data`` axis, ``model`` = 1)
+    the step is one rank's, as the reference's ``make_train_step(cfg,
+    mesh, ...)`` under GSPMD: ``params`` and the moments are the rank's
+    blocks of :func:`param_layout` (``fsdp``, default ``cfg.fsdp``) and
+    ``batch`` is its rows of the global batch (:func:`batch_rows`).  The
+    losses, the MoE's capacity and aux loss are the whole (micro)batch's;
+    the split leaves' gradients come reduce-scattered from the backward,
+    the replicated leaves' are summed over the ranks once, after the
+    microbatches; the clip's norm counts every element once; AdamW updates
+    each rank's blocks.  A one-rank mesh gives the one-card step's bits."""
     mb = microbatches or default_microbatches(cfg, shape)
     opt = adamw(3e-4, state_dtype=opt_state_dtype(cfg))
     grad_step = make_grad_step(cfg)
+    layout = rules = None
+    if mesh is not None:
+        fsdp = cfg.fsdp if fsdp is None else fsdp
+        rules = sh.make_rules(mesh, "train", fsdp)
+        layout = param_layout(cfg, mesh, fsdp)
+        if shape.global_batch % (mb * layout.size):
+            raise ValueError(f"a batch of {shape.global_batch} does not "
+                             f"split into {mb} microbatches over "
+                             f"{layout.size} ranks")
 
     def grad_fn(flat: Params, mbatch: Dict[str, torch.Tensor]):
-        return grad_step(unflatten_params(flat), mbatch)
+        if layout is None:
+            return grad_step(unflatten_params(flat), mbatch)
+        with sh.shard_ctx(mesh, rules):
+            return grad_step(unflatten_params(flat), mbatch, layout)
 
     def train_step(params: Params, opt_state: OptState,
                    batch: Dict[str, torch.Tensor]):
@@ -135,7 +203,15 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
             loss = torch.stack(losses).mean()
         else:
             grads, loss = grad_fn(flat, batch)
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        if layout is not None:
+            sharded = layout.sharded
+            grads = {k: g if k in sharded
+                     else all_reduce_sum(g, layout.group)
+                     for k, g in grads.items()}
+            grads, gnorm = clip_by_global_norm(grads, 1.0, layout.group,
+                                               sharded)
+        else:
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
         for k, p in flat.items():
             mu, nu = opt_state.mu[k], opt_state.nu[k]
             ups, one = opt.update({k: grads.pop(k)},

@@ -66,7 +66,8 @@ class ModelConfig:
     sliding_window: int = 0            # 0 = full causal attention
     attention_impl: str = "dense"      # dense | chunked; both run the flash kernel here
 
-    # numerics / memory policy (fsdp: a reference sharding knob, unused here;
+    # numerics / memory policy (fsdp: on a mesh, split the weights' EMBED
+    # rows over the `data` ranks, launch.steps.make_train_step(..., mesh=);
     # remat: stack_apply_train checkpoints each superblock)
     dtype: str = "bfloat16"
     fsdp: bool = True

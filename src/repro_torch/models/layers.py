@@ -9,8 +9,9 @@ reference's weights carry over unchanged (``repro_torch.convert``).  The
 ``*_init`` functions draw from ``repro_torch.rng`` keys with the reference's
 split tree, so they give the reference's weights (to the ulp level ``rng``
 states for normals); a batch of keys (…, 2) gives a batch of models.  The
-reference's ``*_init`` also return logical sharding specs; the port runs on
-one card and returns the params alone.
+reference's ``*_init`` also return logical sharding specs; the port's
+``*_init`` return the params alone and its ``*_specs`` give the specs,
+the same tuples of ``repro_torch.sharding`` names.
 
 Where the reference runs plain XLA, the port runs plain PyTorch (the MoE's
 routing, dispatch and batched expert products, cross-attention) or the
@@ -30,8 +31,9 @@ in float32; attention caches hold RoPE'd keys at absolute positions.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +54,27 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# Functions every drawn leaf passes through, innermost last: a layout's
+# ``shard_leaf`` keeps a rank's block of each leaf as it is drawn
+# (``transformer.init_model(..., layout=...)``).
+_LEAF_HOOKS: List[Callable[[torch.Tensor], torch.Tensor]] = []
+
+
+@contextlib.contextmanager
+def leaf_hook(fn: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Pass every leaf the ``*_init`` functions make through ``fn``, in the
+    order they make them (the order of ``flatten_params``)."""
+    _LEAF_HOOKS.append(fn)
+    try:
+        yield
+    finally:
+        _LEAF_HOOKS.pop()
+
+
+def _leaf(x: torch.Tensor) -> torch.Tensor:
+    return _LEAF_HOOKS[-1](x) if _LEAF_HOOKS else x
+
+
 def _lead(key: torch.Tensor) -> Tuple[int, ...]:
     """The batch shape of a key (…, 2)."""
     return tuple(key.shape[:-1])
@@ -68,13 +91,13 @@ def dense_init(key: torch.Tensor, shape: Tuple[int, ...],
                            device="meta")
     std = float(torch.tensor(scale / math.sqrt(shape[in_axis]),
                              dtype=torch.float32))
-    return rng.normal(key, shape).mul_(std).to(dtype)
+    return _leaf(rng.normal(key, shape).mul_(std).to(dtype))
 
 
 def _full(key: torch.Tensor, shape: Tuple[int, ...], value: float,
           dtype: torch.dtype) -> torch.Tensor:
-    return torch.full(_lead(key) + tuple(shape), value, dtype=dtype,
-                      device=key.device)
+    return _leaf(torch.full(_lead(key) + tuple(shape), value, dtype=dtype,
+                            device=key.device))
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +108,11 @@ def rmsnorm_init(key: torch.Tensor, d: int, dtype: torch.dtype) -> Params:
     """Ones (d,), batched like ``key`` (only its shape and device are
     read)."""
     return {"scale": _full(key, (d,), 1.0, dtype)}
+
+
+def rmsnorm_specs() -> Dict[str, tuple]:
+    """The logical axes of :func:`rmsnorm_init`'s leaves."""
+    return {"scale": (sh.EMBED,)}
 
 
 def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5
@@ -142,6 +170,21 @@ def attention_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
         params["q_norm"] = _full(key, (hd,), 1.0, dt)
         params["k_norm"] = _full(key, (hd,), 1.0, dt)
     return params
+
+
+def attention_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of :func:`attention_init`'s leaves (and of
+    :func:`cross_attention_init`'s, the same shapes)."""
+    specs = {"wq": (sh.EMBED, sh.HEADS, None),
+             "wk": (sh.EMBED, sh.KV_HEADS, None),
+             "wv": (sh.EMBED, sh.KV_HEADS, None),
+             "wo": (sh.HEADS, None, sh.EMBED)}
+    if cfg.qkv_bias:
+        specs.update(bq=(sh.HEADS, None), bk=(sh.KV_HEADS, None),
+                     bv=(sh.KV_HEADS, None))
+    if cfg.qk_norm:
+        specs.update(q_norm=(None,), k_norm=(None,))
+    return specs
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -332,6 +375,14 @@ def mlp_init(key: torch.Tensor, cfg: ModelConfig, d_ff: int) -> Params:
             "w2": dense_init(ks[..., 2, :], (d_ff, d), dt, scale=out_scale)}
 
 
+def mlp_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of :func:`mlp_init`'s leaves."""
+    if cfg.activation == "relu2":
+        return {"w1": (sh.EMBED, sh.FF), "w2": (sh.FF, sh.EMBED)}
+    return {"w_gate": (sh.EMBED, sh.FF), "w_up": (sh.EMBED, sh.FF),
+            "w2": (sh.FF, sh.EMBED)}
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.activation == "relu2":
         h = torch.square(F.relu(x @ p["w1"]))
@@ -360,6 +411,15 @@ def moe_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
         "w2": dense_init(ks[..., 3, :], (e, ff, d), dt, in_axis=1,
                          scale=1.0 / math.sqrt(2 * cfg.num_layers)),
     }
+
+
+def moe_specs() -> Dict[str, tuple]:
+    """The logical axes of :func:`moe_init`'s leaves (the router
+    replicated)."""
+    return {"router": (None, None),
+            "w_gate": (sh.EXPERTS, sh.EMBED, sh.MOE_FF),
+            "w_up": (sh.EXPERTS, sh.EMBED, sh.MOE_FF),
+            "w2": (sh.EXPERTS, sh.MOE_FF, sh.EMBED)}
 
 
 def _expert_act(cfg: ModelConfig):
@@ -411,7 +471,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     (``_GatherRows``), so no index is scattered into and no sum depends on
     the order of atomics.  Out-of-place ops only, so
     ``torch.func.vmap`` and ``grad`` go through; under vmap t and cap are
-    a client's own."""
+    a client's own.
+
+    Inside a shard context (``repro_torch.sharding``) x is this rank's
+    share of the call's rows, lower ranks holding earlier rows.  The
+    reference computes over the whole call, so f_e and p̄_e are means over
+    every rank's tokens, and the capacity path keeps exactly the
+    assignments the whole call keeps (``_capacity_plan``)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -425,7 +491,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
                                         min=1e-9)
     experts = torch.arange(e, device=x.device)
     me = (gate_idx[:, :1] == experts).float().mean(0)
-    aux = e * torch.sum(me * probs.mean(0))
+    pe = probs.mean(0)
+    if sh.data_group() is not None:
+        # Means over the call's tokens on every rank (each holds t of them).
+        share = 1.0 / sh.rank_count()
+        me = sh.sum_over_ranks(me * share)
+        pe = sh.sum_over_ranks(pe * share)
+    aux = e * torch.sum(me * pe)
 
     if cfg.moe_dropless:
         combine = torch.zeros((t, e), dtype=torch.float32,
@@ -481,7 +553,6 @@ def _moe_capacity(p: Params, xt: torch.Tensor, gate_idx: torch.Tensor,
     order -> y (t, d)."""
     t, d = xt.shape
     e, k = cfg.num_experts, cfg.experts_per_token
-    cap = moe_capacity(cfg, t)
     # Each token's k choices in ascending expert id.  The stable sort by
     # expert below meets the (expert, token) pairs in the same order
     # whatever order the choices came in, so the buffers and the drops are
@@ -489,20 +560,15 @@ def _moe_capacity(p: Params, xt: torch.Tensor, gate_idx: torch.Tensor,
     gate_idx, perm = torch.sort(gate_idx, dim=-1)
     gate_vals = torch.gather(gate_vals, 1, perm)
     flat_e = gate_idx.reshape(-1)                                  # (t·k,)
-    order = torch.argsort(flat_e, stable=True)   # sorted -> (token, choice)
+    order, se, pos, keep, starts, fill, cap = _capacity_plan(flat_e, t, cfg)
     inv = _inverse(order)                        # (token, choice) -> sorted
-    se, sg = flat_e[order], gate_vals.reshape(-1)[order]
-    experts = torch.arange(e, device=xt.device)
-    counts = (flat_e[:, None] == experts).sum(0)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(t * k, device=xt.device) - starts[se]
-    keep = pos < cap
+    sg = gate_vals.reshape(-1)[order]
     slot = torch.where(keep, se * cap + pos, 0)  # an assignment's slot
     # Slot (e, p) holds the assignment at sorted position starts[e] + p
-    # when expert e has one there, else a zero.
+    # when expert e has a kept one there, else a zero.
     slots = torch.arange(e * cap, device=xt.device)
     slot_e, slot_p = slots // cap, slots % cap
-    filled = slot_p < counts[slot_e]
+    filled = slot_p < fill[slot_e]
     src = torch.where(filled, starts[slot_e] + slot_p, 0)
     # Dispatch: a token's row once a choice ((token, choice) order), each
     # slot reading its assignment's; the fan-out's backward adds a token's
@@ -514,6 +580,43 @@ def _moe_capacity(p: Params, xt: torch.Tensor, gate_idx: torch.Tensor,
     # one is zero.
     contrib = _GatherRows.apply(ybuf, slot, keep, src, filled)
     return _moe_combine(contrib * sg.to(xt.dtype)[:, None], order, k)
+
+
+def _capacity_plan(flat_e: torch.Tensor, tokens: int, cfg: ModelConfig):
+    """Which assignments the capacity path keeps, and where: the experts
+    ``flat_e`` (t·k,) of t tokens' choices in (token, choice) order ->
+    ``(order, se, pos, keep, starts, fill, cap)``: the stable sort by
+    expert (sorted position -> (token, choice)), the sorted experts, each
+    sorted assignment's place among its expert's, whether it is kept, where
+    each expert's assignments start in the sorted order, how many of each
+    expert's are kept (E,), and the buffers' capacity.
+
+    Outside a shard context the call is these t tokens: cap =
+    ``moe_capacity(cfg, t)`` and an expert keeps its first cap
+    assignments.  Inside one, the call is every rank's tokens (G·t, the
+    ranks holding equal shares) and an expert's buffer fills in global
+    token order: the ranks' per-expert counts are all-gathered, and this
+    rank's assignment at place p of expert e stands at place p plus the
+    lower ranks' count of e.  It is kept if that is below cap, so the
+    rank keeps exactly what the whole call keeps and fills only its own
+    ``fill[e]`` slots of expert e's (E, cap) buffer."""
+    e = cfg.num_experts
+    group = sh.data_group()
+    cap = moe_capacity(cfg, tokens * sh.rank_count())
+    order = torch.argsort(flat_e, stable=True)   # sorted -> (token, choice)
+    se = flat_e[order]
+    experts = torch.arange(e, device=flat_e.device)
+    counts = (flat_e[:, None] == experts).sum(0)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(flat_e.shape[0], device=flat_e.device) - starts[se]
+    if group is None:
+        return order, se, pos, pos < cap, starts, counts, cap
+    from ..core.aggregation import all_gather_tiled
+    every = all_gather_tiled(counts.to(torch.int32)[None], group)  # (G, E)
+    before = every[:sh.rank_index()].sum(0).to(counts.dtype)
+    room = torch.clamp(cap - before, min=0)
+    return (order, se, pos, pos < room[se], starts,
+            torch.minimum(counts, room), cap)
 
 
 def _inverse(perm: torch.Tensor) -> torch.Tensor:
@@ -557,13 +660,22 @@ def mamba_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
         "conv_w": dense_init(ks[..., 1, :], (cfg.ssm_conv_width, conv_dim),
                              dt, in_axis=0),
         "conv_b": _full(key, (conv_dim,), 0.0, dt),
-        "A_log": a_log.expand(_lead(key) + (h,)).clone(),
+        "A_log": _leaf(a_log.expand(_lead(key) + (h,)).clone()),
         "D": _full(key, (h,), 1.0, torch.float32),
-        "dt_bias": dt_bias.expand(_lead(key) + (h,)).clone(),
+        "dt_bias": _leaf(dt_bias.expand(_lead(key) + (h,)).clone()),
         "norm_scale": _full(key, (din,), 1.0, dt),
         "out_proj": dense_init(ks[..., 4, :], (din, d), dt,
                                scale=1.0 / math.sqrt(2 * cfg.num_layers)),
     }
+
+
+def mamba_specs() -> Dict[str, tuple]:
+    """The logical axes of :func:`mamba_init`'s leaves."""
+    return {"in_proj": (sh.EMBED, sh.SSM_INNER),
+            "conv_w": (None, sh.SSM_INNER), "conv_b": (sh.SSM_INNER,),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "norm_scale": (sh.SSM_INNER,),
+            "out_proj": (sh.SSM_INNER, sh.EMBED)}
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int,
@@ -667,6 +779,11 @@ def mamba_apply(p: Params, u: torch.Tensor, cfg: ModelConfig, *,
 def embed_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
     return {"table": dense_init(key, (cfg.vocab_size, cfg.d_model),
                                 _dtype(cfg), in_axis=1)}
+
+
+def embed_specs() -> Dict[str, tuple]:
+    """The logical axes of :func:`embed_init`'s table."""
+    return {"table": (sh.VOCAB, sh.EMBED)}
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:

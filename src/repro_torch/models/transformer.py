@@ -11,8 +11,14 @@ of block params and a per-layer list of caches and runs a Python loop;
 ``stack_plan`` describes the reference's layout (for
 ``repro_torch.convert``) and its superblocks, which the training forward
 checkpoints as the reference does (``cfg.remat``, ``cfg.remat_policy``:
-``stack_apply_train``).  The reference's sharding constraints are
-single-device no-ops and are dropped.  The encoder-decoder (whisper) is
+``stack_apply_train``).  ``model_param_specs`` gives the logical axes of
+the params, layer by layer.  The reference's activation constraints are
+kept (``sharding.constrain``): the identity on a rank's own rows.  Inside a
+shard context the FSDP weights are gathered where they are used: a block's
+at the top of its turn in the training superblock (so under remat the
+backward gathers them again), the embedding, final norm, projector and the
+encoder-decoder's blocks at their uses (``sharding.gather``).  The
+encoder-decoder (whisper) is
 unrolled in the reference too: its encoder and decoder blocks are tuples a
 layer, here lists.  The audio encoder's bidirectional attention goes
 through the flash kernel with ``causal=False``; cross-attention stays plain
@@ -41,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from .. import rng
+from .. import sharding as sh
 from ..device import resolve_device
 from ..kernels.flash_attention import gqa_flash_attention
 from . import layers as L
@@ -85,6 +92,29 @@ def block_init(key: torch.Tensor, cfg: ModelConfig, kind: Kind,
     return params
 
 
+def block_specs(cfg: ModelConfig, kind: Kind,
+                cross_attention: bool = False) -> Params:
+    """The logical axes of :func:`block_init`'s leaves."""
+    mixer, ffn = kind
+    specs: Params = {"mixer_norm": L.rmsnorm_specs()}
+    if mixer == "attn":
+        specs["attn"] = L.attention_specs(cfg)
+    else:
+        specs["mamba"] = L.mamba_specs()
+    if cross_attention:
+        specs["cross_norm"] = L.rmsnorm_specs()
+        specs["cross_attn"] = L.attention_specs(cfg)
+    if ffn != "none":
+        specs["ffn_norm"] = L.rmsnorm_specs()
+        if ffn in ("moe", "moe+dense"):
+            specs["moe"] = L.moe_specs()
+            if ffn == "moe+dense":
+                specs["dense"] = L.mlp_specs(cfg)
+        else:
+            specs["mlp"] = L.mlp_specs(cfg)
+    return specs
+
+
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Kind, *,
                 mode: str = "train", cache: Optional[Dict] = None,
                 enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -113,7 +143,7 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Kind, *,
     else:
         mix, new_cache = L.mamba_apply(p["mamba"], h, cfg, mode=mode,
                                        cache=cache)
-    x = x + mix
+    x = sh.constrain(x + mix, sh.BATCH, sh.SEQ, None)
     if enc_kv is not None:
         hc = L.rmsnorm_apply(p["cross_norm"], x, cfg.norm_eps)
         x = x + L.cross_attention_apply(p["cross_attn"], hc, enc_kv, cfg)
@@ -126,6 +156,7 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: Kind, *,
             x = x + mo
         else:
             x = x + L.mlp_apply(p["mlp"], h2, cfg)
+        x = sh.constrain(x, sh.BATCH, sh.SEQ, None)
     return x, new_cache, aux
 
 
@@ -182,6 +213,15 @@ def stack_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
     return {"blocks": blocks}
 
 
+def stack_specs(cfg: ModelConfig) -> Params:
+    """The logical axes of :func:`stack_init`'s params: {"blocks": [each
+    layer's :func:`block_specs`]}.  The reference's tree for a stacked
+    (``scan_layers``) stack is ``stack_plan``'s period of block specs, each
+    with a leading None for the repeat axis; unstacked, layer ``r * period
+    + j`` takes block j's."""
+    return {"blocks": [block_specs(cfg, kind) for kind in cfg.layer_kinds()]}
+
+
 # The products that ``remat_policy="dots"`` saves, as the reference's
 # ``dots_with_no_batch_dims_saveable`` saves dot_generals without batch
 # dimensions: torch folds a (B, S, D) @ (D, F) projection or MLP product into
@@ -198,12 +238,17 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _superblock(blocks: List[Params], x: torch.Tensor, cfg: ModelConfig,
                 kinds: List[Kind], window: int):
-    """The blocks over x -> (x, each block's aux loss)."""
+    """The blocks over x -> (x, each block's aux loss).  Inside a shard
+    context each block's weights are gathered at its turn (the
+    reference's ``_constrain_sliced_blocks`` keeps GSPMD from gathering
+    the whole stack at once)."""
+    x = sh.constrain(x, sh.BATCH, sh.RESIDUAL_SEQ, None)
     auxes = []
     for bp, kind in zip(blocks, kinds):
-        x, _, a = block_apply(bp, x, cfg, kind, mode="train", window=window)
+        x, _, a = block_apply(sh.gather_tree(bp), x, cfg, kind, mode="train",
+                              window=window)
         auxes.append(a)
-    return (x, *auxes)
+    return (sh.constrain(x, sh.BATCH, sh.RESIDUAL_SEQ, None), *auxes)
 
 
 def stack_apply_train(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -268,7 +313,8 @@ def stack_apply_cached(params: Params, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_model(key: "rng.KeyLike | None", cfg: ModelConfig,
-               device: "str | torch.device | None" = None) -> Params:
+               device: "str | torch.device | None" = None, *,
+               layout: "sh.ParamLayout | None" = None) -> Params:
     """The reference's random weights for ``key`` (``PRNGKey(0)`` when
     None) on ``device``: ``split(key, 6)``, the embedding from slot 0 and
     the stack from slot 1; a VLM's projector ``w1`` (vision_embed_dim, d)
@@ -277,7 +323,14 @@ def init_model(key: "rng.KeyLike | None", cfg: ModelConfig,
     (with cross-attention, in place of the stack) block i from
     ``split(ks[5], num_layers)[i]``.  A batch of keys (…, 2) gives a batch
     of models, every leaf (…, *shape).  Returns the params alone; the
-    reference also returns sharding specs."""
+    reference also returns sharding specs (:func:`model_param_specs`).
+
+    With a ``layout`` (``sharding.ParamLayout`` over the flat names) each
+    leaf is cut to this rank's block as soon as it is drawn, so the peak is
+    the blocks kept so far plus one whole leaf; the blocks are bit-equal to
+    the whole init's, sliced."""
+    if layout is not None:
+        return _init_sharded(key, cfg, device, layout)
     device = resolve_device(device)
     key = rng.as_key(rng.PRNGKey(0) if key is None else key).to(device)
     ks = rng.split(key, 6)
@@ -303,6 +356,38 @@ def init_model(key: "rng.KeyLike | None", cfg: ModelConfig,
                                (cfg.vision_embed_dim, cfg.d_model), dt),
             "w2": L.dense_init(ks[..., 3, :], (cfg.d_model, cfg.d_model), dt)}
     return params
+
+
+def _init_sharded(key, cfg: ModelConfig, device, layout: "sh.ParamLayout"
+                  ) -> Params:
+    names = iter(layout.dims)
+    with L.leaf_hook(lambda x: layout.shard_leaf(next(names), x)):
+        params = init_model(key, cfg, device)
+    left = next(names, None)
+    if left is not None or list(flatten_params(params)) != list(layout.dims):
+        raise ValueError(f"the layout does not match {cfg.name}'s leaves "
+                         f"(first left over: {left})")
+    return params
+
+
+def model_param_specs(cfg: ModelConfig) -> Params:
+    """The logical-axes tree of :func:`init_model`'s params, leaf for leaf
+    (no weights are made).  It is the reference's tree with its stacked
+    layer axis unstacked (:func:`stack_specs`)."""
+    specs: Params = {"embed": L.embed_specs()}
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = {"blocks": [
+            block_specs(cfg, ENC_DEC_KIND)
+            for _ in range(cfg.encoder_layers)]}
+        specs["stack"] = {"blocks": [
+            block_specs(cfg, ENC_DEC_KIND, cross_attention=True)
+            for _ in range(cfg.num_layers)]}
+    else:
+        specs["stack"] = stack_specs(cfg)
+    specs["final_norm"] = L.rmsnorm_specs()
+    if cfg.arch_type == "vlm":
+        specs["projector"] = {"w1": (None, sh.EMBED), "w2": (sh.EMBED, None)}
+    return specs
 
 
 def flatten_params(params: Params, prefix: str = "") -> Dict[str, Any]:
@@ -350,8 +435,8 @@ def encode_audio(params: Params, frames: torch.Tensor, cfg: ModelConfig
     final norm, as the reference) -> (B, F, d)."""
     x = frames.to(L._dtype(cfg))
     for bp in params["encoder"]["blocks"]:
-        x, _, _ = block_apply(bp, x, cfg, ENC_DEC_KIND, mode="train",
-                              bidirectional=True)
+        x, _, _ = block_apply(sh.gather_tree(bp), x, cfg, ENC_DEC_KIND,
+                              mode="train", bidirectional=True)
     return x
 
 
@@ -361,13 +446,13 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
     after a VLM's projected patches (``patch_embeds`` cast to the
     embedding's dtype, then ``gelu(pe @ w1) @ w2``, tanh gelu as
     ``jax.nn.gelu``'s default)."""
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    x = L.embed_apply(sh.gather_tree(params["embed"]), batch["tokens"])
     if cfg.arch_type == "vlm":
-        proj = params["projector"]
+        proj = sh.gather_tree(params["projector"])
         pe = batch["patch_embeds"].to(x.dtype)
         h = F.gelu(pe @ proj["w1"], approximate="tanh") @ proj["w2"]
         x = torch.cat([h, x], dim=1)
-    return x
+    return sh.constrain(x, sh.BATCH, sh.SEQ, None)
 
 
 def _decoder_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -379,6 +464,7 @@ def _decoder_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
     blocks' self caches, their cross K/V as caches)."""
     new_self, cross = [], []
     for i, bp in enumerate(params["stack"]["blocks"]):
+        bp = sh.gather_tree(bp)
         kv = L.encode_cross_kv(bp["cross_attn"], enc, cfg)
         x, nc, _ = block_apply(bp, x, cfg, ENC_DEC_KIND, mode=mode,
                                cache=None if caches is None else caches[i],
@@ -400,26 +486,31 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     else:
         x, aux = stack_apply_train(params["stack"], x, cfg,
                                    window=cfg.sliding_window)
-    x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed_apply(params["embed"], x), aux
+    x = L.rmsnorm_apply(sh.gather_tree(params["final_norm"]), x, cfg.norm_eps)
+    logits = L.unembed_apply(sh.gather_tree(params["embed"]), x)
+    return sh.constrain(logits, sh.BATCH, sh.SEQ, sh.VOCAB), aux
 
 
 def token_ce(logits: torch.Tensor, targets: torch.Tensor, *,
              with_accuracy: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked next-token CE over full-sequence logits (-1 = ignore id) ->
-    (loss, {"ntok"[, "accuracy"]}), as the reference defines it."""
+    (loss, {"ntok"[, "accuracy"]}), as the reference defines it.  Inside a
+    shard context the logits are this rank's rows of the (micro)batch, and
+    the sums and the valid count are the whole batch's
+    (``sharding.sum_over_ranks``)."""
     logits = logits.float()
     valid = targets >= 0
     tsafe = torch.where(valid, targets, 0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tsafe[..., None].long())[..., 0]
     nll = (logz - gold) * valid
-    denom = torch.clamp(valid.sum(), min=1)
-    loss = nll.sum() / denom
+    denom = torch.clamp(sh.sum_over_ranks(valid.sum()), min=1)
+    loss = sh.sum_over_ranks(nll.sum() / denom)
     m: Dict[str, torch.Tensor] = {"ntok": denom}
     if with_accuracy:
-        m["accuracy"] = ((logits.argmax(-1) == tsafe) * valid).sum() / denom
+        m["accuracy"] = sh.sum_over_ranks(
+            ((logits.argmax(-1) == tsafe) * valid).sum() / denom)
     return loss, m
 
 
@@ -504,8 +595,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 __all__ = ["block_apply", "block_cache_init", "block_cache_specs",
-           "block_init", "decode_step", "encode_audio",
+           "block_init", "block_specs", "decode_step", "encode_audio",
            "flatten_params", "forward", "init_caches", "init_model",
-           "loss_fn", "prefill", "stack_apply_cached", "stack_apply_train",
-           "stack_cache_specs", "stack_init", "stack_plan", "token_ce",
-           "unflatten_params"]
+           "loss_fn", "model_param_specs", "prefill", "stack_apply_cached",
+           "stack_apply_train", "stack_cache_specs", "stack_init",
+           "stack_plan", "stack_specs", "token_ce", "unflatten_params"]

@@ -19,7 +19,7 @@ counter updates as one.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Collection, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,18 +142,29 @@ def apply_updates(params: Params, updates: Params) -> Params:
             for k, p in params.items()}
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    total = sum(torch.sum(torch.square(g.to(torch.float32)))
-                for g in tree.values())
-    return torch.sqrt(total)
+def global_norm(tree: Params, group: Any = None,
+                sharded: Collection[str] = ()) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    With a process ``group``, the leaves named in ``sharded`` hold one
+    rank's block each: their sums are summed over the ranks (one
+    all-reduce), and every other leaf, whole on every rank, counts once."""
+    sums = {k: torch.sum(torch.square(g.to(torch.float32)))
+            for k, g in tree.items()}
+    split = [k for k in sums if k in sharded]
+    if group is not None and split:
+        from ..core.aggregation import all_reduce_sum
+        whole = all_reduce_sum(torch.stack([sums[k] for k in split]), group)
+        sums.update(zip(split, whole.unbind()))
+    return torch.sqrt(sum(sums.values()))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float, group: Any = None,
+                        sharded: Collection[str] = ()
                         ) -> Tuple[Params, torch.Tensor]:
     """Every leaf times ``min(1, max_norm / max(norm, 1e-12))`` (the factor
-    cast to the leaf's dtype) -> (clipped, norm)."""
-    norm = global_norm(grads)
+    cast to the leaf's dtype) -> (clipped, norm); ``group`` and
+    ``sharded`` as :func:`global_norm`'s."""
+    norm = global_norm(grads, group, sharded)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
 

@@ -12,20 +12,41 @@ batches over (``pod``, ``data``).  Decode-mode rules also shard the KV cache's
 *sequence* dimension over ``model`` (flash-decoding style), since the cache
 is the dominant memory term of one-token steps.
 
-These are pure functions of the mesh's axis names and sizes: ``mesh`` is a
-mapping ``{axis name: size}`` or a ``torch.distributed.DeviceMesh`` (its
-``mesh_dim_names`` and ``shape``).  A spec is a tuple of mesh-axis entries
-(a name, a tuple of names, or None), trailing Nones trimmed, where the
-reference returns a ``PartitionSpec`` of the same entries.
+The rule tables are pure functions of the mesh's axis names and sizes:
+``mesh`` is a mapping ``{axis name: size}`` or a ``torch.distributed``
+``DeviceMesh`` (its ``mesh_dim_names`` and ``shape``).  A spec is a tuple of
+mesh-axis entries (a name, a tuple of names, or None), trailing Nones
+trimmed, where the reference returns a ``PartitionSpec`` of the same
+entries.
 
-Left out, because they place arrays on a multi-device mesh inside ``jit``:
-``shardings_for``, ``tree_to_shardings``, ``shard_ctx``, ``constrain`` and
-``tree_to_specs``.  The port runs one card, where nothing is placed, and its
-multi-rank engine (``fl/sharded.py``) calls ``torch.distributed`` directly.
+Placement over a ``DeviceMesh`` (``launch.mesh.make_debug_mesh``): the
+reference pins shardings inside ``jit`` and GSPMD inserts the collectives;
+the port runs one process a card and calls them itself.  What it places is
+data parallelism with ZeRO-style FSDP over the ``data`` axis:
+
+* ``shardings_for``/``tree_to_shardings``/``tree_to_specs`` give a spec
+  tree, as the reference's do; ``ParamLayout`` reads from it the dimension
+  each weight's ``EMBED`` axis splits over ``data`` (None: replicated), and
+  shards and gathers a flat param tree exactly.
+* Inside ``shard_ctx(mesh, rules)`` a rank holds its own rows of every
+  activation (``BATCH`` over ``data``), so ``constrain`` is the identity on
+  them; it raises where the rules would split an activation over a
+  ``model`` axis, or ``RESIDUAL_SEQ``, of more than one card (tensor and
+  sequence parallelism are not ported).
+* ``gather`` all-gathers a weight bound by ``bind_shards`` where it is used
+  (its backward reduce-scatters the gradient), and ``sum_over_ranks`` sums
+  a loss term over the ranks, each rank's graph keeping its own share of
+  the gradient.  Outside a shard context both are the identity, so the
+  one-card paths and the FL engines' ``vmap(grad)`` never meet a collective.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence, Tuple
+import contextlib
+import dataclasses
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
+
+import torch
 
 # Logical axis vocabulary.
 BATCH = "batch"            # global batch / clients
@@ -134,7 +155,317 @@ def spec_for_shape(shape: Sequence[int], axes: Sequence["str | None"],
     return _trim(parts)
 
 
+# ---------------------------------------------------------------------------
+# Spec trees
+# ---------------------------------------------------------------------------
+
+def is_axes_tuple(x) -> bool:
+    """True for a logical-axes leaf: a (possibly empty) tuple of names/None."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) for e in x)
+
+
+def _map_axes(fn: Callable, logical: Any, *trees: Any) -> Any:
+    """``fn(axes, *leaves)`` over a logical-axes tree (nested dicts, lists
+    and tuples whose leaves are axes tuples or None) and any trees of the
+    same structure."""
+    if logical is None or is_axes_tuple(logical):
+        return fn(logical, *trees)
+    if isinstance(logical, Mapping):
+        return {k: _map_axes(fn, v, *(t[k] for t in trees))
+                for k, v in logical.items()}
+    if isinstance(logical, (list, tuple)):
+        return type(logical)(_map_axes(fn, v, *(t[i] for t in trees))
+                             for i, v in enumerate(logical))
+    raise TypeError(f"bad axes leaf {logical!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh, as the reference's ``jax.sharding.NamedSharding``."""
+    mesh: Any
+    spec: Spec
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The tensor dimension that mesh axis ``axis`` splits, or None."""
+        for dim, entry in enumerate(self.spec):
+            if entry == axis or (isinstance(entry, tuple) and axis in entry):
+                return dim
+        return None
+
+
+def shardings_for(abstract: Any, logical: Any, mesh: Any,
+                  rules: Mapping[str, Any]) -> Any:
+    """Shape-aware ``NamedSharding``s for ``abstract`` (a tree of anything
+    with a ``shape``: ``meta`` tensors) annotated by the matching
+    ``logical`` axes tree; axes shorter than a leaf's rank are padded with
+    None."""
+    def one(axes, leaf):
+        shape = tuple(leaf.shape)
+        axes = (tuple(axes or ()) + (None,) * len(shape))[:len(shape)]
+        return NamedSharding(mesh, spec_for_shape(shape, axes, mesh, rules))
+
+    return _map_axes(one, logical, abstract)
+
+
+def tree_to_shardings(logical_tree: Any, mesh: Any,
+                      rules: Mapping[str, Any]) -> Any:
+    """A tree of logical-axis tuples -> ``NamedSharding``s on ``mesh``."""
+    return _map_axes(lambda axes: NamedSharding(
+        mesh, logical_to_spec(axes, rules)), logical_tree)
+
+
+def tree_to_specs(logical_tree: Any, rules: Mapping[str, Any]) -> Any:
+    """The same, as raw specs."""
+    return _map_axes(lambda axes: logical_to_spec(axes, rules), logical_tree)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: each weight's EMBED dimension split over the `data` axis
+# ---------------------------------------------------------------------------
+
+def _group_size(group) -> int:
+    return 1 if group is None else torch.distributed.get_world_size(group)
+
+
+def _group_rank(group) -> int:
+    return 0 if group is None else torch.distributed.get_rank(group)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of ``dim`` concatenated in rank order: gathered
+    as (G, *block), then one copy into place (none for dim 0)."""
+    from .core.aggregation import all_gather_tiled
+    out = all_gather_tiled(x.contiguous()[None], group)
+    shape = list(x.shape)
+    shape[dim] *= out.shape[0]
+    return out.movedim(0, dim).reshape(shape)
+
+
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` summed over the ranks, each keeping its block of ``dim``:
+    one copy into (G, *block) (none for dim 0), then the reduce-scatter."""
+    from .core.aggregation import reduce_scatter_tiled
+    g = _group_size(group)
+    blocks = x.unflatten(dim, (g, x.shape[dim] // g)).movedim(dim, 0)
+    return reduce_scatter_tiled(blocks.contiguous(), group)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamLayout:
+    """Where a flat param tree's leaves live on the ``data`` ranks of
+    ``group``: ``dims[name]`` is the dimension of leaf ``name`` (full shape
+    ``shapes[name]``) whose contiguous blocks the ranks hold, rank g block
+    g; None keeps the whole leaf on every rank."""
+    dims: Dict[str, Optional[int]]
+    shapes: Dict[str, Tuple[int, ...]]
+    group: Any = None
+
+    @property
+    def size(self) -> int:
+        return _group_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return _group_rank(self.group)
+
+    @property
+    def sharded(self) -> frozenset:
+        return frozenset(k for k, d in self.dims.items() if d is not None)
+
+    def shard_leaf(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``x`` (a copy, so that the
+        whole can be freed), or ``x`` itself where it is replicated."""
+        if tuple(x.shape) != self.shapes[name]:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, the layout "
+                             f"has {self.shapes[name]}")
+        dim = self.dims[name]
+        if dim is None:
+            return x
+        return x.chunk(self.size, dim)[self.rank].clone()
+
+    def shard(self, flat: Mapping[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        return {k: self.shard_leaf(k, x) for k, x in flat.items()}
+
+    def gather_leaf(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        dim = self.dims[name]
+        return x if dim is None else _gather_dim(x, dim, self.group)
+
+    def gather(self, flat: Mapping[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """The whole leaves from every rank's blocks (on every rank)."""
+        return {k: self.gather_leaf(k, x) for k, x in flat.items()}
+
+
+def param_layout(shapes: Mapping[str, Sequence[int]],
+                 specs: Mapping[str, Any], mesh: Any,
+                 rules: Mapping[str, Any], group: Any = None) -> ParamLayout:
+    """The layout of flat leaves of ``shapes`` annotated by the flat
+    logical ``specs`` (same keys, same order): a leaf is split on the
+    dimension that ``spec_for_shape`` gives the ``data`` axis (its
+    ``EMBED`` axis when the rules' FSDP is on and the mesh's ``data`` size
+    divides it), else replicated."""
+    dims, full = {}, {}
+    for name, shape in shapes.items():
+        shape = tuple(int(s) for s in shape)
+        axes = (tuple(specs[name] or ()) + (None,) * len(shape))[:len(shape)]
+        dims[name] = NamedSharding(
+            mesh, spec_for_shape(shape, axes, mesh, rules)).dim_of("data")
+        full[name] = shape
+    return ParamLayout(dims, full, group)
+
+
+# ---------------------------------------------------------------------------
+# The shard context: activation constraints, gathers and global sums
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Context:
+    mesh: Any
+    rules: Mapping[str, Any]
+    sizes: Dict[str, int]
+    group: Any
+    bound: Dict[int, Tuple[torch.Tensor, int]] = dataclasses.field(
+        default_factory=dict)
+
+
+_ACTIVE: List[_Context] = []
+
+
+def data_group_of(mesh: Any):
+    """The process group of a ``DeviceMesh``'s ``data`` axis.  None for a
+    mapping of axis sizes (rules only, nothing to call), and for a ``data``
+    axis of one rank: there every collective is the identity, so the mesh
+    step runs the one-card program, bit for bit and at its cost."""
+    if isinstance(mesh, Mapping) or mesh_axes(mesh).get("data", 1) == 1:
+        return None
+    return mesh.get_group("data")
+
+
+@contextlib.contextmanager
+def shard_ctx(mesh: Any, rules: Mapping[str, Any]) -> Iterator[None]:
+    """Run the model code inside as one rank of ``mesh`` under ``rules``."""
+    _ACTIVE.append(_Context(mesh, rules, mesh_axes(mesh),
+                            data_group_of(mesh)))
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+def constrain(x: torch.Tensor, *logical_axes: "str | None") -> torch.Tensor:
+    """``x`` itself: a rank holds its own rows of an activation.  Raises if
+    the active rules would split one of ``logical_axes`` over a ``model``
+    axis, or over ``RESIDUAL_SEQ``, of more than one card."""
+    if not _ACTIVE:
+        return x
+    ctx = _ACTIVE[-1]
+    for ax, entry in zip(logical_axes, logical_to_spec(logical_axes,
+                                                       ctx.rules)):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if entry is None or _axis_size(ctx.sizes, entry) == 1:
+            continue
+        if "model" in names or ax == RESIDUAL_SEQ:
+            raise NotImplementedError(
+                f"activation axis {ax!r} on mesh axes {entry!r} of size "
+                f"{_axis_size(ctx.sizes, entry)}: tensor and sequence "
+                f"parallelism are not ported")
+    return x
+
+
+def data_group():
+    """The active shard context's ``data`` group, or None."""
+    return _ACTIVE[-1].group if _ACTIVE else None
+
+
+def bind_shards(leaves: Mapping[str, torch.Tensor],
+                layout: ParamLayout) -> None:
+    """Make the active context's :func:`gather` gather ``leaves`` (this
+    rank's blocks, the very tensor objects the model code will read) along
+    their ``layout`` dimension; replaces what was bound before.  One rank
+    holds every block whole, so nothing is bound there."""
+    ctx = _ACTIVE[-1]
+    ctx.bound = {id(x): (x, layout.dims[k]) for k, x in leaves.items()
+                 if layout.dims[k] is not None and layout.size > 1}
+
+
+class _GatherShard(torch.autograd.Function):
+    """All-gather of a rank's block along ``dim``; the backward sums the
+    whole gradient over the ranks and keeps the rank's block
+    (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter_dim(dy, ctx.dim, ctx.group), None, None
+
+
+def gather(x: torch.Tensor) -> torch.Tensor:
+    """The whole weight of a bound shard (see :func:`bind_shards`); any
+    other tensor, or any tensor outside a shard context, itself."""
+    if not _ACTIVE:
+        return x
+    ctx = _ACTIVE[-1]
+    hit = ctx.bound.get(id(x))
+    if hit is None or hit[0] is not x:
+        return x
+    return _GatherShard.apply(x, hit[1], ctx.group)
+
+
+def gather_tree(tree: Any) -> Any:
+    """:func:`gather` over the leaves of a nested dict/list of tensors."""
+    if isinstance(tree, Mapping):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_tree(v) for v in tree]
+    return gather(tree)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of ``x`` over the ranks; the backward passes the gradient
+    through unchanged.  Every rank adds the same sum to its loss, so each
+    rank's graph carries the gradient of the sum with respect to its own
+    term, and the ranks' gradients summed (the FSDP reduce-scatter, the
+    replicated leaves' all-reduce) are the gradient of the global loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from .core.aggregation import all_reduce_sum
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the active context's ``data`` ranks (see
+    ``_SumOverRanks`` for its gradient); ``x`` itself outside one."""
+    group = data_group()
+    return x if group is None else _SumOverRanks.apply(x, group)
+
+
+def rank_count() -> int:
+    """The number of ``data`` ranks of the active context (1 outside)."""
+    return _group_size(data_group())
+
+
+def rank_index() -> int:
+    """This process's rank on the active context's ``data`` axis (0
+    outside)."""
+    return _group_rank(data_group())
+
+
 __all__ = ["BATCH", "CLIENTS", "EMBED", "EXPERTS", "FF", "HEADS", "HEAD_DIM",
-           "KV_HEADS", "KV_SEQ", "MOE_FF", "RESIDUAL_SEQ", "SEQ", "SSM_INNER",
-           "SSM_STATE", "VOCAB", "logical_to_spec", "make_rules", "mesh_axes",
-           "spec_for_shape"]
+           "KV_HEADS", "KV_SEQ", "MOE_FF", "NamedSharding", "ParamLayout",
+           "RESIDUAL_SEQ", "SEQ", "SSM_INNER", "SSM_STATE", "VOCAB",
+           "bind_shards", "constrain", "data_group", "data_group_of",
+           "gather", "gather_tree", "is_axes_tuple", "logical_to_spec",
+           "make_rules", "mesh_axes", "param_layout", "rank_count",
+           "rank_index", "shard_ctx", "shardings_for", "spec_for_shape",
+           "sum_over_ranks", "tree_to_shardings", "tree_to_specs"]

@@ -1,8 +1,8 @@
 """The reference's public names in the port, on the CPU.
 
 Each package of the port exports the names its counterpart in ``repro``
-exports, apart from the mesh-only ones that ROADMAP.md lists as having no
-meaning on one card (``MESH_ONLY``).  The names that compute something are
+exports, apart from the ones that ROADMAP.md lists as left out
+(``MESH_ONLY``).  The names that compute something are
 held to the reference on the same NumPy-made inputs: counts and integer
 statistics bit-equal; the weighted means within float32 rounding (rtol and
 atol 1e-6: one rounding a term, summed in another order), as
@@ -37,11 +37,10 @@ from repro_torch.kernels.weighted_agg import ops as tops  # noqa: E402
 from repro_torch.obs import registry as tregistry  # noqa: E402
 from repro_torch.obs import trace as ttrace  # noqa: E402
 
-# Exported by the reference and left out of the port, each because one card
-# gives it no meaning (ROADMAP.md, Queue 1, "Left out").
+# Exported by the reference and left out of the port (ROADMAP.md, Queue 1,
+# "Left out").
 MESH_ONLY = {
     "fl": {"make_trial_fn"},        # the port's GridRun carries a trial axis
-    "models": {"model_param_specs"},    # mesh placement of the params
 }
 PACKAGES = ("kernels", "core", "fl", "models", "configs", "obs")
 # Module-level names of the reference's modules that the port's mirrors
